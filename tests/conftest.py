@@ -28,3 +28,10 @@ import warnings  # noqa: E402
 # donation targets TPU — the warning is expected noise here.
 warnings.filterwarnings(
     "ignore", message="Some donated buffers were not usable")
+
+
+def pytest_configure(config):
+    # tests that need a CUDA card decide so inside the test and skip here
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (lilliput_tpu_torch kernels); "
+        "skips without one")
