@@ -2,20 +2,28 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card; builds the host entropy library (g++) and the 4:2:0
-decode kernel (nvcc, sm_90a) from the sources in this checkout, then:
+Needs one CUDA card; builds the host entropy library (g++) and the decode
+kernels (nvcc, sm_90a; one nvcc per source, all at once) from the sources
+in this checkout, then, for each chroma layout (4:2:0, 4:2:2, 4:4:0, 4:4:4;
+fixtures tests/assets/bench_1080p{,_422,_440,_444}.jpg):
 
 1. device and builds: card name and power limit, versions, build seconds;
-2. the decode kernel against its plain PyTorch version on the card, both
-   epilogues, at the serving shape (the fixture's window coefficients x128)
-   and at odd 4:2:0 geometries with per-image tables (q30/85/95);
-3. the main path: JpegTranscodePipeline(bench_1080p.jpg -> 256x256 Fit
-   JPEG, q85, batch 128).transcode_pipelined over 3 batches, one holding a
-   corrupt buffer: the kernel must launch once per device step, every
-   output must be a 256x256 3-component JPEG, the corrupt buffer must fail
-   only its own slot, the entropy round trip must be lossless, and the
-   device step must agree with the same step through the plain version;
-4. times (CUDA events; host clock around work that ends in a sync).
+2. the layout's decode kernel against its plain PyTorch version on the
+   card, both epilogues, at the serving shape (the fixture's window
+   coefficients x128) and at odd geometries with per-image tables
+   (q30/85/95);
+3. the main path: JpegTranscodePipeline(fixture -> 256x256 Fit JPEG, q85,
+   batch 128).transcode_pipelined, with every launch count set to 0 just
+   before and read just after: the layout's kernel must launch once per
+   device step and no other kernel at all, every output must be a 256x256
+   3-component JPEG, and the device step must agree with the same step
+   through the plain version. 4:2:0 runs 3 batches, one holding a corrupt
+   buffer that must fail only its own slot, and checks that the entropy
+   round trip is lossless; the other layouts run 2 batches;
+4. times (CUDA events; host clock around work that ends in a sync): each
+   kernel and its plain version, each layout's device step and end-to-end
+   rate, the 4:2:0 stage breakdown, and the device's busy share under
+   torch.profiler.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -35,6 +43,20 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "assets", "bench_1080p.jpg")
+#: chroma layout -> (h2, v2, kernel, fixture, TPU kernel it replaces)
+LAYOUTS = {
+    sub: (h2, v2, "decode" + sub,
+          FIXTURE if sub == "420" else FIXTURE.replace(".jpg", f"_{sub}.jpg"),
+          f"lilliput_tpu/ops/pallas_kernels.py:{line}")
+    for sub, h2, v2, line in (("420", True, True, 390),
+                              ("422", True, False, 544),
+                              ("440", False, True, 670),
+                              ("444", False, False, 771))}
+KERNEL_SOURCES = {"decode420": "lilliput_tpu_torch/csrc/decode420.cu"}
+KERNEL_SOURCES.update({f"decode{s}": "lilliput_tpu_torch/csrc/decode_packed.cu"
+                       for s in ("422", "440", "444")})
+#: H100 SXM data-sheet peaks: HBM bytes/s and f32 non-tensor FLOP/s
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 BATCH = 128
 DST = 256
 CASES = [(64, 48), (67, 61), (16, 16), (130, 17), (8, 8), (24, 129)]
@@ -97,30 +119,36 @@ def phase1():
     print(f"phase 1: card {card_line()}; torch {torch.__version__} "
           f"cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
+    from concurrent.futures import ThreadPoolExecutor
     from lilliput_tpu_torch import binding
     from lilliput_tpu_torch.ops import _build
     from lilliput_tpu_torch.ops import decode_kernels as DK
     t0 = time.perf_counter()
-    binding.load()
+    with ThreadPoolExecutor(2) as ex:      # g++ and both nvcc at once
+        host = ex.submit(binding.load)
+        libs = DK.build()
+        host.result()
     t1 = time.perf_counter()
-    lib = DK.build()
-    t2 = time.perf_counter()
-    ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
-             if "registers" in ln]
-    print(f"phase 1: host library {t1 - t0:.1f}s, decode420 kernel "
-          f"{t2 - t1:.1f}s; ptxas: {ptxas}", flush=True)
+    for name, lib in libs.items():
+        ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
+                 if "registers" in ln]
+        print(f"phase 1: {name} ptxas: {ptxas}", flush=True)
+    print(f"phase 1: host library and {len(libs)} kernel libraries built "
+          f"in {t1 - t0:.1f}s", flush=True)
 
 
-def random_case(rng, h, w, batch=3):
+def random_case(rng, h, w, sub, batch=3):
     import torch
     from lilliput_tpu_torch.codecs.jpeg import scaled_qtables
     from lilliput_tpu_torch.ops import jpeg_kernels as K
+    h2, v2 = LAYOUTS[sub][:2]
 
     def bl(n, f):
         return (-(-n // f) + 7) // 8
+    cshape = (batch, bl(h, 1 + v2), bl(w, 1 + h2), 64)
     yc = rng.integers(-300, 300, (batch, bl(h, 1), bl(w, 1), 64))
-    cb = rng.integers(-200, 200, (batch, bl(h, 2), bl(w, 2), 64))
-    cr = rng.integers(-200, 200, (batch, bl(h, 2), bl(w, 2), 64))
+    cb = rng.integers(-200, 200, cshape)
+    cr = rng.integers(-200, 200, cshape)
     qs = [scaled_qtables(q) for q in (30, 85, 95)][:batch]
     qy = np.stack([q[0] for q in qs]).astype(np.float32)
     qc = np.stack([q[1] for q in qs]).astype(np.float32)
@@ -130,39 +158,84 @@ def random_case(rng, h, w, batch=3):
             K.fold_qtables(torch.from_numpy(qc).to(DEVICE)))
 
 
-def phase2(pipe, bufs):
-    """Kernel vs plain version on the card. Returns (max diff, args at the
-    serving shape)."""
+def phase2(sub, pipe, bufs):
+    """The layout's kernel vs its plain version on the card. Returns (max
+    diff, args at the serving shape)."""
     import torch
     from lilliput_tpu_torch.ops import decode_kernels as DK
     from lilliput_tpu_torch.ops import jpeg_kernels as K
+    h2, v2, name = LAYOUTS[sub][:3]
+    kernel = getattr(DK, name)
     ys, cbs, crs, qty, qtc = pipe.decode_entropy(bufs)
     serving = tuple(torch.from_numpy(a).to(DEVICE) for a in (ys, cbs, crs))
     serving += tuple(K.fold_qtables(torch.from_numpy(
         q.astype(np.float32)).to(DEVICE)) for q in (qty, qtc))
     rng = np.random.default_rng(1234)
     inputs = [("fixture x%d" % BATCH, serving)] + [
-        (f"random {h}x{w}", random_case(rng, h, w)) for h, w in CASES]
+        (f"random {h}x{w}", random_case(rng, h, w, sub)) for h, w in CASES]
     worst = 0
-    for name, args in inputs:
+    for what, args in inputs:
         for out in ("planes", "packed"):
-            got = DK.decode420(*args, out=out)
-            ref = DK.decode420_reference(*args, out=out)
+            got = kernel(*args, out=out)
+            ref = DK.decode_ycc_reference(*args, h2, v2, out=out)
             mx, nd, n = diff_stats(got, ref)
             worst = max(worst, mx)
-            print(f"phase 2: {name} {out}: max_abs_diff={mx} differing="
-                  f"{nd}/{n} ({nd / n:.3g})", flush=True)
+            print(f"phase 2: {name} {what} {out}: max_abs_diff={mx} "
+                  f"differing={nd}/{n} ({nd / n:.3g})", flush=True)
             check(mx <= KERNEL_MAX_DIFF and nd <= KERNEL_MAX_SHARE * n,
-                  f"decode420 disagrees with its plain version on {name}")
+                  f"{name} disagrees with its plain version on {what}")
     return worst, serving
 
 
-def phase3(pipe, fixture):
-    import torch
-    from lilliput_tpu_torch import binding
+def check_outputs(sub, res, skip=()):
     from lilliput_tpu_torch.codecs import jpeg as J
-    from lilliput_tpu_torch.errors import DecodingFailedError
+    for bi, outs in enumerate(res):
+        for i, o in enumerate(outs):
+            if (bi, i) in skip:
+                continue
+            check(isinstance(o, bytes), f"{sub} batch {bi} item {i} failed: "
+                  f"{o!r}")
+            info = J.read_info(o)
+            check((info.width, info.height, info.num_components)
+                  == (DST, DST, 3), f"{sub} output {bi}/{i} is not 256x256x3")
+
+
+def run_main_path(sub, pipe, batches):
+    """transcode_pipelined with every launch count 0 just before and read
+    just after; the layout's kernel must launch once per device step and
+    no other kernel at all."""
     from lilliput_tpu_torch.ops import decode_kernels as DK
+    name = LAYOUTS[sub][2]
+    DK.reset_launches()
+    res = pipe.transcode_pipelined(batches, return_exceptions=True)
+    counts = dict(DK.launches)
+    print(f"phase 3: {sub} transcode_pipelined {len(batches)}x{BATCH}: "
+          f"launches={counts}", flush=True)
+    check(counts == {k: len(batches) * (k == name) for k in counts},
+          f"{name} did not launch once per device step of the {sub} path "
+          f"(or another kernel launched)")
+    return res, counts[name]
+
+
+def check_plain_step(sub, pipe, batch):
+    """device_step vs the same step through the plain version; returns the
+    step's coefficients as numpy."""
+    import torch
+    args = pipe.decode_entropy(batch)
+    step = [t.cpu().numpy() for t in pipe.device_step(*args)]
+    plain = [t.cpu().numpy() for t in pipe.device_step(*args, plain=True)]
+    mx, nd, n = diff_stats([torch.from_numpy(a) for a in step],
+                           [torch.from_numpy(a) for a in plain])
+    print(f"phase 3: {sub} device_step vs plain device_step: max_abs_diff="
+          f"{mx} differing={nd}/{n} ({nd / n:.3g}) coefficients", flush=True)
+    check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+          f"{sub} device_step disagrees with its plain version")
+    return step
+
+
+def phase3_420(pipe, fixture):
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.errors import DecodingFailedError
     from lilliput_tpu_torch.utils import metrics
 
     corrupt = fixture[:len(fixture) // 2]      # scan cut off mid-stream
@@ -170,41 +243,20 @@ def phase3(pipe, fixture):
     batches[1][5] = corrupt
     pipe.transcode([fixture] * 2)              # warm: pools, tables, cuBLAS
     metrics.reset()
-    DK.launches = 0
-    res = pipe.transcode_pipelined(batches, return_exceptions=True)
-    launches = DK.launches
-    print(f"phase 3: transcode_pipelined {len(batches)}x{BATCH}: decode420 "
-          f"launches={launches}", flush=True)
-    check(launches == len(batches), "decode420 did not launch once per "
-          "device step of the main path")
-    for bi, outs in enumerate(res):
-        for i, o in enumerate(outs):
-            if bi == 1 and i == 5:
-                check(isinstance(o, DecodingFailedError),
-                      f"corrupt buffer gave {type(o).__name__}")
-                continue
-            check(isinstance(o, bytes), f"batch {bi} item {i} failed: {o!r}")
-            info = J.read_info(o)
-            check((info.width, info.height, info.num_components)
-                  == (DST, DST, 3), f"output {bi}/{i} is not 256x256x3")
+    res, launches = run_main_path("420", pipe, batches)
+    check(isinstance(res[1][5], DecodingFailedError),
+          f"corrupt buffer gave {type(res[1][5]).__name__}")
+    check_outputs("420", res, skip={(1, 5)})
     poisoned = metrics.snapshot()["counters"].get("serving.poison_isolated")
     check(poisoned == 1, f"serving.poison_isolated={poisoned}")
     check(res[1][4] == res[0][4], "a healthy slot next to the corrupt one "
           "changed")
-    print(f"phase 3: {sum(len(b) for b in res)} outputs are 256x256 "
+    print(f"phase 3: 420 {sum(len(b) for b in res)} outputs are 256x256 "
           f"3-component JPEGs; corrupt slot isolated "
           f"(serving.poison_isolated={poisoned})", flush=True)
 
     # entropy round trip and device step vs its plain version
-    args = pipe.decode_entropy(batches[0])
-    step = [t.cpu().numpy() for t in pipe.device_step(*args)]
-    plain = [t.cpu().numpy() for t in pipe.device_step(*args, plain=True)]
-    mx, nd, n = diff_stats([torch.from_numpy(a) for a in step],
-                           [torch.from_numpy(a) for a in plain])
-    print(f"phase 3: device_step vs plain device_step: max_abs_diff={mx} "
-          f"differing={nd}/{n} ({nd / n:.3g}) coefficients", flush=True)
-    check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
-          "device_step disagrees with its plain version")
+    step = check_plain_step("420", pipe, batches[0])
     enc = pipe.encode_entropy(*step)
     lib = binding.load()
     i16p = ctypes.POINTER(ctypes.c_int16)
@@ -221,24 +273,94 @@ def phase3(pipe, fixture):
         for c, s in zip(comps, step):
             check(np.array_equal(c, s[i][:c.shape[0], :c.shape[1]]),
                   f"entropy round trip of output {i} is lossy")
-    print(f"phase 3: entropy round trip of outputs 0 and {BATCH - 1}: "
+    print(f"phase 3: 420 entropy round trip of outputs 0 and {BATCH - 1}: "
           "coefficients equal", flush=True)
     return launches
 
 
-def phase4(pipe, bufs, serving, card):
+def phase3(sub, pipe, fixture):
+    if sub == "420":
+        return phase3_420(pipe, fixture)
+    batches = [[fixture] * BATCH for _ in range(2)]
+    pipe.transcode([fixture] * 2)              # warm: pools, tables, cuBLAS
+    res, launches = run_main_path(sub, pipe, batches)
+    check_outputs(sub, res)
+    print(f"phase 3: {sub} {sum(len(b) for b in res)} outputs are 256x256 "
+          f"3-component JPEGs", flush=True)
+    check_plain_step(sub, pipe, batches[0])
+    return launches
+
+
+def bound(serving, out):
+    """(ms, 'bytes' or 'operations'): the least time an H100 SXM takes for
+    the kernel's work on these inputs at data-sheet peaks: every input read
+    once and the planes written once, against the IDCT's multiply-adds
+    (2 * 64 * 64 FLOP per 8x8 block)."""
+    yc, cb, cr = serving[:3]
+    nbytes = sum(t.numel() * t.element_size() for t in serving)
+    nbytes += sum(p.numel() * p.element_size() for p in out)
+    blocks = sum(t.numel() // 64 for t in (yc, cb, cr))
+    t_bytes, t_ops = nbytes / HBM_BPS, 2 * 64 * 64 * blocks / F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def busy_share(fn) -> float:
+    """Device busy share of fn() under torch.profiler: the union of the
+    device-side events' intervals over the host clock's window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(bool(spans), "torch.profiler recorded no device events")
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / wall_us
+
+
+def phase4(sub, pipe, bufs, serving, card):
+    import torch
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    h2, v2, name = LAYOUTS[sub][:3]
+    kernel = getattr(DK, name)
+    t = {}
+    t["kernel_ms"] = cuda_ms(lambda: kernel(*serving), 10)
+    t["plain_ms"] = cuda_ms(
+        lambda: DK.decode_ycc_reference(*serving, h2, v2), 10)
+    t["bound_ms"], t["bound_by"] = bound(serving, kernel(*serving))
+    args = pipe.decode_entropy(bufs)
+    t["h2d_ms"] = cuda_ms(lambda: [pipe._to_device(a) for a in args[:3]], 5)
+    t["device_step_ms"] = cuda_ms(lambda: pipe.device_step(*args), 10)
+    if sub == "420":
+        t.update(stage_breakdown_420(pipe, bufs, args, serving))
+    t0 = time.perf_counter()
+    pipe.transcode_pipelined([bufs] * 4)
+    t["pipelined_ips"] = 4 * BATCH / (time.perf_counter() - t0)
+    t["device_busy_share"] = busy_share(
+        lambda: pipe.transcode_pipelined([bufs] * 2))
+    for k, v in t.items():
+        print(f"phase 4: {sub} {k}={v!r} [{card}]", flush=True)
+    return t
+
+
+def stage_breakdown_420(pipe, bufs, args, serving):
     import torch
     from lilliput_tpu_torch.ops import decode_kernels as DK
     from lilliput_tpu_torch.ops import jpeg_kernels as K
     from lilliput_tpu_torch.ops import resize as R
     from lilliput_tpu_torch import pipeline as P
     t = {}
-    t["kernel_ms"] = cuda_ms(lambda: DK.decode420(*serving), 10)
-    t["plain_ms"] = cuda_ms(lambda: DK.decode420_reference(*serving), 10)
-    args = pipe.decode_entropy(bufs)
-    t["device_step_ms"] = cuda_ms(lambda: pipe.device_step(*args), 10)
-
-    # stage breakdown of one device step
     g = pipe.geom
     left, top, w, h = P.fit_rect(g.width, g.height, DST, DST)
     x0, y0 = pipe.window_static[:2]
@@ -249,13 +371,11 @@ def phase4(pipe, bufs, serving, card):
             p, left - x0, w, DST, top - y0, h, DST)), 0, 255)
             for p in planes]
     small = resize()
-    t["h2d_ms"] = cuda_ms(lambda: [pipe._to_device(a) for a in args[:3]], 5)
     t["resize_ms"] = cuda_ms(resize, 10)
     t["encode_ms"] = cuda_ms(lambda: K.encode_from_bgr_planes(
         *small, pipe.enc_qt_y, pipe.enc_qt_c), 10)
     out = pipe.device_step(*args)
     t["d2h_ms"] = cuda_ms(lambda: [o.cpu() for o in out], 5)
-
     t0 = time.perf_counter()
     for _ in range(3):
         pipe.decode_entropy(bufs, pool=True)
@@ -265,11 +385,6 @@ def phase4(pipe, bufs, serving, card):
     for _ in range(3):
         pipe.encode_entropy(*coefs)
     t["host_encode_ips"] = 3 * BATCH / (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    pipe.transcode_pipelined([bufs] * 4)
-    t["pipelined_ips"] = 4 * BATCH / (time.perf_counter() - t0)
-    for k, v in t.items():
-        print(f"phase 4: {k}={v!r} [{card}]", flush=True)
     return t
 
 
@@ -277,21 +392,28 @@ def main() -> int:
     import torch
     phase1()
     from lilliput_tpu_torch import JpegTranscodePipeline
-    with open(FIXTURE, "rb") as f:
-        fixture = f.read()
-    pipe = JpegTranscodePipeline(fixture, DST, DST, quality=85,
-                                 device=DEVICE)
-    bufs = [fixture] * BATCH
-    worst, serving = phase2(pipe, bufs)
-    launches = phase3(pipe, fixture)
     card = card_line()
-    t = phase4(pipe, bufs, serving, card)
-    print(json.dumps({"kernels": [{
-        "name": "decode420", "route": "cuda",
-        "source": "lilliput_tpu_torch/csrc/decode420.cu",
-        "replaces": "lilliput_tpu/ops/pallas_kernels.py:390",
-        "launches": launches, "max_abs_err": worst,
-        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"]}]}))
+    kernels = []
+    for sub, (h2, v2, name, path, replaces) in LAYOUTS.items():
+        with open(path, "rb") as f:
+            fixture = f.read()
+        pipe = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                     device=DEVICE)
+        check((pipe.geom.h2, pipe.geom.v2) == (h2, v2),
+              f"{path} is not {sub}")
+        bufs = [fixture] * BATCH
+        worst, serving = phase2(sub, pipe, bufs)
+        launches = phase3(sub, pipe, fixture)
+        t = phase4(sub, pipe, bufs, serving, card)
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": worst, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+        del serving
+        torch.cuda.empty_cache()
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 The counterpart of ``lilliput_tpu/binding.py``. It does not run the JAX
 package's ``make`` (which compiles every native shim and links libjpeg,
 libwebp and ffmpeg): the slice needs only the Huffman decoder
-(``lilliput_tpu/native/src/jpeg_huff.cpp``, shared source) and the port's
-baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). Neither needs libjpeg,
-so the library builds on machines without it. It is built with g++ at first
+(``csrc/host/jpeg_huff.cpp``, a byte-for-byte copy of the JAX package's
+``native/src/jpeg_huff.cpp``, held equal by tests/test_torch_host.py) and
+the port's baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). Neither
+needs libjpeg, so the library builds on machines without it. It is built with g++ at first
 use into ``lilliput_tpu_torch/_build/`` (see ``ops/_build.py``); a failed
 build raises.
 """
@@ -19,8 +20,7 @@ import threading
 from .ops import _build
 
 HOST_SOURCES = (
-    os.path.join(_build.REPO_DIR, "lilliput_tpu", "native", "src",
-                 "jpeg_huff.cpp"),
+    os.path.join(_build.CSRC_DIR, "host", "jpeg_huff.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "jpeg_enc.cpp"),
 )
 

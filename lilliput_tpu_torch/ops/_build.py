@@ -2,8 +2,8 @@
 
 Both libraries have a plain C interface and are loaded with ctypes:
 
-* the host entropy library (``binding.py``): g++ over the JAX package's
-  ``jpeg_huff.cpp`` and the port's ``csrc/host/jpeg_enc.cpp``;
+* the host entropy library (``binding.py``): g++ over the port's
+  ``csrc/host/jpeg_huff.cpp`` and ``csrc/host/jpeg_enc.cpp``;
 * the CUDA kernels (``decode_kernels.py``): nvcc over ``csrc/*.cu`` for
   ``sm_90a``.
 
@@ -20,14 +20,15 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 
 _lock = threading.Lock()
+#: one lock per library: different libraries build at once, each only once
+_out_locks: Dict[str, threading.Lock] = {}
 
 
 class BuildError(RuntimeError):
@@ -47,6 +48,8 @@ def build_shared(name: str, sources: Sequence[str],
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
     with _lock:
+        out_lock = _out_locks.setdefault(out, threading.Lock())
+    with out_lock:
         if os.path.exists(out):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)

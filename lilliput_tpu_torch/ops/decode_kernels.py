@@ -1,21 +1,31 @@
-"""The 4:2:0 decode kernel: CUDA on the card, plain PyTorch beside it.
+"""The JPEG decode kernels: CUDA on the card, plain PyTorch beside them.
 
 The counterpart of ``lilliput_tpu/ops/pallas_kernels.py`` for the JPEG Fit
-slice. ``decode420`` replaces the Pallas 4:2:0 megakernel
-(``pallas_kernels._decode420_call``, the ``pl.pallas_call`` at its line
-437): per-image dequant + 8x8 IDCT of Y/Cb/Cr, libjpeg's "fancy" triangle
-chroma upsample (vertical, then horizontal, edges replicated at the
-window's chroma plane edge), YCbCr->BGR, round half to even, clip to u8.
-It writes three raster u8 planes (the serving path) or packed BGRA int32.
+slice. One kernel per chroma layout, each replacing one Pallas megakernel:
 
-* A CUDA tensor launches the kernel of ``csrc/decode420.cu`` (built with
-  nvcc for sm_90a at first use, see ``_build.py``) or the call raises.
-* A CPU tensor takes ``decode420_reference``, the plain PyTorch version
+==========  =========================  ==========================================
+wrapper     CUDA source                TPU kernel (``pl.pallas_call`` line)
+==========  =========================  ==========================================
+decode420   ``csrc/decode420.cu``      ``_decode420_call`` (:437)
+decode422   ``csrc/decode_packed.cu``  ``decode422_packed`` (:563)
+decode440   ``csrc/decode_packed.cu``  ``decode440_packed`` (:713)
+decode444   ``csrc/decode_packed.cu``  ``decode444_packed`` (:792)
+==========  =========================  ==========================================
+
+Each does per-image dequant + 8x8 IDCT of Y/Cb/Cr, libjpeg's "fancy"
+triangle chroma upsample along the subsampled axes (edges replicated at the
+window's chroma plane edge), YCbCr->BGR, round half to even and a clip to
+u8. It writes three raster u8 planes (the serving path) or packed BGRA
+int32 (what the TPU kernels compute).
+
+* A CUDA tensor launches the kernel (built with nvcc for sm_90a at first
+  use, see ``_build.py``) or the call raises.
+* A CPU tensor takes ``decode_ycc_reference``, the plain PyTorch version
   (the JAX package's split decode), which the tests hold bit-identical to
   the JAX package on the CPU.
 
-``launches`` counts kernel launches (plain-version calls do not count), so
-a run can show the serving path went through the kernel.
+``launches[name]`` counts each kernel's launches (plain-version calls do
+not count), so a run can show the serving path went through the kernel.
 """
 
 from __future__ import annotations
@@ -23,43 +33,76 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
 
 import torch
 
 from . import _build
 from . import jpeg_kernels as K
 
-launches = 0
+#: wrapper name -> (library, h2, v2): the chroma layout each kernel decodes
+_KERNELS = {
+    "decode420": ("libdecode420", True, True),
+    "decode422": ("libdecode_packed", True, False),
+    "decode440": ("libdecode_packed", False, True),
+    "decode444": ("libdecode_packed", False, False),
+}
+#: library -> its CUDA source
+_LIBS = {"libdecode420": "decode420.cu",
+         "libdecode_packed": "decode_packed.cu"}
+
+launches: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
 
 _ALPHA_FF = -16777216  # 0xFF000000 as int32 (alpha byte of a packed pixel)
-_SOURCES = (os.path.join(_build.CSRC_DIR, "decode420.cu"),)
 _lock = threading.Lock()
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def kernel_for(h2: bool, v2: bool) -> str:
+    """Name of the kernel that decodes chroma sampled (h2, v2)."""
+    return next(n for n, (_, h, v) in _KERNELS.items() if (h, v) == (h2, v2))
+
+
+def _source(lib: str):
+    return (os.path.join(_build.CSRC_DIR, _LIBS[lib]),)
+
+
+def _load(name: str) -> ctypes.CDLL:
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(_build.build_cuda("libdecode420", _SOURCES))
+        if name not in _libs:
+            lib = ctypes.CDLL(_build.build_cuda(name, _source(name)))
             vp = ctypes.c_void_p
-            lib.lpt_decode420.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                          ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_int, vp]
-            lib.lpt_decode420.restype = ctypes.c_int
+            for k, (lib_name, _, _) in _KERNELS.items():
+                if lib_name == name:
+                    fn = getattr(lib, "lpt_" + k)
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, vp]
+                    fn.restype = ctypes.c_int
             lib.lpt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lpt_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+            _libs[name] = lib
+    return _libs[name]
 
 
-def build() -> str:
-    """Build (or find) the kernel library; returns its path."""
-    _load()
-    return _build.build_cuda("libdecode420", _SOURCES)
+def build() -> Dict[str, str]:
+    """Build (or find) every kernel library, one nvcc per source, all at
+    once; returns {library: path}."""
+    with ThreadPoolExecutor(len(_LIBS)) as ex:
+        paths = dict(zip(_LIBS, ex.map(
+            lambda n: _build.build_cuda(n, _source(n)), _LIBS)))
+    for name in _LIBS:
+        _load(name)
+    return paths
 
 
-def _check(yc, cb, cr, wqy, wqc, out: str):
+def _check(yc, cb, cr, wqy, wqc, fx: int, fy: int, out: str):
     if out not in ("planes", "packed"):
         raise ValueError("out must be 'planes' or 'packed'")
     for name, t, dt in (("yc", yc, torch.int16), ("cb", cb, torch.int16),
@@ -74,9 +117,9 @@ def _check(yc, cb, cr, wqy, wqc, out: str):
                          f"{tuple(cb.shape)} and {tuple(cr.shape)}")
     b, cbh, cbw = cb.shape[:3]
     if (yc.dim() != 4 or yc.shape[0] != b or yc.shape[-1] != 64
-            or not 2 * cbh - 1 <= yc.shape[1] <= 2 * cbh
-            or not 2 * cbw - 1 <= yc.shape[2] <= 2 * cbw):
-        raise ValueError(f"luma {tuple(yc.shape)} is not the 4:2:0 "
+            or not fy * cbh - fy + 1 <= yc.shape[1] <= fy * cbh
+            or not fx * cbw - fx + 1 <= yc.shape[2] <= fx * cbw):
+        raise ValueError(f"luma {tuple(yc.shape)} is not the {fx}x{fy} "
                          f"partner of chroma {tuple(cb.shape)}")
     for name, w in (("wqy", wqy), ("wqc", wqc)):
         if w.shape not in ((b, 64, 64), (1, 64, 64)):
@@ -84,35 +127,34 @@ def _check(yc, cb, cr, wqy, wqc, out: str):
                              f"{tuple(w.shape)}")
 
 
-def _pad_luma(yc: torch.Tensor, cbh: int, cbw: int) -> torch.Tensor:
-    """Zero-pad luma to 2·cbh x 2·cbw blocks (pallas_kernels.py:401-402):
-    zero coefficients decode to exact 128 and the caller crops them."""
-    ph, pw = 2 * cbh - yc.shape[1], 2 * cbw - yc.shape[2]
+def _pad_luma(yc: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Zero-pad luma to rows x cols blocks (pallas_kernels.py:401-402,
+    :554-555, :686-687): zero coefficients decode to exact 128 and the
+    caller crops them."""
+    ph, pw = rows - yc.shape[1], cols - yc.shape[2]
     if ph or pw:
         yc = torch.nn.functional.pad(yc, (0, 0, 0, pw, 0, ph))
     return yc
 
 
-def decode420(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-              wqy: torch.Tensor, wqc: torch.Tensor, out: str = "planes"):
-    """(B, ybh, ybw, 64) luma + 2x (B, cbh, cbw, 64) chroma int16 with
-    per-image dequant-folded IDCT matrices (B, 64, 64) f32 ->
-    out="planes": (b, g, r) u8 planes, each (B, 16·cbh, 16·cbw);
-    out="packed": int32 (B, 16·cbh, 16·cbw), B | G<<8 | R<<16 | 0xFF<<24.
-    Rows and columns past the true image are decoded too; callers crop."""
-    _check(yc, cb, cr, wqy, wqc, out)
+def _decode(name: str, yc, cb, cr, wqy, wqc, out: str):
+    lib_name, h2, v2 = _KERNELS[name]
+    fx, fy = 1 + h2, 1 + v2
+    _check(yc, cb, cr, wqy, wqc, fx, fy, out)
     if yc.device.type == "cpu":
-        return decode420_reference(yc, cb, cr, wqy, wqc, out)
+        return decode_ycc_reference(yc, cb, cr, wqy, wqc, h2, v2, out)
     if yc.device.type != "cuda":
-        raise ValueError(f"decode420 runs on cuda or cpu, not {yc.device}")
-    global launches
-    lib = _load()
+        raise ValueError(f"{name} runs on cuda or cpu, not {yc.device}")
+    lib = _load(lib_name)
     b, cbh, cbw = cb.shape[:3]
-    yc = _pad_luma(yc, cbh, cbw).contiguous()
+    yc = _pad_luma(yc, fy * cbh, fx * cbw).contiguous()
     cb, cr = cb.contiguous(), cr.contiguous()
     wqy = wqy.expand(b, 64, 64).contiguous()
     wqc = wqc.expand(b, 64, 64).contiguous()
-    shape = (b, 16 * cbh, 16 * cbw)
+    for t in (yc, cb, cr, wqy, wqc):
+        if t.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    shape = (b, 8 * fy * cbh, 8 * fx * cbw)
     if out == "planes":
         outs = tuple(torch.empty(shape, dtype=torch.uint8, device=yc.device)
                      for _ in range(3))
@@ -122,29 +164,76 @@ def decode420(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         ptrs = [outs[0].data_ptr(), None, None]
     with torch.cuda.device(yc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lpt_decode420(yc.data_ptr(), cb.data_ptr(), cr.data_ptr(),
-                               wqy.data_ptr(), wqc.data_ptr(), *ptrs,
-                               int(out == "packed"), b, cbh, cbw, stream)
+        rc = getattr(lib, "lpt_" + name)(
+            yc.data_ptr(), cb.data_ptr(), cr.data_ptr(), wqy.data_ptr(),
+            wqc.data_ptr(), *ptrs, int(out == "packed"), b, cbh, cbw, stream)
     if rc != 0:
-        raise RuntimeError("decode420 kernel launch failed: "
+        raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.lpt_cuda_error_string(rc).decode())
-    launches += 1
+    launches[name] += 1
     return outs if out == "planes" else outs[0]
 
 
-def decode420_reference(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                        wqy: torch.Tensor, wqc: torch.Tensor,
-                        out: str = "planes"):
-    """Plain PyTorch version of decode420 (same arguments, same outputs):
-    the JAX package's split decode — batched dequant+IDCT matmuls, the
-    two-pass triangle upsample, then colour conversion — on any device."""
-    _check(yc, cb, cr, wqy, wqc, out)
+def decode420(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+              wqy: torch.Tensor, wqc: torch.Tensor, out: str = "planes"):
+    """4:2:0: (B, ybh, ybw, 64) luma + 2x (B, cbh, cbw, 64) chroma int16
+    with per-image dequant-folded IDCT matrices (B, 64, 64) f32 ->
+    out="planes": (b, g, r) u8 planes, each (B, 16·cbh, 16·cbw);
+    out="packed": int32 (B, 16·cbh, 16·cbw), B | G<<8 | R<<16 | 0xFF<<24.
+    Rows and columns past the true image are decoded too; callers crop."""
+    return _decode("decode420", yc, cb, cr, wqy, wqc, out)
+
+
+def decode422(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+              wqy: torch.Tensor, wqc: torch.Tensor, out: str = "planes"):
+    """4:2:2 (chroma halved along columns only): (B, bh, ybw, 64) luma +
+    2x (B, bh, cbw, 64) chroma -> planes or packed (B, 8·bh, 16·cbw), as
+    decode420."""
+    return _decode("decode422", yc, cb, cr, wqy, wqc, out)
+
+
+def decode440(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+              wqy: torch.Tensor, wqc: torch.Tensor, out: str = "planes"):
+    """4:4:0 (chroma halved along rows only): (B, ybh, bw, 64) luma +
+    2x (B, cbh, bw, 64) chroma -> planes or packed (B, 16·cbh, 8·bw), as
+    decode420."""
+    return _decode("decode440", yc, cb, cr, wqy, wqc, out)
+
+
+def decode444(yc: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+              wqy: torch.Tensor, wqc: torch.Tensor, out: str = "planes"):
+    """4:4:4: 3x (B, bh, bw, 64) -> planes or packed (B, 8·bh, 8·bw), as
+    decode420."""
+    return _decode("decode444", yc, cb, cr, wqy, wqc, out)
+
+
+def decode_ycc_reference(yc: torch.Tensor, cb: torch.Tensor,
+                         cr: torch.Tensor, wqy: torch.Tensor,
+                         wqc: torch.Tensor, h2: bool, v2: bool,
+                         out: str = "planes"):
+    """Plain PyTorch version of the decode kernels (the kernel's arguments,
+    the layout's (h2, v2), the kernel's outputs): the JAX package's split
+    decode — batched dequant+IDCT matmuls, the triangle upsample along each
+    subsampled axis, then colour conversion — on any device.
+
+    4:4:4 chroma skips the level shift: the JAX package adds 128 to the
+    IDCT sum and subtracts it again (pallas_kernels.py:754-757, and the
+    split path), and XLA folds (x + 128) - 128 to x when it compiles
+    either; keeping the round trip moves 18 of 2,384,640 u8 values of the
+    4:4:4 fixture's window by 1 against the JAX package."""
+    fx, fy = 1 + h2, 1 + v2
+    _check(yc, cb, cr, wqy, wqc, fx, fy, out)
     cbh, cbw = cb.shape[1:3]
-    oh, ow = 16 * cbh, 16 * cbw
-    y = K.idct_folded(_pad_luma(yc, cbh, cbw), wqy)
-    cbu = K.upsample_chroma(K.idct_folded(cb, wqc), 2, 2, oh, ow)
-    cru = K.upsample_chroma(K.idct_folded(cr, wqc), 2, 2, oh, ow)
-    bgr = K.ycbcr_to_bgr(y, cbu, cru)
+    oh, ow = 8 * fy * cbh, 8 * fx * cbw
+    y = K.idct_folded(_pad_luma(yc, fy * cbh, fx * cbw), wqy)
+    if h2 or v2:
+        cbu = K.upsample_chroma(K.idct_folded(cb, wqc), fx, fy, oh, ow)
+        cru = K.upsample_chroma(K.idct_folded(cr, wqc), fx, fy, oh, ow)
+        bgr = K.ycbcr_to_bgr(y, cbu, cru)
+    else:
+        bgr = K.centered_ycc_to_bgr(
+            y, K.idct_folded(cb, wqc, level_shift=False),
+            K.idct_folded(cr, wqc, level_shift=False))
     if out == "planes":
         return bgr
     bb, gg, rr = (p.to(torch.int32) for p in bgr)

@@ -3,7 +3,8 @@
 The subset of ``lilliput_tpu/ops/jpeg_kernels.py`` the JPEG Fit slice runs:
 
 Decode: coefs -> dequant -> IDCT -> +128 -> fancy (triangle) chroma upsample
-        -> YCbCr->BGR -> u8.   (one CUDA kernel on the card, decode_kernels)
+        -> YCbCr->BGR -> u8.   (one CUDA kernel per chroma layout on the
+        card, decode_kernels)
 Encode: BGR -> YCbCr -> pad to MCU -> 2x2 box chroma downsample -> -128 ->
         fDCT -> quantize(round) -> int16 coefs.
 
@@ -11,7 +12,7 @@ The IDCT and fDCT are (N,64)x(64,64) f32 matmuls with the quantization
 folded into the matrix, as in the JAX package; the constant tables come
 from the same numpy code and are equal bit for bit. The split decode
 (``dequant_idct``, ``upsample_chroma``, ``ycbcr_to_bgr``) is the plain
-version of the decode kernel.
+version of the decode kernels.
 
 Elementwise arithmetic follows the JAX package as XLA compiles it on the
 CPU (its test platform): every ``a*x + c`` there becomes ONE fused
@@ -25,7 +26,7 @@ fusions (``__fmaf_rn``), so it matches this plain version on the card.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,13 +84,17 @@ def _blocks_to_plane(p: torch.Tensor, lead, bh: int, bw: int) -> torch.Tensor:
     return p.transpose(-3, -2).reshape(tuple(lead) + (bh * 8, bw * 8))
 
 
-def idct_folded(coefs: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+def idct_folded(coefs: torch.Tensor, wq: torch.Tensor,
+                level_shift: bool = True) -> torch.Tensor:
     """(..., bh, bw, 64) int16 with dequant-folded matrices (B or 1, 64, 64)
-    -> (..., bh*8, bw*8) f32 pixels, level-shifted: coefs·W_q + 128."""
+    -> (..., bh*8, bw*8) f32 pixels, level-shifted: coefs·W_q + 128
+    (without the + 128 when level_shift is False)."""
     lead = coefs.shape[:-3]
     bh, bw = coefs.shape[-3], coefs.shape[-2]
     b = int(np.prod(lead)) if lead else 1
-    p = matmul(coefs.reshape(b, -1, 64).to(torch.float32), wq) + 128.0
+    p = matmul(coefs.reshape(b, -1, 64).to(torch.float32), wq)
+    if level_shift:
+        p = p + 128.0
     return _blocks_to_plane(p, lead, bh, bw)
 
 
@@ -157,8 +162,12 @@ def ycbcr_to_bgr(y: torch.Tensor, cb: torch.Tensor,
     """f32 Y/Cb/Cr planes -> (b, g, r) u8 planes (round half to even,
     clip). The JAX function stacks them on a minor axis; the port keeps
     planes, the layout its consumers take."""
-    cbc = cb - 128.0
-    crc = cr - 128.0
+    return centered_ycc_to_bgr(y, cb - 128.0, cr - 128.0)
+
+
+def centered_ycc_to_bgr(y: torch.Tensor, cbc: torch.Tensor,
+                        crc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """ycbcr_to_bgr from chroma already centred on 0 (C - 128)."""
     r = _fma(1.402, crc, y)
     g = _fma(-0.714136286, crc, _fma(-0.344136286, cbc, y))
     b = _fma(1.772, cbc, y)
@@ -167,8 +176,19 @@ def ycbcr_to_bgr(y: torch.Tensor, cb: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# decode (4:2:0 device path) / encode
+# decode (device kernels) / encode
 # ---------------------------------------------------------------------------
+
+def _layout_ok(ysh, csh, crsh, h2: bool, v2: bool) -> bool:
+    """The JAX package's shape gate (jpeg_kernels.py:438-458): the chroma
+    block grid is the luma grid halved (rounding up) along each
+    subsampled axis, and Cb matches Cr."""
+    def half(n):
+        return -(-n // 2)
+    return (csh == crsh
+            and csh == (half(ysh[0]) if v2 else ysh[0],
+                        half(ysh[1]) if h2 else ysh[1]))
+
 
 def decode_ycc_u8_plane_blocks(y_coefs, cb_coefs, cr_coefs, qt_luma,
                                qt_chroma, h2: bool, v2: bool,
@@ -181,19 +201,65 @@ def decode_ycc_u8_plane_blocks(y_coefs, cb_coefs, cr_coefs, qt_luma,
     The JAX function returns the planes in Mosaic's block-vector layout and
     relayouts them afterwards; the CUDA kernel indexes pixels directly and
     writes raster planes. plain=True computes the same planes with the
-    plain PyTorch version (decode_kernels.decode420_reference)."""
+    plain PyTorch version (decode_kernels.decode_ycc_reference)."""
     if not (h2 and v2):
         return None
-    ysh = tuple(y_coefs.shape[-3:-1])
-    csh = tuple(cb_coefs.shape[-3:-1])
-    if csh != tuple(cr_coefs.shape[-3:-1]):
-        return None
-    if csh != (-(-ysh[0] // 2), -(-ysh[1] // 2)):
+    return _decode_ycc(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                       None, None, True, True, "planes", plain)
+
+
+def _decode_ycc(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                out_h: Optional[int], out_w: Optional[int], h2: bool,
+                v2: bool, out: str, plain: bool):
+    """The layout's kernel (or its plain version) behind the JAX shape
+    gate, outputs cropped to (out_h, out_w) unless those are None."""
+    if not _layout_ok(tuple(y_coefs.shape[-3:-1]),
+                      tuple(cb_coefs.shape[-3:-1]),
+                      tuple(cr_coefs.shape[-3:-1]), h2, v2):
         return None
     from . import decode_kernels as DK
-    fn = DK.decode420_reference if plain else DK.decode420
-    return fn(y_coefs, cb_coefs, cr_coefs, fold_qtables(qt_luma),
-              fold_qtables(qt_chroma), out="planes")
+    lead = tuple(y_coefs.shape[:-3])
+    b = int(np.prod(lead)) if lead else 1
+    args = [c.reshape((b,) + tuple(c.shape[-3:]))
+            for c in (y_coefs, cb_coefs, cr_coefs)]
+    args += [fold_qtables(qt_luma), fold_qtables(qt_chroma)]
+    if plain:
+        res = DK.decode_ycc_reference(*args, h2, v2, out=out)
+    else:
+        res = getattr(DK, DK.kernel_for(h2, v2))(*args, out=out)
+
+    def crop(p):
+        p = p[:, :out_h, :out_w]
+        return p if lead == (b,) else p.reshape(lead + tuple(p.shape[1:]))
+    return tuple(crop(p) for p in res) if out == "planes" else crop(res)
+
+
+def decode_ycc_packed(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                      out_h: int, out_w: int, h2: bool, v2: bool,
+                      plain: bool = False):
+    """Decode to PACKED BGRA int32 (lead + (out_h, out_w)), or None when
+    the coefficient shapes do not fit the declared layout (4:2:0, 4:2:2,
+    4:4:0 and 4:4:4 are all covered), as the JAX function does. Each
+    layout runs its own kernel (decode_kernels); plain=True runs the plain
+    PyTorch version instead."""
+    return _decode_ycc(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                       out_h, out_w, h2, v2, "packed", plain)
+
+
+def decode_ycc_planes(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                      out_h: int, out_w: int, h2: bool, v2: bool,
+                      plain: bool = False):
+    """decode_ycc_packed's planes form, the serving tail's input: (b, g, r)
+    u8 raster planes, each lead + (out_h, out_w), or None off-spec. The
+    values are those of packed_to_planes(decode_ycc_packed(...)); the
+    kernel writes them as planes directly."""
+    return _decode_ycc(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                       out_h, out_w, h2, v2, "planes", plain)
+
+
+def packed_to_planes(packed: torch.Tensor):
+    """Packed BGRA int32 -> (b, g, r) f32 planes (exact u8 values)."""
+    return tuple(((packed >> s) & 255).to(torch.float32) for s in (0, 8, 16))
 
 
 def _pad_to(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:

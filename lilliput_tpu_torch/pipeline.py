@@ -1,15 +1,18 @@
 """Batched JPEG Fit transcode — the port's serving path.
 
 The slice of ``lilliput_tpu/pipeline.py`` that runs the main path: a batch
-of same-geometry 4:2:0 JPEGs, upright, to Fit-cropped JPEGs at the
-destination size, AREA resize, chroma_mode="rgb". Five stages:
+of same-geometry 4:2:0, 4:2:2, 4:4:0 or 4:4:4 JPEGs, upright, to
+Fit-cropped JPEGs at the destination size, AREA resize,
+chroma_mode="rgb". Five stages:
 
 1. host Huffman decode into the MCU window around the Fit crop
    (``decode_entropy``, jpeg_huff.cpp);
-2. the 4:2:0 decode kernel (``ops/decode_kernels.decode420``, CUDA) to three
-   raster u8 planes;
-3. INTER_AREA resize with the crop folded into banded matrices
-   (``ops/resize.resize_area_plane_embedded``);
+2. the layout's decode kernel (``ops/decode_kernels``: ``decode420``,
+   ``decode422``, ``decode440`` or ``decode444``, CUDA) to three raster u8
+   planes;
+3. INTER_AREA resize (``ops/resize.resize_area_plane_embedded``): 4:2:0
+   folds the crop into the banded matrices (the JAX block tail), the other
+   layouts crop the planes and resize from offset 0 (the JAX packed tail);
 4. BGR->YCbCr, 2x2 chroma downsample, fDCT and quantization
    (``ops/jpeg_kernels.encode_from_bgr_planes``);
 5. host Huffman encode (``encode_entropy``, csrc/host/jpeg_enc.cpp).
@@ -114,25 +117,37 @@ def mcu_decode_window(src_w: int, src_h: int, dst_w: int, dst_h: int,
 
 def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                          src_w: int, src_h: int, dst_w: int, dst_h: int,
-                         window, plain: bool = False):
+                         window, h2: bool, v2: bool, plain: bool = False):
     """(B, bh, bw, 64) window coefficient batches -> quantized encode
-    coefficients (yq, cbq, crq): the upright AREA 4:2:0 block-tail branch
-    of the JAX function (lilliput_tpu/pipeline.py:247-281).
+    coefficients (yq, cbq, crq): the upright AREA branches of the JAX
+    function (lilliput_tpu/pipeline.py:247-301).
 
-    The decode kernel writes raster u8 planes; each plane's resize folds
-    the Fit crop into its AREA matrices, rounds and clips, and the three
-    resized planes re-encode at 4:2:0. plain=True decodes with the plain
-    PyTorch version of the kernel (for comparisons on the card)."""
+    The decode kernel writes raster u8 planes. 4:2:0 takes the block tail
+    (:259-281): each plane's resize folds the Fit crop into its AREA
+    matrices. 4:2:2, 4:4:0 and 4:4:4 take the packed tail (:282-301): the
+    planes are cropped to the Fit rect and resized from offset 0. Either
+    way the resized planes are rounded, clipped and re-encoded at 4:2:0.
+    plain=True decodes with the plain PyTorch version of the kernel (for
+    comparisons on the card)."""
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
-    x0, y0 = window[0], window[1]
-    planes = K.decode_ycc_u8_plane_blocks(yc, cb, cr, qt_y, qt_c, True, True,
-                                          plain=plain)
+    x0, y0, rw, rh = window
+    if h2 and v2:
+        planes = K.decode_ycc_u8_plane_blocks(yc, cb, cr, qt_y, qt_c, True,
+                                              True, plain=plain)
+        crop = (left - x0, top - y0)
+    else:
+        planes = K.decode_ycc_planes(yc, cb, cr, qt_y, qt_c, rh, rw, h2, v2,
+                                     plain=plain)
+        if planes is not None:
+            planes = [p[..., top - y0:top - y0 + h, left - x0:left - x0 + w]
+                      for p in planes]
+        crop = (0, 0)
     if planes is None:
         raise DecodingFailedError(
-            f"coefficient shapes {tuple(yc.shape)}/{tuple(cb.shape)} are "
-            "not 4:2:0")
+            f"coefficient shapes {tuple(yc.shape)}/{tuple(cb.shape)} do "
+            f"not fit chroma sampling h2={h2} v2={v2}")
     out = [torch.clamp(torch.round(R.resize_area_plane_embedded(
-        p, left - x0, w, dst_w, top - y0, h, dst_h)), 0, 255)
+        p, crop[0], w, dst_w, crop[1], h, dst_h)), 0, 255)
         for p in planes]
     return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
                                     enc_qt_c, subsample=True)
@@ -288,7 +303,8 @@ class _ServingPipelineBase:
 
 
 class JpegTranscodePipeline(_ServingPipelineBase):
-    """Batched JPEG Fit transcoder for a fixed 4:2:0 source geometry.
+    """Batched JPEG Fit transcoder for a fixed 4:2:0, 4:2:2, 4:4:0 or 4:4:4
+    source geometry.
 
     Usage:
         pipe = JpegTranscodePipeline(sample_jpeg_bytes, 256, 256, quality=85)
@@ -296,7 +312,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
 
     device: the torch device of the dense stages, "cuda" by default; the
     CPU runs only when asked for (device="cpu"), with the decode kernel's
-    plain version. Source ICC profiles are carried into every output."""
+    plain versions. Source ICC profiles are carried into every output."""
 
     def __init__(self, sample: bytes, dst_w: int, dst_h: int,
                  quality: int = 85, method: str = R.AREA,
@@ -352,17 +368,16 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         self.ncomp = 3
         self.geom = geometry_of(info)
         g = self.geom
-        if not (g.h2 and g.v2):
-            _not_ported("4:4:4, 4:2:2 and 4:4:0 sources", "item 4.3")
         self.orientation = int(J.exif_orientation(sample))
         if self.orientation != 1:
             _not_ported("EXIF orientation != 1", "item 4.5")
         # host-side decode window: coefficients outside the MCU-aligned
-        # crop window never leave the host
+        # crop window never leave the host. Vertically subsampled layouts
+        # take whole MCU rows of luma (the zero pad row is the decoder's)
         ybh = g.blocks[0][0]
         self._window = mcu_decode_window(
             g.width, g.height, dst_w, dst_h, g.h2, g.v2, g.blocks,
-            ybh + (ybh % 2))
+            ybh + (ybh % 2) if g.v2 else ybh)
         #: (x0, y0, rw, rh) of the window's plane origin and size
         self.window_static = self._window[:4]
         self.quality = quality
@@ -534,7 +549,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         """One batch through the dense stages; returns device tensors
         (yq, cbq, crq) int16, asynchronously on CUDA. Takes
         decode_entropy's output. plain=True runs the plain PyTorch version
-        of the decode kernel instead of the kernel."""
+        of the layout's decode kernel instead of the kernel."""
         g = self.geom
         return _fused_jpeg_fit_impl(
             self._to_device(ys), self._to_device(cbs), self._to_device(crs),
@@ -542,7 +557,8 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             self._to_device(qtc.astype(np.float32)),
             self.enc_qt_y, self.enc_qt_c,
             src_w=g.width, src_h=g.height, dst_w=self.dst_w,
-            dst_h=self.dst_h, window=self.window_static, plain=plain)
+            dst_h=self.dst_h, window=self.window_static, h2=g.h2, v2=g.v2,
+            plain=plain)
 
     # -- end to end --------------------------------------------------------------
 

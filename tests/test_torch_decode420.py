@@ -2,12 +2,13 @@
 decode: the split path (jpeg_kernels.decode_ycc_420, the CPU default) and
 the Pallas megakernel (pallas_kernels._decode420_call, interpret mode).
 
-On the CPU the wrapper takes the plain PyTorch version, which must match
-the JAX split path BIT FOR BIT (atol 0) and the megakernel bit for bit
-wherever the megakernel agrees with the split path: planes against
-decode_ycc_u8_plane_blocks + _blocks_to_plane_xla, packed BGRA against
-_decode_ycc_megakernel, at the odd geometries of test_megakernel.py with
-per-image tables, and at the bench window. The megakernel itself departs
+On the CPU the wrapper takes the plain PyTorch version (decode_ycc_reference
+with h2=v2=True), which must match the JAX split path BIT FOR BIT (atol 0)
+and the megakernel bit for bit wherever the megakernel agrees with the
+split path: planes against decode_ycc_u8_plane_blocks +
+_blocks_to_plane_xla, packed BGRA against _decode_ycc_megakernel, at the
+odd geometries of test_megakernel.py with per-image tables, and at the
+bench window. The megakernel itself departs
 from the split path by 1 u8 on 1 of 2304 values at 16x16 (seed 16016,
 per-image q30/85/95 tables; ROADMAP queue 3): XLA fuses the kernel body's
 multiply-adds differently in interpret mode. There the port keeps the
@@ -29,8 +30,11 @@ from lilliput_tpu_torch import pipeline as TP
 from lilliput_tpu_torch.ops import decode_kernels as DK
 from lilliput_tpu_torch.ops import jpeg_kernels as K
 
-from _torch_parity import (CASES, bench_bytes, coefs_420, jax_planes,
-                           qtables)
+from _torch_parity import CASES, bench_bytes, coefs, jax_planes, qtables
+
+
+def _reference(*args, out="planes"):
+    return DK.decode_ycc_reference(*args, True, True, out=out)
 
 
 def _folded(qy, qc, device="cpu"):
@@ -68,9 +72,9 @@ def _assert_matches_jax(got_planes, split, mk_planes):
 @pytest.mark.parametrize("h,w", CASES)
 def test_planes_match_jax(h, w):
     rng = np.random.default_rng(h * 1000 + w)
-    yc, cb, cr = coefs_420(rng, h, w)
+    yc, cb, cr = coefs(rng, h, w)
     qy, qc = qtables()
-    got = DK.decode420_reference(*_torch_args(yc, cb, cr, qy, qc))
+    got = _reference(*_torch_args(yc, cb, cr, qy, qc))
     oh, ow = 16 * cb.shape[1], 16 * cb.shape[2]
     for g in got:
         assert g.dtype == torch.uint8 and g.shape == (3, oh, ow)
@@ -82,13 +86,12 @@ def test_planes_match_jax(h, w):
 @pytest.mark.parametrize("h,w", CASES)
 def test_packed_matches_jax(h, w):
     rng = np.random.default_rng(h * 7 + w)
-    yc, cb, cr = coefs_420(rng, h, w)
+    yc, cb, cr = coefs(rng, h, w)
     qy, qc = qtables()
     ref = np.asarray(JK._decode_ycc_megakernel(
         jnp.asarray(yc), jnp.asarray(cb), jnp.asarray(cr), jnp.asarray(qy),
         jnp.asarray(qc), h, w, True, True, interpret=True))
-    got = DK.decode420_reference(*_torch_args(yc, cb, cr, qy, qc),
-                                 out="packed")
+    got = _reference(*_torch_args(yc, cb, cr, qy, qc), out="packed")
     assert got.dtype == torch.int32
     bgra = got.numpy().view(np.uint8).reshape(got.shape + (4,))
     split = _split_bgr(yc, cb, cr, qy, qc)[:, :h, :w]
@@ -103,7 +106,7 @@ def test_bench_window_matches_jax():
     buf = bench_bytes()
     pipe = TP.JpegTranscodePipeline(buf, 256, 256, device="cpu")
     yc, cb, cr, qy, qc = pipe.decode_entropy([buf])
-    got = DK.decode420_reference(*_torch_args(yc, cb, cr, qy, qc))
+    got = _reference(*_torch_args(yc, cb, cr, qy, qc))
     _assert_matches_jax([g.numpy() for g in got],
                         _split_bgr(yc, cb, cr, qy, qc),
                         jax_planes(yc, cb, cr, qy, qc))
@@ -111,24 +114,24 @@ def test_bench_window_matches_jax():
 
 def test_wrapper_takes_plain_version_on_cpu():
     rng = np.random.default_rng(5)
-    yc, cb, cr = coefs_420(rng, 67, 61)
+    yc, cb, cr = coefs(rng, 67, 61)
     qy, qc = qtables()
     args = _torch_args(yc, cb, cr, qy, qc)
-    DK.launches = 0
+    DK.reset_launches()
     for out in ("planes", "packed"):
         got = DK.decode420(*args, out=out)
-        ref = DK.decode420_reference(*args, out=out)
+        ref = _reference(*args, out=out)
         for g, r in zip(got if out == "planes" else [got],
                         ref if out == "planes" else [ref]):
             assert torch.equal(g, r)
-    assert DK.launches == 0
+    assert DK.launches["decode420"] == 0
 
 
 def test_serving_entry_matches_jax_entry():
     """jpeg_kernels.decode_ycc_u8_plane_blocks: the same (B, 64) tables
     and the same 4:2:0 gate as the JAX function; raster planes out."""
     rng = np.random.default_rng(8)
-    yc, cb, cr = coefs_420(rng, 130, 17)
+    yc, cb, cr = coefs(rng, 130, 17)
     qy, qc = qtables()
     got = K.decode_ycc_u8_plane_blocks(
         *(torch.from_numpy(a) for a in (yc, cb, cr)),
@@ -146,7 +149,7 @@ def test_serving_entry_matches_jax_entry():
 
 def test_wrapper_rejects_bad_inputs():
     rng = np.random.default_rng(6)
-    yc, cb, cr = coefs_420(rng, 32, 32)
+    yc, cb, cr = coefs(rng, 32, 32)
     qy, qc = qtables()
     args = list(_torch_args(yc, cb, cr, qy, qc))
     with pytest.raises(TypeError):
@@ -157,7 +160,7 @@ def test_wrapper_rejects_bad_inputs():
         DK.decode420(*args[:3], args[3][:1, :32], args[4])
     with pytest.raises(ValueError):
         DK.decode420(*args, out="rgb")
-    DK.launches = 0
+    assert DK.launches["decode420"] == 0
 
 
 def test_jax_pipeline_geometry_is_the_ports():

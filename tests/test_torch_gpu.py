@@ -1,11 +1,12 @@
-"""The port on a CUDA card: the decode kernel against its plain PyTorch
-version, and the serving device step against the same step through the
-plain version and on the CPU. Imports no jax, so it runs on the card's
+"""The port on a CUDA card: each decode kernel (decode420, decode422,
+decode440, decode444) against its plain PyTorch version, and each
+layout's serving device step against the same step through the plain
+version and on the CPU. Imports no jax, so it runs on the card's
 machine:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Without a card every test skips (the kernel has no CPU mode).
+Without a card every test skips (the kernels have no CPU mode).
 
 Tolerances: the kernel's 64-term IDCT sums run in k order with fmaf, the
 plain version's in cuBLAS's order, so a u8 value may move by 1 where a sum
@@ -25,7 +26,16 @@ from lilliput_tpu_torch.ops import jpeg_kernels as K
 
 CASES = [(64, 48), (67, 61), (16, 16), (130, 17), (8, 8), (24, 129),
          (1088, 1120)]
+#: the 1080p fixtures' serving windows (h, w) of the other layouts
+WINDOWS = {"422": (1080, 1120), "440": (1080, 1104), "444": (1080, 1104)}
+LAYOUTS = {"420": (True, True), "422": (True, False), "440": (False, True),
+           "444": (False, False)}
 FIXTURE = "tests/assets/bench_1080p.jpg"
+
+
+def _fixture(sub):
+    return FIXTURE if sub == "420" else FIXTURE.replace(".jpg",
+                                                        f"_{sub}.jpg")
 
 
 def _need_card():
@@ -41,49 +51,67 @@ def _diff(got, ref):
     return int(d.max()), int((d > 0).sum()), d.numel()
 
 
-def _args(h, w, batch=3):
+def _args(h, w, batch=3, sub="420"):
     rng = np.random.default_rng(h * 1000 + w)
+    h2, v2 = LAYOUTS[sub]
 
     def bl(n, f):
         return (-(-n // f) + 7) // 8
-    coefs = [rng.integers(-lim, lim, (batch, bl(h, f), bl(w, f), 64))
-             for lim, f in ((300, 1), (200, 2), (200, 2))]
-    qs = [scaled_qtables(q) for q in (30, 85, 95)][:batch]
+    coefs = [rng.integers(-lim, lim, (batch, bl(h, fv), bl(w, fh), 64))
+             for lim, fh, fv in ((300, 1, 1), (200, 1 + h2, 1 + v2),
+                                 (200, 1 + h2, 1 + v2))]
+    qs = [scaled_qtables((30, 85, 95)[i % 3]) for i in range(batch)]
     tabs = [np.stack([q[i] for q in qs]).astype(np.float32) for i in (0, 1)]
     return tuple(torch.from_numpy(c.astype(np.int16)).cuda()
                  for c in coefs) + tuple(
         K.fold_qtables(torch.from_numpy(t).cuda()) for t in tabs)
 
 
+def _check_kernel(sub, h, w, batch=3):
+    args = _args(h, w, batch, sub)
+    h2, v2 = LAYOUTS[sub]
+    name = "decode" + sub
+    fn = getattr(DK, name)
+    before = DK.launches[name]
+    got = fn(*args)
+    ref = DK.decode_ycc_reference(*args, h2, v2)
+    mx, nd, n = _diff(got, ref)
+    assert mx <= 1 and nd <= 1e-4 * n
+    got = fn(*args, out="packed")
+    ref = DK.decode_ycc_reference(*args, h2, v2, out="packed")
+    mx, nd, n = _diff([(got >> s) & 255 for s in (0, 8, 16, 24)],
+                      [(ref >> s) & 255 for s in (0, 8, 16, 24)])
+    assert mx <= 1 and nd <= 1e-4 * n
+    assert DK.launches[name] == before + 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,w", CASES)
 def test_kernel_matches_plain(h, w):
     _need_card()
-    args = _args(h, w)
-    before = DK.launches
-    got = DK.decode420(*args)
-    ref = DK.decode420_reference(*args)
-    mx, nd, n = _diff(got, ref)
-    assert mx <= 1 and nd <= 1e-4 * n
-    got = DK.decode420(*args, out="packed")
-    ref = DK.decode420_reference(*args, out="packed")
-    mx, nd, n = _diff([(got >> s) & 255 for s in (0, 8, 16, 24)],
-                      [(ref >> s) & 255 for s in (0, 8, 16, 24)])
-    assert mx <= 1 and nd <= 1e-4 * n
-    assert DK.launches == before + 2
+    _check_kernel("420", h, w)
 
 
 @pytest.mark.gpu
-def test_device_step_matches_plain_and_cpu():
+@pytest.mark.parametrize("sub,h,w,batch", [
+    (sub, h, w, 3) for sub in WINDOWS for h, w in CASES[:-1]] + [
+    (sub, h, w, 16) for sub, (h, w) in WINDOWS.items()])
+def test_layout_kernels_match_plain(sub, h, w, batch):
+    """The odd geometries, and the serving window at batch 16."""
     _need_card()
-    with open(FIXTURE, "rb") as f:
+    _check_kernel(sub, h, w, batch)
+
+
+def _check_device_step(sub):
+    with open(_fixture(sub), "rb") as f:
         buf = f.read()
     gpu = JpegTranscodePipeline(buf, 256, 256, device="cuda")
     cpu = JpegTranscodePipeline(buf, 256, 256, device="cpu")
     args = gpu.decode_entropy([buf] * 4)
-    before = DK.launches
+    name = "decode" + sub
+    before = dict(DK.launches)
     step = [t.cpu() for t in gpu.device_step(*args)]
-    assert DK.launches == before + 1
+    assert DK.launches == {k: v + (k == name) for k, v in before.items()}
     plain = [t.cpu() for t in gpu.device_step(*args, plain=True)]
     host = list(cpu.device_step(*args))
     for ref in (plain, host):
@@ -91,3 +119,16 @@ def test_device_step_matches_plain_and_cpu():
         assert mx <= 1 and nd <= 1e-3 * n
     outs = gpu.transcode([buf] * 2)
     assert outs[0] == outs[1] and outs[0][:2] == b"\xff\xd8"
+
+
+@pytest.mark.gpu
+def test_device_step_matches_plain_and_cpu():
+    _need_card()
+    _check_device_step("420")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub", ("422", "440", "444"))
+def test_layout_device_step_matches_plain_and_cpu(sub):
+    _need_card()
+    _check_device_step(sub)

@@ -213,3 +213,15 @@ def test_encoded_stream_decodes_to_same_coefficients():
         np.testing.assert_array_equal(o, c)
     np.testing.assert_array_equal(qt[0], ql)
     np.testing.assert_array_equal(qt[1], qc)
+
+
+def test_host_decoder_source_is_the_jax_packages():
+    """The port builds its Huffman decoder from its own copy of
+    jpeg_huff.cpp; the copy must stay byte-identical to the JAX package's,
+    so the two packages decode every stream alike."""
+    import os
+    ours = os.path.join("lilliput_tpu_torch", "csrc", "host", "jpeg_huff.cpp")
+    theirs = os.path.join("lilliput_tpu", "native", "src", "jpeg_huff.cpp")
+    assert ours in binding.HOST_SOURCES[0]
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
