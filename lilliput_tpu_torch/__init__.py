@@ -4,9 +4,9 @@ The JAX package (``lilliput_tpu``) is the reference; this package mirrors its
 module names so each piece has an obvious counterpart. It imports ``torch``
 and never ``jax`` or ``lilliput_tpu``. The slice ported so far is the JPEG
 Fit transcode serving path (``JpegTranscodePipeline``, rgb chroma mode,
-4:2:0 sources, AREA resize, JPEG output); its 4:2:0 decode is a CUDA kernel
-(``csrc/decode420.cu``), and the host entropy stages are C++ built at first
-use (``binding.py``).
+4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale sources at any EXIF orientation,
+AREA resize, JPEG output); its decode kernels are CUDA (``csrc/*.cu``),
+and the host entropy stages are C++ built at first use (``binding.py``).
 """
 
 import torch as _torch

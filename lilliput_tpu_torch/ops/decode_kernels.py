@@ -1,28 +1,32 @@
 """The JPEG decode kernels: CUDA on the card, plain PyTorch beside them.
 
-The counterpart of ``lilliput_tpu/ops/pallas_kernels.py`` for the JPEG Fit
-slice. One kernel per chroma layout, each replacing one Pallas megakernel:
+The counterpart of ``lilliput_tpu/ops/pallas_kernels.py``. One kernel per
+chroma layout, each replacing one Pallas megakernel, and the split path's
+IDCT:
 
-==========  =========================  ==========================================
-wrapper     CUDA source                TPU kernel (``pl.pallas_call`` line)
-==========  =========================  ==========================================
-decode420   ``csrc/decode420.cu``      ``_decode420_call`` (:437)
-decode422   ``csrc/decode_packed.cu``  ``decode422_packed`` (:563)
-decode440   ``csrc/decode_packed.cu``  ``decode440_packed`` (:713)
-decode444   ``csrc/decode_packed.cu``  ``decode444_packed`` (:792)
-==========  =========================  ==========================================
+===================  =========================  ===============================
+wrapper              CUDA source                TPU kernel (``pl.pallas_call``)
+===================  =========================  ===============================
+decode420            ``csrc/decode420.cu``      ``_decode420_call`` (:437)
+decode422            ``csrc/decode_packed.cu``  ``decode422_packed`` (:563)
+decode440            ``csrc/decode_packed.cu``  ``decode440_packed`` (:713)
+decode444            ``csrc/decode_packed.cu``  ``decode444_packed`` (:792)
+dequant_idct_blocks  ``csrc/idct_blocks.cu``    ``dequant_idct_blocks`` (:63)
+===================  =========================  ===============================
 
-Each does per-image dequant + 8x8 IDCT of Y/Cb/Cr, libjpeg's "fancy"
-triangle chroma upsample along the subsampled axes (edges replicated at the
-window's chroma plane edge), YCbCr->BGR, round half to even and a clip to
-u8. It writes three raster u8 planes (the serving path) or packed BGRA
-int32 (what the TPU kernels compute).
+Each decode kernel does per-image dequant + 8x8 IDCT of Y/Cb/Cr, libjpeg's
+"fancy" triangle chroma upsample along the subsampled axes (edges
+replicated at the window's chroma plane edge), YCbCr->BGR, round half to
+even and a clip to u8. It writes three raster u8 planes (the serving path)
+or packed BGRA int32 (what the TPU kernels compute). ``dequant_idct_blocks``
+is the dequant + IDCT alone, to an f32 raster plane: the split decode's
+first stage, which the grayscale path and the off-spec colour fallback run.
 
 * A CUDA tensor launches the kernel (built with nvcc for sm_90a at first
   use, see ``_build.py``) or the call raises.
-* A CPU tensor takes ``decode_ycc_reference``, the plain PyTorch version
-  (the JAX package's split decode), which the tests hold bit-identical to
-  the JAX package on the CPU.
+* A CPU tensor takes the plain PyTorch version (``decode_ycc_reference``,
+  the JAX package's split decode; ``dequant_idct_blocks_reference``), which
+  the tests hold bit-identical to the JAX package on the CPU.
 
 ``launches[name]`` counts each kernel's launches (plain-version calls do
 not count), so a run can show the serving path went through the kernel.
@@ -48,11 +52,15 @@ _KERNELS = {
     "decode440": ("libdecode_packed", False, True),
     "decode444": ("libdecode_packed", False, False),
 }
+#: the split-path IDCT's library
+_IDCT_LIB = "libidct_blocks"
 #: library -> its CUDA source
 _LIBS = {"libdecode420": "decode420.cu",
-         "libdecode_packed": "decode_packed.cu"}
+         "libdecode_packed": "decode_packed.cu",
+         _IDCT_LIB: "idct_blocks.cu"}
 
-launches: Dict[str, int] = dict.fromkeys(_KERNELS, 0)
+launches: Dict[str, int] = dict.fromkeys(
+    list(_KERNELS) + ["dequant_idct_blocks"], 0)
 
 _ALPHA_FF = -16777216  # 0xFF000000 as int32 (alpha byte of a packed pixel)
 _lock = threading.Lock()
@@ -85,6 +93,11 @@ def _load(name: str) -> ctypes.CDLL:
                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, vp]
                     fn.restype = ctypes.c_int
+            if name == _IDCT_LIB:
+                fn = lib.lpt_dequant_idct_blocks
+                fn.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, vp]
+                fn.restype = ctypes.c_int
             lib.lpt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lpt_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -137,6 +150,18 @@ def _pad_luma(yc: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return yc
 
 
+def _launch(lib: ctypes.CDLL, name: str, device, *args) -> None:
+    """Call lpt_<name> on the device's current stream, raise on a non-zero
+    launch status, and count the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, "lpt_" + name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.lpt_cuda_error_string(rc).decode())
+    launches[name] += 1
+
+
 def _decode(name: str, yc, cb, cr, wqy, wqc, out: str):
     lib_name, h2, v2 = _KERNELS[name]
     fx, fy = 1 + h2, 1 + v2
@@ -162,15 +187,9 @@ def _decode(name: str, yc, cb, cr, wqy, wqc, out: str):
     else:
         outs = (torch.empty(shape, dtype=torch.int32, device=yc.device),)
         ptrs = [outs[0].data_ptr(), None, None]
-    with torch.cuda.device(yc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "lpt_" + name)(
-            yc.data_ptr(), cb.data_ptr(), cr.data_ptr(), wqy.data_ptr(),
-            wqc.data_ptr(), *ptrs, int(out == "packed"), b, cbh, cbw, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.lpt_cuda_error_string(rc).decode())
-    launches[name] += 1
+    _launch(lib, name, yc.device, yc.data_ptr(), cb.data_ptr(),
+            cr.data_ptr(), wqy.data_ptr(), wqc.data_ptr(), *ptrs,
+            int(out == "packed"), b, cbh, cbw)
     return outs if out == "planes" else outs[0]
 
 
@@ -238,3 +257,51 @@ def decode_ycc_reference(yc: torch.Tensor, cb: torch.Tensor,
         return bgr
     bb, gg, rr = (p.to(torch.int32) for p in bgr)
     return bb | (gg << 8) | (rr << 16) | _ALPHA_FF
+
+
+def _check_idct(coefs: torch.Tensor, wq: torch.Tensor) -> None:
+    if coefs.dtype != torch.int16:
+        raise TypeError(f"coefs must be torch.int16, got {coefs.dtype}")
+    if wq.dtype != torch.float32:
+        raise TypeError(f"wq must be torch.float32, got {wq.dtype}")
+    if wq.device != coefs.device:
+        raise ValueError(f"wq is on {wq.device}, coefs on {coefs.device}")
+    if coefs.dim() != 4 or coefs.shape[-1] != 64:
+        raise ValueError(f"coefs must be (B, bh, bw, 64), got "
+                         f"{tuple(coefs.shape)}")
+    if wq.shape not in ((coefs.shape[0], 64, 64), (1, 64, 64)):
+        raise ValueError(f"wq must be (B, 64, 64) or (1, 64, 64), got "
+                         f"{tuple(wq.shape)}")
+
+
+def dequant_idct_blocks(coefs: torch.Tensor,
+                        wq: torch.Tensor) -> torch.Tensor:
+    """(B, bh, bw, 64) int16 coefficients with dequant-folded IDCT matrices
+    (B, 64, 64) f32, or one (1, 64, 64) shared by every image -> (B, 8·bh,
+    8·bw) f32 raster plane: coef·W_q + 128 per 8x8 block, unrounded."""
+    _check_idct(coefs, wq)
+    if coefs.device.type == "cpu":
+        return dequant_idct_blocks_reference(coefs, wq)
+    if coefs.device.type != "cuda":
+        raise ValueError(f"dequant_idct_blocks runs on cuda or cpu, not "
+                         f"{coefs.device}")
+    lib = _load(_IDCT_LIB)
+    coefs, wq = coefs.contiguous(), wq.contiguous()
+    for t in (coefs, wq):
+        if t.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+            raise ValueError("dequant_idct_blocks: inputs must be 16-byte "
+                             "aligned")
+    b, bh, bw = coefs.shape[:3]
+    out = torch.empty((b, 8 * bh, 8 * bw), dtype=torch.float32,
+                      device=coefs.device)
+    _launch(lib, "dequant_idct_blocks", coefs.device, coefs.data_ptr(),
+            wq.data_ptr(), out.data_ptr(), b, bh, bw, int(wq.shape[0] != 1))
+    return out
+
+
+def dequant_idct_blocks_reference(coefs: torch.Tensor,
+                                  wq: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of dequant_idct_blocks (same arguments and
+    result), on any device: one batched f32 matmul, + 128, relayout."""
+    _check_idct(coefs, wq)
+    return K.idct_folded(coefs, wq)

@@ -4,7 +4,8 @@ The subset of ``lilliput_tpu/ops/jpeg_kernels.py`` the JPEG Fit slice runs:
 
 Decode: coefs -> dequant -> IDCT -> +128 -> fancy (triangle) chroma upsample
         -> YCbCr->BGR -> u8.   (one CUDA kernel per chroma layout on the
-        card, decode_kernels)
+        card, decode_kernels; grayscale: dequant_idct, whose IDCT is the
+        dequant_idct_blocks CUDA kernel, or dequant_idct_u8's matmul)
 Encode: BGR -> YCbCr -> pad to MCU -> 2x2 box chroma downsample -> -128 ->
         fDCT -> quantize(round) -> int16 coefs.
 
@@ -12,7 +13,7 @@ The IDCT and fDCT are (N,64)x(64,64) f32 matmuls with the quantization
 folded into the matrix, as in the JAX package; the constant tables come
 from the same numpy code and are equal bit for bit. The split decode
 (``dequant_idct``, ``upsample_chroma``, ``ycbcr_to_bgr``) is the plain
-version of the decode kernels.
+version of the decode kernels, and ``decode_ycc_420``'s fallback.
 
 Elementwise arithmetic follows the JAX package as XLA compiles it on the
 CPU (its test platform): every ``a*x + c`` there becomes ONE fused
@@ -98,18 +99,56 @@ def idct_folded(coefs: torch.Tensor, wq: torch.Tensor,
     return _blocks_to_plane(p, lead, bh, bw)
 
 
-def dequant_idct(coefs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+def _lead_batch(coefs: torch.Tensor, qtable: torch.Tensor):
+    """(lead dims, image count) of a (..., bh, bw, 64) stack, with the JAX
+    package's gate on a batched qtable (jpeg_kernels.py:200-203)."""
+    lead = tuple(coefs.shape[:-3])
+    if qtable.dim() > 1 and lead != tuple(qtable.shape[:-1]):
+        raise ValueError(
+            f"batched qtable leading dims {tuple(qtable.shape[:-1])} "
+            f"must match coefficient leading dims {lead}")
+    return lead, int(np.prod(lead)) if lead else 1
+
+
+def dequant_idct(coefs: torch.Tensor, qtable: torch.Tensor,
+                 plain: bool = False) -> torch.Tensor:
     """(..., bh, bw, 64) int16 + (64,) or (B, 64) -> (..., bh*8, bw*8) f32.
 
     Dequantization folds into the IDCT matrix rows (W_q = diag(q) @ W). A
     2-D qtable carries per-image tables for a (B, bh, bw, 64) stack; each
-    image's tables fold into its own matrix (batched matmul)."""
-    lead = coefs.shape[:-3]
-    if qtable.dim() > 1 and tuple(lead) != tuple(qtable.shape[:-1]):
-        raise ValueError(
-            f"batched qtable leading dims {tuple(qtable.shape[:-1])} "
-            f"must match coefficient leading dims {tuple(lead)}")
-    return idct_folded(coefs, fold_qtables(qtable))
+    image's tables fold into its own matrix. The product runs in
+    decode_kernels.dequant_idct_blocks, the CUDA kernel for CUDA tensors,
+    as the JAX package dispatches to its Pallas kernel (:193, :207);
+    plain=True (and any CPU tensor) takes its plain PyTorch version."""
+    from . import decode_kernels as DK
+    lead, b = _lead_batch(coefs, qtable)
+    fn = DK.dequant_idct_blocks_reference if plain else DK.dequant_idct_blocks
+    p = fn(coefs.reshape((b,) + tuple(coefs.shape[-3:])),
+           fold_qtables(qtable))
+    return p.reshape(lead + tuple(p.shape[1:]))
+
+
+def dequant_idct_u8(coefs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """dequant_idct rounded half to even and clipped to u8 while the pixels
+    are still blocks: (..., bh, bw, 64) int16 -> (..., bh*8, bw*8) u8. The
+    JAX package computes this with an XLA einsum on every backend, outside
+    any Pallas kernel, so it stays a torch matmul; it stores bf16 there, a
+    TPU layout choice, where the port stores the same values as u8."""
+    lead, b = _lead_batch(coefs, qtable)
+    bh, bw = coefs.shape[-3], coefs.shape[-2]
+    p = matmul(coefs.reshape(b, -1, 64).to(torch.float32),
+               fold_qtables(qtable)) + 128.0
+    p = torch.clamp(torch.round(p), 0.0, 255.0).to(torch.uint8)
+    return _blocks_to_plane(p, lead, bh, bw)
+
+
+def decode_gray(y_coefs: torch.Tensor, qt_luma: torch.Tensor, out_h: int,
+                out_w: int, plain: bool = False) -> torch.Tensor:
+    """Grayscale decode: (..., bh, bw, 64) int16 -> (..., out_h, out_w) u8
+    plane (the JAX function's (..., H, W, 1) without the channel axis).
+    Rounds and clips the IDCT's fresh output in place."""
+    y = dequant_idct(y_coefs, qt_luma, plain)[..., :out_h, :out_w]
+    return y.round_().clamp_(0.0, 255.0).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +202,20 @@ def ycbcr_to_bgr(y: torch.Tensor, cb: torch.Tensor,
     clip). The JAX function stacks them on a minor axis; the port keeps
     planes, the layout its consumers take."""
     return centered_ycc_to_bgr(y, cb - 128.0, cr - 128.0)
+
+
+def _bgr_to_ycc(b, g, r):
+    """f32 B/G/R planes -> Y, Cb, Cr planes, with XLA's CPU fusions."""
+    y = _fma(0.114, b, _fma(0.299, r, 0.587 * g))
+    cb = _fma(0.5, b, _fma(-0.168735892, r, -0.331264108 * g)) + 128.0
+    cr = _fma(-0.081312411, b, _fma(0.5, r, -0.418687589 * g)) + 128.0
+    return y, cb, cr
+
+
+def bgr_to_ycbcr(img: torch.Tensor):
+    """(..., H, W, 3+) BGR(A) -> (y, cb, cr) f32 planes."""
+    f = img.to(torch.float32)
+    return _bgr_to_ycc(f[..., 0], f[..., 1], f[..., 2])
 
 
 def centered_ycc_to_bgr(y: torch.Tensor, cbc: torch.Tensor,
@@ -257,6 +310,32 @@ def decode_ycc_planes(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
                        out_h, out_w, h2, v2, "planes", plain)
 
 
+def decode_ycc_420(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
+                   out_h: int, out_w: int, h2: bool, v2: bool,
+                   qt_chroma2=None, plain: bool = False):
+    """Full colour decode from coefficients (4:4:4, 4:2:2, 4:2:0, 4:4:0) to
+    (b, g, r) u8 planes, each lead + (out_h, out_w); the JAX function
+    stacks the same values on a minor axis.
+
+    As in the JAX function, the layout's decode kernel runs first
+    (decode_ycc_planes); the split path (dequant_idct, upsample_chroma,
+    ycbcr_to_bgr) runs when the shapes are off-spec for the layout or Cr
+    has its own table (qt_chroma2), which the kernels do not carry.
+    plain=True runs the plain versions of the kernels."""
+    if qt_chroma2 is None:
+        planes = decode_ycc_planes(y_coefs, cb_coefs, cr_coefs, qt_luma,
+                                   qt_chroma, out_h, out_w, h2, v2, plain)
+        if planes is not None:
+            return planes
+    y = dequant_idct(y_coefs, qt_luma, plain)[..., :out_h, :out_w]
+    cb = dequant_idct(cb_coefs, qt_chroma, plain)
+    cr = dequant_idct(cr_coefs,
+                      qt_chroma if qt_chroma2 is None else qt_chroma2, plain)
+    hf, vf = 1 + h2, 1 + v2
+    return ycbcr_to_bgr(y, upsample_chroma(cb, hf, vf, out_h, out_w),
+                        upsample_chroma(cr, hf, vf, out_h, out_w))
+
+
 def packed_to_planes(packed: torch.Tensor):
     """Packed BGRA int32 -> (b, g, r) f32 planes (exact u8 values)."""
     return tuple(((packed >> s) & 255).to(torch.float32) for s in (0, 8, 16))
@@ -311,8 +390,12 @@ def encode_from_bgr_planes(bpl, gpl, rpl, qt_luma, qt_chroma,
                            subsample: bool = True):
     """Three (..., H, W) f32 planes holding exact u8 values -> (y, cb, cr)
     quantized int16 coefficient arrays, 4:2:0 when subsample else 4:4:4."""
-    y = _fma(0.114, bpl, _fma(0.299, rpl, 0.587 * gpl))
-    cb = _fma(0.5, bpl, _fma(-0.168735892, rpl, -0.331264108 * gpl)) + 128.0
-    cr = _fma(-0.081312411, bpl, _fma(0.5, rpl, -0.418687589 * gpl)) + 128.0
-    return _encode_ycc(y, cb, cr, qt_luma, qt_chroma, subsample)
+    return _encode_ycc(*_bgr_to_ycc(bpl, gpl, rpl), qt_luma, qt_chroma,
+                       subsample)
 
+
+def encode_from_bgr(img, qt_luma, qt_chroma, subsample: bool = True):
+    """(..., H, W, 3+) u8 BGR(A) -> (y, cb, cr) quantized int16 coefficient
+    arrays, 4:2:0 when subsample else 4:4:4. Alpha is ignored."""
+    return _encode_ycc(*bgr_to_ycbcr(img[..., :3]), qt_luma, qt_chroma,
+                       subsample)

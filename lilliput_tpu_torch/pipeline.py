@@ -1,20 +1,25 @@
 """Batched JPEG Fit transcode — the port's serving path.
 
 The slice of ``lilliput_tpu/pipeline.py`` that runs the main path: a batch
-of same-geometry 4:2:0, 4:2:2, 4:4:0 or 4:4:4 JPEGs, upright, to
-Fit-cropped JPEGs at the destination size, AREA resize,
+of same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
+orientation) to Fit-cropped JPEGs at the destination size, AREA resize,
 chroma_mode="rgb". Five stages:
 
-1. host Huffman decode into the MCU window around the Fit crop
-   (``decode_entropy``, jpeg_huff.cpp);
-2. the layout's decode kernel (``ops/decode_kernels``: ``decode420``,
-   ``decode422``, ``decode440`` or ``decode444``, CUDA) to three raster u8
-   planes;
-3. INTER_AREA resize (``ops/resize.resize_area_plane_embedded``): 4:2:0
-   folds the crop into the banded matrices (the JAX block tail), the other
-   layouts crop the planes and resize from offset 0 (the JAX packed tail);
+1. host Huffman decode (``decode_entropy``, jpeg_huff.cpp): upright
+   sources into the MCU window around the Fit crop, oriented ones whole;
+2. the decode kernel (``ops/decode_kernels``, CUDA): the colour layout's
+   ``decode420``, ``decode422``, ``decode440`` or ``decode444`` to three
+   raster u8 planes; for grayscale, ``dequant_idct_blocks`` (oriented
+   sources) or a torch matmul (upright, as the JAX package's XLA einsum);
+3. EXIF orientation (``ops/orient``) and INTER_AREA resize
+   (``ops/resize``): upright 4:2:0 folds the crop into the banded matrices
+   (the JAX block tail), the other upright layouts crop the planes and
+   resize from offset 0 (the JAX packed tail), upright grayscale folds the
+   crop like 4:2:0; oriented sources are oriented, cropped and resized,
+   grayscale with the bit-exact streaming resize, colour with the matmul
+   form;
 4. BGR->YCbCr, 2x2 chroma downsample, fDCT and quantization
-   (``ops/jpeg_kernels.encode_from_bgr_planes``);
+   (``ops/jpeg_kernels``; the luma fDCT alone for grayscale);
 5. host Huffman encode (``encode_entropy``, csrc/host/jpeg_enc.cpp).
 
 Stages 2-4 run on the pipeline's torch device; the host threads run the
@@ -38,6 +43,7 @@ from . import binding
 from .codecs import jpeg as J
 from .errors import DecodingFailedError
 from .ops import jpeg_kernels as K
+from .ops import orient as O
 from .ops import resize as R
 
 _i16p = ctypes.POINTER(ctypes.c_int16)
@@ -115,20 +121,44 @@ def mcu_decode_window(src_w: int, src_h: int, dst_w: int, dst_h: int,
             slice(cby0, cby1), slice(cbx0, cbx1))
 
 
+def _oriented_fit(src_w: int, src_h: int, dst_w: int, dst_h: int,
+                  orientation: int):
+    """fit_rect of the upright (oriented) image: orientations 5-8 swap the
+    source's width and height."""
+    if O.swaps_dimensions(orientation):
+        src_w, src_h = src_h, src_w
+    return fit_rect(src_w, src_h, dst_w, dst_h)
+
+
 def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                          src_w: int, src_h: int, dst_w: int, dst_h: int,
-                         window, h2: bool, v2: bool, plain: bool = False):
-    """(B, bh, bw, 64) window coefficient batches -> quantized encode
-    coefficients (yq, cbq, crq): the upright AREA branches of the JAX
-    function (lilliput_tpu/pipeline.py:247-301).
+                         window, h2: bool, v2: bool, orientation: int = 1,
+                         plain: bool = False):
+    """(B, bh, bw, 64) coefficient batches -> quantized encode coefficients
+    (yq, cbq, crq): the AREA branches of the JAX function
+    (lilliput_tpu/pipeline.py:247-318).
 
-    The decode kernel writes raster u8 planes. 4:2:0 takes the block tail
-    (:259-281): each plane's resize folds the Fit crop into its AREA
-    matrices. 4:2:2, 4:4:0 and 4:4:4 take the packed tail (:282-301): the
-    planes are cropped to the Fit rect and resized from offset 0. Either
-    way the resized planes are rounded, clipped and re-encoded at 4:2:0.
-    plain=True decodes with the plain PyTorch version of the kernel (for
-    comparisons on the card)."""
+    Upright (window = the host's decode window): the decode kernel writes
+    raster u8 planes. 4:2:0 takes the block tail (:259-281): each plane's
+    resize folds the Fit crop into its AREA matrices. 4:2:2, 4:4:0 and
+    4:4:4 take the packed tail (:282-301): the planes are cropped to the
+    Fit rect and resized from offset 0. Other orientations (:304-318): the
+    whole frame is decoded, oriented, cropped to the Fit rect of the
+    upright size and resized (resize_area_mxu). Either way the resized
+    planes are rounded, clipped and re-encoded at 4:2:0. plain=True decodes
+    with the plain PyTorch versions of the kernels (for comparisons on the
+    card)."""
+    if orientation != 1:
+        planes = K.decode_ycc_420(yc, cb, cr, qt_y, qt_c, src_h, src_w, h2,
+                                  v2, plain=plain)
+        left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h,
+                                        orientation)
+        out = [R.resize_area_mxu_planes(
+            O.orient_planes(p, orientation)[..., top:top + h,
+                                            left:left + w],
+            dst_w, dst_h).to(torch.float32) for p in planes]
+        return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
+                                        enc_qt_c, subsample=True)
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
     x0, y0, rw, rh = window
     if h2 and v2:
@@ -151,6 +181,39 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
         for p in planes]
     return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
                                     enc_qt_c, subsample=True)
+
+
+def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
+                              dst_w: int, dst_h: int, window,
+                              orientation: int = 1, plain: bool = False):
+    """(B, bh, bw, 64) luma coefficients -> quantized luma encode
+    coefficients (yq,): the AREA, dct_scale=1 branches of the JAX function
+    (lilliput_tpu/pipeline.py:422-478), 1-component JPEG in and out.
+
+    Upright (window = the host's decode window): the IDCT with its u8
+    rounding is a torch matmul (dequant_idct_u8, as the JAX package's XLA
+    einsum) and the Fit crop folds into the AREA matrices. Other
+    orientations: decode_gray decodes the whole frame through the
+    dequant_idct_blocks kernel, then the plane is oriented, cropped to the
+    Fit rect of the upright size and resized with the bit-exact streaming
+    resize. plain=True decodes with the kernel's plain PyTorch version."""
+    if orientation == 1:
+        left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
+        x0, y0 = window[:2] if window is not None else (0, 0)
+        y8 = K.dequant_idct_u8(yc, qt_y)
+        yr = torch.clamp(torch.round(R.resize_area_plane_embedded(
+            y8, left - x0, w, dst_w, top - y0, h, dst_h)), 0, 255)
+    else:
+        gray = O.orient_planes(K.decode_gray(yc, qt_y, src_h, src_w, plain),
+                               orientation)
+        left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h,
+                                        orientation)
+        cropped = gray[..., top:top + h, left:left + w, None]
+        yr = R.resize(cropped, dst_w, dst_h, R.AREA)[..., 0].to(
+            torch.float32)
+    ph = (dst_h + 7) // 8 * 8
+    pw = (dst_w + 7) // 8 * 8
+    return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),)
 
 
 def _not_ported(what: str, item: str):
@@ -303,16 +366,17 @@ class _ServingPipelineBase:
 
 
 class JpegTranscodePipeline(_ServingPipelineBase):
-    """Batched JPEG Fit transcoder for a fixed 4:2:0, 4:2:2, 4:4:0 or 4:4:4
-    source geometry.
+    """Batched JPEG Fit transcoder for a fixed source geometry: 4:2:0,
+    4:2:2, 4:4:0, 4:4:4 or grayscale, at one EXIF orientation.
 
     Usage:
         pipe = JpegTranscodePipeline(sample_jpeg_bytes, 256, 256, quality=85)
         outs = pipe.transcode(list_of_jpeg_bytes)   # same geometry as sample
 
     device: the torch device of the dense stages, "cuda" by default; the
-    CPU runs only when asked for (device="cpu"), with the decode kernel's
-    plain versions. Source ICC profiles are carried into every output."""
+    CPU runs only when asked for (device="cpu"), with the decode kernels'
+    plain versions. Grayscale sources give 1-component JPEGs. Source ICC
+    profiles are carried into every output."""
 
     def __init__(self, sample: bytes, dst_w: int, dst_h: int,
                  quality: int = 85, method: str = R.AREA,
@@ -350,36 +414,40 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         self.chroma_mode = chroma_mode
         self.dct_scale = dct_scale
         info = J.read_info(sample)
-        if info.num_components == 1:
-            _not_ported("grayscale sources", "item 4.4")
-        if info.num_components != 3:
+        if info.num_components not in (1, 3):
             raise DecodingFailedError(
                 "pipeline expects color or grayscale JPEGs")
-        if not J.supported_subsampling(info):
-            raise DecodingFailedError("unsupported chroma subsampling")
-        if info.jpeg_color_space != J.JCS_YCBCR:
-            raise DecodingFailedError(
-                "non-YCbCr 3-component JPEG (JCS_RGB): use the streaming "
-                "ImageOps path for this source")
-        if info.comp_quant_tbl[2] != info.comp_quant_tbl[1]:
-            raise DecodingFailedError(
-                "distinct Cb/Cr quant tables: use the streaming "
-                "ImageOps path for this source")
-        self.ncomp = 3
+        if info.num_components == 3:
+            if not J.supported_subsampling(info):
+                raise DecodingFailedError("unsupported chroma subsampling")
+            if info.jpeg_color_space != J.JCS_YCBCR:
+                raise DecodingFailedError(
+                    "non-YCbCr 3-component JPEG (JCS_RGB): use the "
+                    "streaming ImageOps path for this source")
+            if info.comp_quant_tbl[2] != info.comp_quant_tbl[1]:
+                raise DecodingFailedError(
+                    "distinct Cb/Cr quant tables: use the streaming "
+                    "ImageOps path for this source")
+        self.ncomp = int(info.num_components)
         self.geom = geometry_of(info)
         g = self.geom
         self.orientation = int(J.exif_orientation(sample))
-        if self.orientation != 1:
-            _not_ported("EXIF orientation != 1", "item 4.5")
-        # host-side decode window: coefficients outside the MCU-aligned
-        # crop window never leave the host. Vertically subsampled layouts
-        # take whole MCU rows of luma (the zero pad row is the decoder's)
+        # host-side decode window of upright sources: coefficients outside
+        # the MCU-aligned crop window never leave the host. Vertically
+        # subsampled layouts take whole MCU rows of luma (the zero pad row
+        # is the decoder's). Other orientations ship the whole frame.
         ybh = g.blocks[0][0]
-        self._window = mcu_decode_window(
-            g.width, g.height, dst_w, dst_h, g.h2, g.v2, g.blocks,
-            ybh + (ybh % 2) if g.v2 else ybh)
-        #: (x0, y0, rw, rh) of the window's plane origin and size
-        self.window_static = self._window[:4]
+        if self.orientation == 1:
+            color = self.ncomp == 3
+            self._window = mcu_decode_window(
+                g.width, g.height, dst_w, dst_h, g.h2, g.v2,
+                g.blocks if color else (g.blocks[0], g.blocks[0]),
+                ybh + (ybh % 2) if color and g.v2 else ybh)
+        else:
+            self._window = None
+        #: (x0, y0, rw, rh) of the window's plane origin and size; None
+        #: when decode_entropy returns whole frames
+        self.window_static = self._window[:4] if self._window else None
         self.quality = quality
         eql, eqc = J.scaled_qtables(quality)
         self.enc_qt_y_np, self.enc_qt_c_np = eql, eqc
@@ -402,18 +470,19 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             raise DecodingFailedError(
                 f"geometry mismatch: pipeline built for {self.geom}, "
                 f"got {geometry_of(info)}")
-        if info.comp_quant_tbl[2] != info.comp_quant_tbl[1]:
-            raise DecodingFailedError(
-                "distinct Cb/Cr quant tables: use the streaming ImageOps "
-                "path for this source")
-        if info.jpeg_color_space != J.JCS_YCBCR:
-            raise DecodingFailedError(
-                "non-YCbCr 3-component JPEG (JCS_RGB): use the streaming "
-                "ImageOps path for this source")
-        if not J.supported_subsampling(info):
-            raise DecodingFailedError(
-                "unsupported chroma subsampling: use the streaming "
-                "ImageOps path for this source")
+        if self.ncomp == 3:
+            if info.comp_quant_tbl[2] != info.comp_quant_tbl[1]:
+                raise DecodingFailedError(
+                    "distinct Cb/Cr quant tables: use the streaming "
+                    "ImageOps path for this source")
+            if info.jpeg_color_space != J.JCS_YCBCR:
+                raise DecodingFailedError(
+                    "non-YCbCr 3-component JPEG (JCS_RGB): use the "
+                    "streaming ImageOps path for this source")
+            if not J.supported_subsampling(info):
+                raise DecodingFailedError(
+                    "unsupported chroma subsampling: use the streaming "
+                    "ImageOps path for this source")
         o = int(J.exif_orientation(buf))
         if o != self.orientation:
             raise DecodingFailedError(
@@ -421,13 +490,13 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 f"{self.orientation}, got {o}")
         return info
 
-    def _alloc(self, shape) -> np.ndarray:
+    def _alloc(self, shape, zeros: bool = False) -> np.ndarray:
         """Host batch array; page-locked on CUDA so the H2D copy of a batch
         is asynchronous and overlaps the next batch's host decode."""
         if self.device.type == "cuda":
-            return torch.empty(shape, dtype=torch.int16,
-                               pin_memory=True).numpy()
-        return np.empty(shape, np.int16)
+            make = torch.zeros if zeros else torch.empty
+            return make(shape, dtype=torch.int16, pin_memory=True).numpy()
+        return (np.zeros if zeros else np.empty)(shape, np.int16)
 
     def _pooled(self, key, alloc):
         """Rotating 2-slot destination-array pool for decode_entropy.
@@ -455,13 +524,18 @@ class JpegTranscodePipeline(_ServingPipelineBase):
     def decode_entropy(self, bufs: Sequence[bytes],
                        workers: Optional[int] = None, pool: bool = False,
                        errors: Optional[Dict[int, Exception]] = None):
-        """Huffman-decode a batch into the MCU window around the Fit crop.
+        """Huffman-decode a batch: upright sources into the MCU window
+        around the Fit crop, other orientations whole.
 
         Returns (ys, cbs, crs, qt_y, qt_c) with qt_* of shape (B, 64): each
-        image is dequantized with its OWN tables on device. pool=True
-        reuses the previous-but-one batch's destination arrays (see
-        _pooled); direct callers that hold returned arrays across calls
-        must keep pool=False.
+        image is dequantized with its OWN tables on device. Grayscale
+        pipelines return (ys, qt_y). pool=True reuses the previous-but-one
+        batch's destination arrays (see _pooled); direct callers that hold
+        returned arrays across calls must keep pool=False.
+
+        Whole frames of vertically subsampled colour layouts carry luma
+        rounded up to whole MCU rows: the pad row is zeros, nothing writes
+        it, and pooled reuse keeps it zero.
 
         errors: when a dict, per-item failures are ISOLATED: a corrupt
         buffer's exception lands in errors[i] and its lane is zero-filled
@@ -475,27 +549,45 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         scans, ...) fails its item."""
         if not J.use_fast_huff():
             _not_ported("the libjpeg Huffman decode route", "item 2")
+        g = self.geom
         b = len(bufs)
-        _, _, _, _, yr, ycs, crr, ccs = self._window
+        gray = self.ncomp == 1
+        win = self._window
+        if win is None:
+            ybh, ybw = g.blocks[0]
+            ypad = ybh % 2 if (not gray and g.v2) else 0
 
-        def _alloc_win():
-            c = (b, crr.stop - crr.start, ccs.stop - ccs.start, 64)
-            return (self._alloc((b, yr.stop - yr.start,
-                                 ycs.stop - ycs.start, 64)),
-                    self._alloc(c), self._alloc(c))
+            def _alloc_arrays():
+                ys = self._alloc((b, ybh + ypad, ybw, 64), zeros=True)
+                if gray:
+                    return (ys,)
+                return (ys, self._alloc((b,) + g.blocks[1] + (64,)),
+                        self._alloc((b,) + g.blocks[2] + (64,)))
+            win_p = None
+        else:
+            _, _, _, _, yr, ycs, crr, ccs = win
 
-        ys, cbs, crs = (self._pooled((b, "win"), _alloc_win) if pool
-                        else _alloc_win())
-        # per-component block windows {y0, x0, h, w} for
-        # lp_jpeg_decode_coefs_win, which decodes straight into them
-        win_c = np.array(
-            [[yr.start, ycs.start, yr.stop - yr.start,
-              ycs.stop - ycs.start]] +
-            [[crr.start, ccs.start, crr.stop - crr.start,
-              ccs.stop - ccs.start]] * 2 + [[0, 0, 0, 0]], np.int32)
-        win_p = win_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+            def _alloc_arrays():
+                ys = self._alloc((b, yr.stop - yr.start,
+                                  ycs.stop - ycs.start, 64))
+                if gray:
+                    return (ys,)
+                c = (b, crr.stop - crr.start, ccs.stop - ccs.start, 64)
+                return ys, self._alloc(c), self._alloc(c)
+
+            # per-component block windows {y0, x0, h, w} for
+            # lp_jpeg_decode_coefs_win, which decodes straight into them
+            win_c = np.array(
+                [[yr.start, ycs.start, yr.stop - yr.start,
+                  ycs.stop - ycs.start]] +
+                [[crr.start, ccs.start, crr.stop - crr.start,
+                  ccs.stop - ccs.start]] * 2 + [[0, 0, 0, 0]], np.int32)
+            win_p = win_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+        arrs = (self._pooled((b, "win" if win else "full"), _alloc_arrays)
+                if pool else _alloc_arrays())
         qty = np.empty((b, 64), np.uint16)
-        qtc = np.empty((b, 64), np.uint16)
+        qtc = None if gray else np.empty((b, 64), np.uint16)
         n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
         # small batches underfill the pool: split each image's scan at its
         # restart markers across the idle threads (byte-identical output)
@@ -505,16 +597,16 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             info = self._validate_header(bufs[i])
             arr = np.frombuffer(bufs[i], np.uint8)
             qtables = np.zeros((4, 64), np.uint16)
-            ptrs = (_i16p * 3)(ys[i].ctypes.data_as(_i16p),
-                               cbs[i].ctypes.data_as(_i16p),
-                               crs[i].ctypes.data_as(_i16p))
+            ptrs = (_i16p * len(arrs))(
+                *[a[i].ctypes.data_as(_i16p) for a in arrs])
             rc = self._lib.lp_jpeg_decode_coefs_win(
                 arr.ctypes.data_as(_u8p), arr.size, ptrs,
                 qtables.ctypes.data_as(_u16p), intra, win_p)
             if rc != 0:
                 raise DecodingFailedError(f"JPEG entropy decode failed ({rc})")
             qty[i] = qtables[info.comp_quant_tbl[0]]
-            qtc[i] = qtables[info.comp_quant_tbl[1]]
+            if not gray:
+                qtc[i] = qtables[info.comp_quant_tbl[1]]
 
         if errors is not None:
             decode_one = one
@@ -524,11 +616,11 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                     decode_one(i)
                 except Exception as e:  # noqa: BLE001 — isolate per item
                     errors[i] = e
-                    ys[i] = 0            # benign all-zero lane; also wipes
-                    cbs[i] = 0           # pooled previous-batch data
-                    crs[i] = 0
+                    for a in arrs:       # benign all-zero lane; also wipes
+                        a[i] = 0         # pooled previous-batch data
                     qty[i] = 0
-                    qtc[i] = 0
+                    if not gray:
+                        qtc[i] = 0
 
         if n_workers <= 1 or b <= 1:
             for i in range(b):
@@ -537,7 +629,9 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             from concurrent.futures import ThreadPoolExecutor
             with ThreadPoolExecutor(n_workers) as ex:
                 list(ex.map(one, range(b)))
-        return ys, cbs, crs, qty, qtc
+        if gray:
+            return arrs[0], qty
+        return (*arrs, qty, qtc)
 
     # -- device stage ----------------------------------------------------------
 
@@ -545,12 +639,23 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device, non_blocking=True)
 
-    def device_step(self, ys, cbs, crs, qty, qtc, plain: bool = False):
-        """One batch through the dense stages; returns device tensors
-        (yq, cbq, crq) int16, asynchronously on CUDA. Takes
-        decode_entropy's output. plain=True runs the plain PyTorch version
-        of the layout's decode kernel instead of the kernel."""
+    def device_step(self, ys, cbs=None, crs=None, qty=None, qtc=None,
+                    plain: bool = False):
+        """One batch through the dense stages; returns device tensors of
+        quantized coefficients, int16, asynchronously on CUDA: (yq, cbq,
+        crq), or (yq,) for grayscale. Takes decode_entropy's output: colour
+        pipelines (ys, cbs, crs, qty, qtc), grayscale (ys, qty).
+        plain=True runs the plain PyTorch versions of the decode kernels
+        instead of the kernels."""
         g = self.geom
+        if self.ncomp == 1:
+            qty = cbs  # the (ys, qty) calling convention
+            return _fused_jpeg_fit_gray_impl(
+                self._to_device(ys), self._to_device(qty.astype(np.float32)),
+                self.enc_qt_y, src_w=g.width, src_h=g.height,
+                dst_w=self.dst_w, dst_h=self.dst_h,
+                window=self.window_static, orientation=self.orientation,
+                plain=plain)
         return _fused_jpeg_fit_impl(
             self._to_device(ys), self._to_device(cbs), self._to_device(crs),
             self._to_device(qty.astype(np.float32)),
@@ -558,7 +663,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             self.enc_qt_y, self.enc_qt_c,
             src_w=g.width, src_h=g.height, dst_w=self.dst_w,
             dst_h=self.dst_h, window=self.window_static, h2=g.h2, v2=g.v2,
-            plain=plain)
+            orientation=self.orientation, plain=plain)
 
     # -- end to end --------------------------------------------------------------
 

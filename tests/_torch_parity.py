@@ -24,8 +24,10 @@ BENCH = "tests/assets/bench_1080p.jpg"
 
 
 def bench_path(sub: str = "420") -> str:
-    """The 1080p fixture; 4:2:2, 4:4:0 and 4:4:4 are cv2 re-encodes of the
-    4:2:0 one at q85 (CHANGES.md gives the command)."""
+    """The 1080p fixture; 4:2:2, 4:4:0, 4:4:4 ("422", "440", "444") and
+    grayscale ("gray") are cv2 re-encodes of the 4:2:0 one at q85, "o6" and
+    "gray_o6" the 4:2:0 and grayscale ones with an EXIF orientation 6
+    segment (CHANGES.md gives the commands)."""
     return BENCH if sub == "420" else f"tests/assets/bench_1080p_{sub}.jpg"
 
 
@@ -79,6 +81,34 @@ def layout_jpeg(w, h, quality, seed, sub="420", **kw) -> bytes:
         cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
     assert ok and not kw
     return enc.tobytes()
+
+
+def exif_app1(orientation: int) -> bytes:
+    """An APP1 Exif segment whose big-endian TIFF holds one IFD entry: tag
+    0x0112 (Orientation), type SHORT, count 1, the given value."""
+    tiff = (b"MM\x00*" + (8).to_bytes(4, "big") + (1).to_bytes(2, "big")
+            + (0x0112).to_bytes(2, "big") + (3).to_bytes(2, "big")
+            + (1).to_bytes(4, "big") + orientation.to_bytes(2, "big")
+            + bytes(2) + bytes(4))
+    return (b"\xff\xe1" + (len(tiff) + 8).to_bytes(2, "big")
+            + b"Exif\x00\x00" + tiff)
+
+
+def with_orientation(buf: bytes, orientation: int) -> bytes:
+    """`buf` with an EXIF orientation segment inserted after SOI (as the
+    o6 fixtures were made)."""
+    return buf[:2] + exif_app1(orientation) + buf[2:]
+
+
+def gray_jpeg(w, h, quality, seed) -> bytes:
+    """A smooth synthesized 1-component JPEG (PIL)."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (8, 8), np.uint8)
+    img = Image.fromarray(small).resize((w, h), Image.BICUBIC)
+    bio = io.BytesIO()
+    img.save(bio, "JPEG", quality=quality)
+    return bio.getvalue()
 
 
 def jax_planes(yc, cb, cr, qy, qc):

@@ -1,8 +1,9 @@
 """The port on a CUDA card: each decode kernel (decode420, decode422,
-decode440, decode444) against its plain PyTorch version, and each
-layout's serving device step against the same step through the plain
-version and on the CPU. Imports no jax, so it runs on the card's
-machine:
+decode440, decode444, dequant_idct_blocks) against its plain PyTorch
+version, and each serving path's device step (the four layouts upright,
+grayscale upright and oriented, 4:2:0 oriented) against the same step
+through the plain version and on the CPU. Imports no jax, so it runs on
+the card's machine:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -13,7 +14,8 @@ plain version's in cuBLAS's order, so a u8 value may move by 1 where a sum
 lands next to a .5 tie: max 1 on at most 1e-4 of the values. The device
 step then allows max 1 on at most 1e-3 of the quantized coefficients
 (a moved pixel shifts the resized value by a fraction, which can flip a
-coefficient rounding)."""
+coefficient rounding). dequant_idct_blocks is held to the same u8 bound
+after decode_gray's round and clip."""
 
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ FIXTURE = "tests/assets/bench_1080p.jpg"
 
 
 def _fixture(sub):
+    """sub: a chroma layout, "gray", "o6" or "gray_o6"."""
     return FIXTURE if sub == "420" else FIXTURE.replace(".jpg",
                                                         f"_{sub}.jpg")
 
@@ -102,13 +105,14 @@ def test_layout_kernels_match_plain(sub, h, w, batch):
     _check_kernel(sub, h, w, batch)
 
 
-def _check_device_step(sub):
+def _check_device_step(sub, name):
+    """The path's device step launches `name` once (no kernel when None)
+    and agrees with the plain step and the CPU step."""
     with open(_fixture(sub), "rb") as f:
         buf = f.read()
     gpu = JpegTranscodePipeline(buf, 256, 256, device="cuda")
     cpu = JpegTranscodePipeline(buf, 256, 256, device="cpu")
     args = gpu.decode_entropy([buf] * 4)
-    name = "decode" + sub
     before = dict(DK.launches)
     step = [t.cpu() for t in gpu.device_step(*args)]
     assert DK.launches == {k: v + (k == name) for k, v in before.items()}
@@ -124,11 +128,49 @@ def _check_device_step(sub):
 @pytest.mark.gpu
 def test_device_step_matches_plain_and_cpu():
     _need_card()
-    _check_device_step("420")
+    _check_device_step("420", "decode420")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sub", ("422", "440", "444"))
 def test_layout_device_step_matches_plain_and_cpu(sub):
     _need_card()
-    _check_device_step(sub)
+    _check_device_step(sub, "decode" + sub)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub,name", [("gray", None),
+                                      ("gray_o6", "dequant_idct_blocks"),
+                                      ("o6", "decode420")])
+def test_gray_and_oriented_device_step_matches_plain_and_cpu(sub, name):
+    _need_card()
+    _check_device_step(sub, name)
+
+
+def _check_idct_kernel(h, w, batch, shared):
+    rng = np.random.default_rng(h * 7 + w + batch)
+    yc = rng.integers(-400, 400, (batch, -(-h // 8), -(-w // 8), 64))
+    yc = torch.from_numpy(yc.astype(np.int16)).cuda()
+    qs = np.stack([scaled_qtables((30, 85, 95)[i % 3])[0]
+                   for i in range(1 if shared else batch)])
+    wq = K.fold_qtables(torch.from_numpy(qs.astype(np.float32)).cuda())
+    before = DK.launches["dequant_idct_blocks"]
+    got = DK.dequant_idct_blocks(yc, wq)
+    ref = DK.dequant_idct_blocks_reference(yc, wq)
+    assert DK.launches["dequant_idct_blocks"] == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+
+    def u8(p):
+        return torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
+    mx, nd, n = _diff([u8(got)], [u8(ref)])
+    assert mx <= 1 and nd <= 1e-4 * n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", CASES[:-1] + [(1080, 1920)])
+@pytest.mark.parametrize("shared", [False, True], ids=["per_image", "shared"])
+def test_idct_kernel_matches_plain(h, w, shared):
+    """The odd geometries at batch 3, and a full 1080p frame at batch 8,
+    with per-image tables and with one shared table."""
+    _need_card()
+    _check_idct_kernel(h, w, 8 if h == 1080 else 3, shared)

@@ -167,3 +167,23 @@ def test_encode_from_bgr_planes(h, w):
     assert len(got) == 3
     for g, r in zip(got, ref):
         _eq(g, r)
+
+
+@pytest.mark.parametrize("h,w,c", [(256, 256, 3), (37, 53, 4)])
+def test_encode_from_bgr(h, w, c):
+    """The interleaved (..., H, W, 3+) form, alpha ignored, 4:2:0 and
+    4:4:4; and bgr_to_ycbcr's planes: atol 0."""
+    rng = np.random.default_rng(h + w + c)
+    img = rng.integers(0, 256, (2, h, w, c)).astype(np.uint8)
+    ql, qc = qtables((85,))
+    qt = (torch.from_numpy(ql[0]), torch.from_numpy(qc[0]))
+    for sub in (True, False):
+        ref = jax.jit(JK.encode_from_bgr, static_argnames="subsample")(
+            jnp.asarray(img), jnp.asarray(ql[0]), jnp.asarray(qc[0]),
+            subsample=sub)
+        got = K.encode_from_bgr(torch.from_numpy(img), *qt, subsample=sub)
+        for g, r in zip(got, ref):
+            _eq(g, r)
+    ref = jax.jit(JK.bgr_to_ycbcr)(jnp.asarray(img[..., :3]))
+    for g, r in zip(K.bgr_to_ycbcr(torch.from_numpy(img[..., :3])), ref):
+        _eq(g, r)
