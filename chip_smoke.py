@@ -21,7 +21,8 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
 2. the path's kernel against its plain PyTorch version on the card at the
    serving shape (the fixture's coefficients x128; both epilogues of a
    decode kernel) and, on the kernel's first path, at odd geometries with
-   per-image tables (q30/85/95). dequant_idct_blocks is gated on the u8
+   per-image tables (q30/85/95); decode420 also at its band and strip
+   edges (EDGE_420, batches 1 and 3). dequant_idct_blocks is gated on the u8
    values decode_gray makes of its output, its f32 difference printed;
 3. the main path: transcode_pipelined, with every launch count set to 0
    just before and read just after: the path's kernel must launch once per
@@ -83,6 +84,10 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 BATCH = 128
 DST = 256
 CASES = [(64, 48), (67, 61), (16, 16), (130, 17), (8, 8), (24, 129)]
+#: decode420's band and strip edges (bands of 17 MCU rows, strips of 10
+#: MCUs), as chroma block rows x cols; on its first path only
+EDGE_420 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
+            for cw in (1, 7, 8, 9, 10, 11, 17, 21)]
 KERNEL_MAX_DIFF, KERNEL_MAX_SHARE = 1, 1e-4
 STEP_MAX_DIFF, STEP_MAX_SHARE = 1, 1e-3
 DEVICE = "cuda"
@@ -154,7 +159,7 @@ def phase1():
     t1 = time.perf_counter()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
-                 if "registers" in ln]
+                 if "registers" in ln or "spill" in ln]
         print(f"phase 1: {name} ptxas: {ptxas}", flush=True)
     print(f"phase 1: host library and {len(libs)} kernel libraries built "
           f"in {t1 - t0:.1f}s", flush=True)
@@ -178,6 +183,19 @@ def random_case(rng, h, w, h2, v2, batch=3):
            for a in (yc, cb, cr)]
     return (*dev, K.fold_qtables(torch.from_numpy(qy).to(DEVICE)),
             K.fold_qtables(torch.from_numpy(qc).to(DEVICE)))
+
+
+def plain_decode(args, h2, v2, out):
+    """The plain version of the decode kernels; one image's is taken from a
+    stack of two copies of it, since at batch 1 cuBLAS runs a single GEMM
+    whose sum order differs from its batched one."""
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    if args[0].shape[0] > 1:
+        return DK.decode_ycc_reference(*args, h2, v2, out=out)
+    import torch
+    ref = DK.decode_ycc_reference(*(torch.cat([a, a]) for a in args), h2, v2,
+                                  out=out)
+    return ref[:1] if out == "packed" else tuple(p[:1] for p in ref)
 
 
 def phase2(path, pipe, bufs, first: bool):
@@ -204,11 +222,15 @@ def phase2(path, pipe, bufs, first: bool):
     if first:
         inputs += [(f"random {h}x{w}", random_case(rng, h, w, h2, v2))
                    for h, w in CASES]
+    if first and name == "decode420":
+        inputs += [(f"edge chroma {ch}x{cw} x{1 + 2 * (i % 2)}", random_case(
+            rng, 16 * ch - 1, 16 * cw - 3, h2, v2, batch=1 + 2 * (i % 2)))
+            for i, (ch, cw) in enumerate(EDGE_420)]
     worst = 0
     for what, args in inputs:
         for out in ("planes", "packed"):
             got = kernel(*args, out=out)
-            ref = DK.decode_ycc_reference(*args, h2, v2, out=out)
+            ref = plain_decode(args, h2, v2, out)
             mx, nd, n = diff_stats(got, ref)
             worst = max(worst, mx)
             print(f"phase 2: {name} {what} {out}: max_abs_diff={mx} "

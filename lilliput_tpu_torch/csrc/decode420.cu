@@ -50,16 +50,17 @@
 
 namespace {
 
-constexpr int kTileMcus = 8;                  // MCUs (16x16 px) per block
+constexpr int kTileMcus = 8;                  // MCUs (16x16 px) per strip
+constexpr int kBandRows = 17;                 // MCU rows per band
 constexpr int kThreads = 256;
 constexpr int kStride = 65;                   // f32 per staged block
 constexpr int kLumaBlocks = 4 * kTileMcus;    // 2 rows x 16 cols
-constexpr int kChromaCols = kTileMcus + 2;    // tile + halo block each side
-constexpr int kChromaBlocks = 2 * 3 * kChromaCols;  // 2 planes x 3 rows
-constexpr int kTileH = 3 * 8;                 // chroma tile rows (px)
-constexpr int kTileW = kChromaCols * 8;       // chroma tile cols (px)
+constexpr int kChromaCols = kTileMcus + 2;    // strip + halo block each side
+constexpr int kRowBlocks = 2 * kChromaCols;   // one chroma block row, 2 planes
+constexpr int kRingH = 3 * 8;                 // ring rows (px): 3 block rows
+constexpr int kRingW = kChromaCols * 8;       // ring cols (px)
 constexpr size_t kSmemFloats = 2 * 4096 + kLumaBlocks * kStride +
-                               kChromaBlocks * kStride + 2 * kTileH * kTileW;
+                               2 * kRowBlocks * kStride + 2 * kRingH * kRingW;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
 // One register tile of the IDCT product: blocks a0/a1 (staged f32
@@ -101,6 +102,39 @@ __device__ __forceinline__ void stage(const int16_t* __restrict__ src,
     for (int i = 0; i < 8; ++i) dst[part * 8 + i] = static_cast<float>(s[i]);
 }
 
+// Stage chroma block row `crow` (both planes, cols c0-1..c0+8) into
+// dst[(p * kChromaCols + c) * kStride]; blocks outside the plane are skipped.
+__device__ __forceinline__ void stage_chroma_row(
+        const int16_t* __restrict__ cb, const int16_t* __restrict__ cr,
+        float* __restrict__ dst, int b, int crow, int c0, int cbh, int cbw,
+        int tid) {
+    for (int i = tid; i < kRowBlocks * 8; i += kThreads) {
+        const int blk = i >> 3, part = i & 7;
+        const int p = blk / kChromaCols, bx = c0 - 1 + blk % kChromaCols;
+        if (bx >= 0 && bx < cbw)
+            stage((p ? cr : cb) + ((size_t(b) * cbh + crow) * cbw + bx) * 64,
+                  dst + blk * kStride, part);
+    }
+}
+
+// IDCT of the staged chroma block row `crow` (src as stage_chroma_row
+// left it) into its ring rows, (8 * crow + y) mod kRingH. Block pairs along
+// the row: pair q holds blocks 2q, 2q+1 of one plane; threads 16q..16q+15.
+__device__ __forceinline__ void idct_chroma_row(
+        const float* __restrict__ src, const float* __restrict__ wc,
+        float* __restrict__ ring, int crow, int q, int g) {
+    const int blk = 2 * q;
+    const int p = blk / kChromaCols, c = blk % kChromaCols;
+    float acc[2][4];
+    idct_tile(src + blk * kStride, src + (blk + 1) * kStride, wc, g, acc);
+    const int y = (8 * crow + (g >> 1)) % kRingH;
+    float* dst = ring + (p * kRingH + y) * kRingW + 8 * c + 4 * (g & 1);
+    reinterpret_cast<float4*>(dst)[0] =
+        make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+    reinterpret_cast<float4*>(dst + 8)[0] =
+        make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+}
+
 // libjpeg "fancy" triangle tap: (3*c + n) * 0.25, with 3*c + n fused
 __device__ __forceinline__ float tri(float c, float n) {
     return __fmul_rn(__fmaf_rn(3.f, c, n), 0.25f);
@@ -124,16 +158,20 @@ decode420_kernel(const int16_t* __restrict__ yc,
     float* wy = smem;                                // [64][64]
     float* wc = wy + 4096;                           // [64][64]
     float* lco = wc + 4096;                          // [32][kStride]
-    float* cco = lco + kLumaBlocks * kStride;        // [60][kStride]
-    float* tile = cco + kChromaBlocks * kStride;     // [2][kTileH][kTileW]
+    float* cco = lco + kLumaBlocks * kStride;        // [2 rows][20][kStride]
+    float* ring = cco + 2 * kRowBlocks * kStride;    // [2][kRingH][kRingW]
 
     const int b = blockIdx.z;
-    const int row = blockIdx.y;                 // chroma block row
+    const int r0 = blockIdx.y * kBandRows;      // first MCU row of the band
+    const int r1 = min(r0 + kBandRows, cbh);
     const int c0 = blockIdx.x * kTileMcus;      // first chroma block col
     const int tid = threadIdx.x;
     const int lbw = 2 * cbw;                    // luma blocks per row
+    const int g = tid & 15;          // pixel group: row g/2, cols 4(g%2)..+3
+    const int px = g >> 1, py = 4 * (g & 1);
 
-    // 1. stage this image's W_q matrices and the tile's coefficients
+    // 1. stage this image's W_q matrices once for the band, and chroma
+    //    block rows r0-1 (when inside the plane) and r0
     {
         const float4* wy4 = reinterpret_cast<const float4*>(wqy + size_t(b) * 4096);
         const float4* wc4 = reinterpret_cast<const float4*>(wqc + size_t(b) * 4096);
@@ -141,7 +179,31 @@ decode420_kernel(const int16_t* __restrict__ yc,
             reinterpret_cast<float4*>(wy)[i] = __ldg(wy4 + i);
             reinterpret_cast<float4*>(wc)[i] = __ldg(wc4 + i);
         }
-        // luma: 2 block rows x 16 block cols, 8 parts of 8 coefs each
+        if (r0 > 0)
+            stage_chroma_row(cb, cr, cco, b, r0 - 1, c0, cbh, cbw, tid);
+        stage_chroma_row(cb, cr, cco + kRowBlocks * kStride, b, r0, c0, cbh,
+                         cbw, tid);
+    }
+    __syncthreads();
+    for (int q = tid >> 4; q < kRowBlocks; q += kThreads / 16) {
+        const int crow = r0 - 1 + q / (kRowBlocks / 2);
+        if (crow >= 0)
+            idct_chroma_row(cco + (q / (kRowBlocks / 2)) * kRowBlocks * kStride,
+                            wc, ring, crow, q % (kRowBlocks / 2), g);
+    }
+
+    const int lp = tid >> 4;                     // 0..15
+    const int lr = lp >> 3;                      // luma block row in tile
+    const int lx = 2 * (lp & 7);                 // first luma block col
+    const bool live = 2 * c0 + lx < lbw;         // both or neither in range
+    const int ch = 8 * cbh, cw = 8 * cbw;
+    const int oh = 16 * cbh, ow = 16 * cbw;
+    const int oy = 8 * lr + px;                  // output row in the MCU row
+
+    // 2. walk the band: each MCU row decodes its luma and chroma block row
+    //    row+1 (into the ring), then upsamples from ring rows row-1..row+1
+    for (int row = r0; row < r1; ++row) {
+        __syncthreads();             // the previous row's epilogue is done
         for (int i = tid; i < kLumaBlocks * 8; i += kThreads) {
             const int blk = i >> 3, part = i & 7;
             const int by = 2 * row + blk / 16, bx = 2 * c0 + blk % 16;
@@ -149,100 +211,67 @@ decode420_kernel(const int16_t* __restrict__ yc,
                 stage(yc + ((size_t(b) * 2 * cbh + by) * lbw + bx) * 64,
                       lco + blk * kStride, part);
         }
-        // chroma: planes x block rows row-1..row+1 x cols c0-1..c0+8
-        for (int i = tid; i < kChromaBlocks * 8; i += kThreads) {
-            const int blk = i >> 3, part = i & 7;
-            const int p = blk / (3 * kChromaCols);
-            const int r = (blk / kChromaCols) % 3;
-            const int c = blk % kChromaCols;
-            const int by = row - 1 + r, bx = c0 - 1 + c;
-            if (by >= 0 && by < cbh && bx >= 0 && bx < cbw)
-                stage((p ? cr : cb) + ((size_t(b) * cbh + by) * cbw + bx) * 64,
-                      cco + blk * kStride, part);
-        }
-    }
-    __syncthreads();
-
-    const int g = tid & 15;          // pixel group: row g/2, cols 4(g%2)..+3
-    const int px = g >> 1, py = 4 * (g & 1);
-
-    // 2. chroma IDCT into the tile (block pairs along a tile row)
-    for (int q = tid >> 4; q < kChromaBlocks / 2; q += kThreads / 16) {
-        const int blk = 2 * q;       // even: both blocks share plane and row
-        const int p = blk / (3 * kChromaCols);
-        const int r = (blk / kChromaCols) % 3;
-        const int c = blk % kChromaCols;
-        float acc[2][4];
-        idct_tile(cco + blk * kStride, cco + (blk + 1) * kStride, wc, g, acc);
-        float* dst = tile + (p * kTileH + 8 * r + px) * kTileW + 8 * c + py;
-        reinterpret_cast<float4*>(dst)[0] =
-            make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-        reinterpret_cast<float4*>(dst + 8)[0] =
-            make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
-    }
-
-    // 3. luma IDCT, kept in registers (block pair = 2 adjacent luma blocks)
-    const int lp = tid >> 4;                     // 0..15
-    const int lr = lp >> 3;                      // luma block row in tile
-    const int lx = 2 * (lp & 7);                 // first luma block col
-    const bool live = 2 * c0 + lx < lbw;         // both or neither in range
-    float ya[2][4];
-    if (live)
+        const bool next = row + 1 < cbh;
+        if (next)
+            stage_chroma_row(cb, cr, cco, b, row + 1, c0, cbh, cbw, tid);
+        __syncthreads();
+        if (next && lp < kRowBlocks / 2)
+            idct_chroma_row(cco, wc, ring, row + 1, lp, g);
+        float ya[2][4];
         idct_tile(lco + (16 * lr + lx) * kStride,
                   lco + (16 * lr + lx + 1) * kStride, wy, g, ya);
-    __syncthreads();
-    if (!live) return;
+        __syncthreads();
+        if (!live) continue;
 
-    // 4. triangle upsample from the tile, colour, store 4 pixels per block
-    const int ch = 8 * cbh, cw = 8 * cbw;
-    const int oy = 8 * lr + px;                  // output row in the MCU row
-    const int gy = 16 * row + oy;
-    const int cy = 8 * row + (oy >> 1);          // chroma row (global)
-    const int cyn = min(max(cy + ((oy & 1) ? 1 : -1), 0), ch - 1);
-    const int ty = cy - 8 * (row - 1), tyn = cyn - 8 * (row - 1);
-    const int oh = 16 * cbh, ow = 16 * cbw;
+        // triangle upsample from the ring, colour, store 4 pixels per block
+        const int gy = 16 * row + oy;
+        const int cy = 8 * row + (oy >> 1);      // chroma row (global)
+        const int cyn = min(max(cy + ((oy & 1) ? 1 : -1), 0), ch - 1);
+        const int ty = cy % kRingH, tyn = cyn % kRingH;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        uint32_t bq = 0, gq = 0, rq = 0;
-        int32_t pk[4];
-        const int ox0 = 8 * (lx + j) + py;       // output col in the tile
+        for (int j = 0; j < 2; ++j) {
+            uint32_t bq = 0, gq = 0, rq = 0;
+            int32_t pk[4];
+            const int ox0 = 8 * (lx + j) + py;   // output col in the strip
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int ox = ox0 + i;
-            const int cx = 8 * c0 + (ox >> 1);   // chroma col (global)
-            const int cxn = min(max(cx + ((ox & 1) ? 1 : -1), 0), cw - 1);
-            const int tx = cx - 8 * (c0 - 1), txn = cxn - 8 * (c0 - 1);
-            float cc[2];
+            for (int i = 0; i < 4; ++i) {
+                const int ox = ox0 + i;
+                const int cx = 8 * c0 + (ox >> 1);   // chroma col (global)
+                const int cxn = min(max(cx + ((ox & 1) ? 1 : -1), 0), cw - 1);
+                const int tx = cx - 8 * (c0 - 1), txn = cxn - 8 * (c0 - 1);
+                float cc[2];
 #pragma unroll
-            for (int p = 0; p < 2; ++p) {
-                const float* t = tile + p * kTileH * kTileW;
-                const float v = tri(t[ty * kTileW + tx], t[tyn * kTileW + tx]);
-                const float vn = tri(t[ty * kTileW + txn],
-                                     t[tyn * kTileW + txn]);
-                cc[p] = __fsub_rn(tri(v, vn), 128.f);
+                for (int p = 0; p < 2; ++p) {
+                    const float* t = ring + p * kRingH * kRingW;
+                    const float v = tri(t[ty * kRingW + tx],
+                                        t[tyn * kRingW + tx]);
+                    const float vn = tri(t[ty * kRingW + txn],
+                                         t[tyn * kRingW + txn]);
+                    cc[p] = __fsub_rn(tri(v, vn), 128.f);
+                }
+                const float y = ya[j][i];
+                const uint32_t rr = to_u8(__fmaf_rn(1.402f, cc[1], y));
+                const uint32_t gg = to_u8(__fmaf_rn(
+                    -0.714136286f, cc[1], __fmaf_rn(-0.344136286f, cc[0], y)));
+                const uint32_t bb = to_u8(__fmaf_rn(1.772f, cc[0], y));
+                if (kPacked) {
+                    pk[i] = static_cast<int32_t>(bb | (gg << 8) | (rr << 16) |
+                                                 0xFF000000u);
+                } else {
+                    bq |= bb << (8 * i);
+                    gq |= gg << (8 * i);
+                    rq |= rr << (8 * i);
+                }
             }
-            const float y = ya[j][i];
-            const uint32_t rr = to_u8(__fmaf_rn(1.402f, cc[1], y));
-            const uint32_t gg = to_u8(__fmaf_rn(
-                -0.714136286f, cc[1], __fmaf_rn(-0.344136286f, cc[0], y)));
-            const uint32_t bb = to_u8(__fmaf_rn(1.772f, cc[0], y));
+            const size_t o = (size_t(b) * oh + gy) * ow + 16 * c0 + ox0;
             if (kPacked) {
-                pk[i] = static_cast<int32_t>(bb | (gg << 8) | (rr << 16) |
-                                             0xFF000000u);
+                reinterpret_cast<int4*>(opk + o)[0] =
+                    make_int4(pk[0], pk[1], pk[2], pk[3]);
             } else {
-                bq |= bb << (8 * i);
-                gq |= gg << (8 * i);
-                rq |= rr << (8 * i);
+                reinterpret_cast<uint32_t*>(ob + o)[0] = bq;
+                reinterpret_cast<uint32_t*>(og + o)[0] = gq;
+                reinterpret_cast<uint32_t*>(orr + o)[0] = rq;
             }
-        }
-        const size_t o = (size_t(b) * oh + gy) * ow + 16 * c0 + ox0;
-        if (kPacked) {
-            reinterpret_cast<int4*>(opk + o)[0] =
-                make_int4(pk[0], pk[1], pk[2], pk[3]);
-        } else {
-            reinterpret_cast<uint32_t*>(ob + o)[0] = bq;
-            reinterpret_cast<uint32_t*>(og + o)[0] = gq;
-            reinterpret_cast<uint32_t*>(orr + o)[0] = rq;
         }
     }
 }
@@ -276,7 +305,8 @@ int lpt_decode420(const void* yc, const void* cb, const void* cr,
                   void* stream) {
     if (batch <= 0 || cbh <= 0 || cbw <= 0 || batch > 65535 || cbh > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((cbw + kTileMcus - 1) / kTileMcus, cbh, batch);
+    const dim3 grid((cbw + kTileMcus - 1) / kTileMcus,
+                    (cbh + kBandRows - 1) / kBandRows, batch);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* y = static_cast<const int16_t*>(yc);
     const auto* u = static_cast<const int16_t*>(cb);
