@@ -50,89 +50,153 @@
 
 namespace {
 
-constexpr int kTileMcus = 8;                  // MCUs (16x16 px) per strip
+constexpr int kStripMcus = 10;                // MCUs (16x16 px) per strip
 constexpr int kBandRows = 17;                 // MCU rows per band
-constexpr int kThreads = 256;
-constexpr int kStride = 65;                   // f32 per staged block
-constexpr int kLumaBlocks = 4 * kTileMcus;    // 2 rows x 16 cols
-constexpr int kChromaCols = kTileMcus + 2;    // strip + halo block each side
-constexpr int kRowBlocks = 2 * kChromaCols;   // one chroma block row, 2 planes
+constexpr int kThreads = 128;                 // 16 groups x 8 pixel rows
+constexpr int kLumaBlocks = 4 * kStripMcus;   // 2 rows x 20 cols
+constexpr int kChromaCols = kStripMcus + 2;   // strip + halo block each side
+constexpr int kJobBlocks = kLumaBlocks + 2 * kChromaCols;  // 64
+constexpr int kLumaGroups = kLumaBlocks / 4;  // groups of 4 blocks
+constexpr int kLoads = kJobBlocks * 8 / kThreads;   // int4 per thread
 constexpr int kRingH = 3 * 8;                 // ring rows (px): 3 block rows
-constexpr int kRingW = kChromaCols * 8;       // ring cols (px)
-constexpr size_t kSmemFloats = 2 * 4096 + kLumaBlocks * kStride +
-                               2 * kRowBlocks * kStride + 2 * kRingH * kRingW;
+constexpr int kRingW = kChromaCols * 8 + 4;   // + 4: rows 4 banks apart
+constexpr size_t kSmemFloats = 3 * 4096 + 2 * kRingH * kRingW;
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+static_assert(kJobBlocks * 8 % kThreads == 0 && kJobBlocks == 64,
+              "a job is 16 groups of 4 blocks, 8 loads per block");
 
-// One register tile of the IDCT product: blocks a0/a1 (staged f32
-// coefficients) against pixel columns 4g..4g+3 of W. acc[j][i] is pixel
-// 4g+i of block j, summed in k order with fmaf from 0, then +128.
-__device__ __forceinline__ void idct_tile(const float* __restrict__ a0,
-                                          const float* __restrict__ a1,
+// Coefficient staging: (k, block) of a job of 64 blocks at
+// cf[k * 64 + 4 * ((block >> 2) ^ (k >> 3)) + (block & 3)]: k-major, so one
+// float4 is one k of a group of 4 blocks; the xor spreads the transposing
+// stores of one warp over all 32 banks.
+__device__ __forceinline__ int cf_index(int k, int blk) {
+    return k * 64 + 4 * ((blk >> 2) ^ (k >> 3)) + (blk & 3);
+}
+
+// IDCT of 4 blocks (group g of the staged job) at pixel row rho: acc[j][x]
+// is pixel (rho, x) of block 4g+j, summed in k order with fmaf from 0, then
+// +128. W is staged with the halves of rows 4..7 swapped (stage_w), so the
+// warp's two float4 W loads each cover all 32 banks once; the coefficient
+// load is one float4 of 4 consecutive groups: 3 wavefronts per 32 FMAs.
+__device__ __forceinline__ void idct_rows(const float* __restrict__ cf,
                                           const float* __restrict__ w, int g,
-                                          float acc[2][4]) {
+                                          int rho, float acc[4][8]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[0][i] = acc[1][i] = 0.f;
-    const float4* wv = reinterpret_cast<const float4*>(w) + g;
-#pragma unroll 8
-    for (int k = 0; k < 64; ++k) {
-        const float4 wk = wv[k * 16];
-        const float c0 = a0[k], c1 = a1[k];
-        acc[0][0] = fmaf(c0, wk.x, acc[0][0]);
-        acc[0][1] = fmaf(c0, wk.y, acc[0][1]);
-        acc[0][2] = fmaf(c0, wk.z, acc[0][2]);
-        acc[0][3] = fmaf(c0, wk.w, acc[0][3]);
-        acc[1][0] = fmaf(c1, wk.x, acc[1][0]);
-        acc[1][1] = fmaf(c1, wk.y, acc[1][1]);
-        acc[1][2] = fmaf(c1, wk.z, acc[1][2]);
-        acc[1][3] = fmaf(c1, wk.w, acc[1][3]);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[j][x] = 0.f;
+    const float4* wv = reinterpret_cast<const float4*>(w) + 2 * rho;
+    const int s = rho >> 2;
+#pragma unroll 1
+    for (int kk = 0; kk < 8; ++kk) {
+        const float4* cv = reinterpret_cast<const float4*>(cf) + kk * 128 +
+                           (g ^ kk);
+        const float4* wk = wv + kk * 128;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const float4 wa = wk[u * 16 + s], wb = wk[u * 16 + (s ^ 1)];
+            const float4 c4 = cv[u * 16];
+            const float wr[8] = {wa.x, wa.y, wa.z, wa.w,
+                                 wb.x, wb.y, wb.z, wb.w};
+            const float c[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int x = 0; x < 8; ++x)
+                    acc[j][x] = fmaf(c[j], wr[x], acc[j][x]);
+        }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        acc[0][i] = __fadd_rn(acc[0][i], 128.f);
-        acc[1][i] = __fadd_rn(acc[1][i], 128.f);
-    }
-}
-
-// Stage one block's 64 int16 coefficients as f32 (8 per thread step).
-__device__ __forceinline__ void stage(const int16_t* __restrict__ src,
-                                      float* __restrict__ dst, int part) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(src) + part);
-    const int16_t* s = reinterpret_cast<const int16_t*>(&v);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[part * 8 + i] = static_cast<float>(s[i]);
+        for (int x = 0; x < 8; ++x) acc[j][x] = __fadd_rn(acc[j][x], 128.f);
 }
 
-// Stage chroma block row `crow` (both planes, cols c0-1..c0+8) into
-// dst[(p * kChromaCols + c) * kStride]; blocks outside the plane are skipped.
-__device__ __forceinline__ void stage_chroma_row(
-        const int16_t* __restrict__ cb, const int16_t* __restrict__ cr,
-        float* __restrict__ dst, int b, int crow, int c0, int cbh, int cbw,
-        int tid) {
-    for (int i = tid; i < kRowBlocks * 8; i += kThreads) {
-        const int blk = i >> 3, part = i & 7;
-        const int p = blk / kChromaCols, bx = c0 - 1 + blk % kChromaCols;
-        if (bx >= 0 && bx < cbw)
-            stage((p ? cr : cb) + ((size_t(b) * cbh + crow) * cbw + bx) * 64,
-                  dst + blk * kStride, part);
+// Copy a 64x64 W_q into shared memory, the float4 halves of rows 4..7 of
+// each k swapped (see idct_rows).
+__device__ __forceinline__ void stage_w(const float* __restrict__ src,
+                                        float* __restrict__ dst, int tid) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = tid; i < 1024; i += kThreads) {
+        const int k = i >> 4, rho = (i >> 1) & 7, h = i & 1;
+        d4[k * 16 + 2 * rho + (h ^ (rho >> 2))] = __ldg(s4 + i);
     }
 }
 
-// IDCT of the staged chroma block row `crow` (src as stage_chroma_row
-// left it) into its ring rows, (8 * crow + y) mod kRingH. Block pairs along
-// the row: pair q holds blocks 2q, 2q+1 of one plane; threads 16q..16q+15.
-__device__ __forceinline__ void idct_chroma_row(
-        const float* __restrict__ src, const float* __restrict__ wc,
-        float* __restrict__ ring, int crow, int q, int g) {
-    const int blk = 2 * q;
-    const int p = blk / kChromaCols, c = blk % kChromaCols;
-    float acc[2][4];
-    idct_tile(src + blk * kStride, src + (blk + 1) * kStride, wc, g, acc);
-    const int y = (8 * crow + (g >> 1)) % kRingH;
-    float* dst = ring + (p * kRingH + y) * kRingW + 8 * c + 4 * (g & 1);
-    reinterpret_cast<float4*>(dst)[0] =
-        make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-    reinterpret_cast<float4*>(dst + 8)[0] =
-        make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+// The blocks of one job, 8 int4 (8 coefficients each) per block, thread t
+// loading part t % 8 of blocks t / 8 + 16m. A job is either the band's
+// prologue (chroma block rows r0-1 and r0: block 24q + 12p + c is plane p,
+// row r0-1+q, col c0-1+c) or MCU row `row` (blocks 20lr + c: luma block row
+// 2row+lr, col 2c0+c; blocks 40 + 12p + c: chroma row row+1, plane p, col
+// c0-1+c). Blocks outside the planes load as zeros.
+struct Job {
+    const int16_t* yc;
+    const int16_t* cb;
+    const int16_t* cr;
+    int b, cbh, cbw, c0;
+
+    __device__ __forceinline__ const int16_t* chroma(int p, int crow,
+                                                     int c) const {
+        const int bx = c0 - 1 + c;
+        if (crow < 0 || crow >= cbh || bx < 0 || bx >= cbw) return nullptr;
+        return (p ? cr : cb) + ((size_t(b) * cbh + crow) * cbw + bx) * 64;
+    }
+    __device__ __forceinline__ const int16_t* src(int blk, int row,
+                                                  bool prologue) const {
+        if (prologue)
+            return blk < 2 * 2 * kChromaCols
+                       ? chroma((blk / kChromaCols) & 1,
+                                row - 1 + blk / (2 * kChromaCols),
+                                blk % kChromaCols)
+                       : nullptr;
+        if (blk >= kLumaBlocks)
+            return chroma((blk - kLumaBlocks) / kChromaCols, row + 1,
+                          (blk - kLumaBlocks) % kChromaCols);
+        const int lbw = 2 * cbw, bx = 2 * c0 + blk % (kLumaBlocks / 2);
+        if (bx >= lbw) return nullptr;
+        return yc + ((size_t(b) * 2 * cbh + 2 * row + blk / (kLumaBlocks / 2)) *
+                     lbw + bx) * 64;
+    }
+    __device__ __forceinline__ void load(int4 raw[kLoads], int row,
+                                         bool prologue, int tid) const {
+#pragma unroll
+        for (int m = 0; m < kLoads; ++m) {
+            const int16_t* s = src((tid >> 3) + 16 * m, row, prologue);
+            raw[m] = s ? __ldg(reinterpret_cast<const int4*>(s) + (tid & 7))
+                       : make_int4(0, 0, 0, 0);
+        }
+    }
+};
+
+// Convert the loaded coefficients to f32 into the k-major staging area.
+__device__ __forceinline__ void store_job(const int4 raw[kLoads],
+                                          float* __restrict__ cf, int tid) {
+    const int part = tid & 7;
+#pragma unroll
+    for (int m = 0; m < kLoads; ++m) {
+        const int blk = (tid >> 3) + 16 * m;
+        const int16_t* s = reinterpret_cast<const int16_t*>(&raw[m]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            cf[cf_index(8 * part + e, blk)] = static_cast<float>(s[e]);
+    }
+}
+
+// Pixel row rho of chroma blocks c..c+3 (plane p, block row crow) into the
+// ring, whose rows hold chroma px rows (8 * crow + y) mod kRingH.
+__device__ __forceinline__ void to_ring(float* __restrict__ ring,
+                                        const float acc[4][8], int p,
+                                        int crow, int c, int rho) {
+    float* dst = ring + (p * kRingH + (8 * crow + rho) % kRingH) * kRingW +
+                 8 * c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        reinterpret_cast<float4*>(dst + 8 * j)[0] =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        reinterpret_cast<float4*>(dst + 8 * j)[1] =
+            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+    }
 }
 
 // libjpeg "fancy" triangle tap: (3*c + n) * 0.25, with 3*c + n fused
@@ -145,7 +209,7 @@ __device__ __forceinline__ uint32_t to_u8(float v) {
 }
 
 template <bool kPacked>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 decode420_kernel(const int16_t* __restrict__ yc,
                  const int16_t* __restrict__ cb,
                  const int16_t* __restrict__ cr,
@@ -155,124 +219,139 @@ decode420_kernel(const int16_t* __restrict__ yc,
                  uint8_t* __restrict__ orr, int32_t* __restrict__ opk,
                  int cbh, int cbw) {
     extern __shared__ __align__(16) float smem[];
-    float* wy = smem;                                // [64][64]
-    float* wc = wy + 4096;                           // [64][64]
-    float* lco = wc + 4096;                          // [32][kStride]
-    float* cco = lco + kLumaBlocks * kStride;        // [2 rows][20][kStride]
-    float* ring = cco + 2 * kRowBlocks * kStride;    // [2][kRingH][kRingW]
+    float* wy = smem;                                // [64][64], swizzled
+    float* wc = wy + 4096;                           // [64][64], swizzled
+    float* cf = wc + 4096;                           // [64 k][64 blocks]
+    float* ring = cf + 4096;                         // [2][kRingH][kRingW]
 
     const int b = blockIdx.z;
     const int r0 = blockIdx.y * kBandRows;      // first MCU row of the band
     const int r1 = min(r0 + kBandRows, cbh);
-    const int c0 = blockIdx.x * kTileMcus;      // first chroma block col
+    const int c0 = blockIdx.x * kStripMcus;     // first chroma block col
     const int tid = threadIdx.x;
-    const int lbw = 2 * cbw;                    // luma blocks per row
-    const int g = tid & 15;          // pixel group: row g/2, cols 4(g%2)..+3
-    const int px = g >> 1, py = 4 * (g & 1);
+    const int g = tid >> 3, rho = tid & 7;      // block group, pixel row
+    const Job job{yc, cb, cr, b, cbh, cbw, c0};
+    int4 raw[kLoads];
+    float acc[4][8];
 
-    // 1. stage this image's W_q matrices once for the band, and chroma
-    //    block rows r0-1 (when inside the plane) and r0
-    {
-        const float4* wy4 = reinterpret_cast<const float4*>(wqy + size_t(b) * 4096);
-        const float4* wc4 = reinterpret_cast<const float4*>(wqc + size_t(b) * 4096);
-        for (int i = tid; i < 1024; i += kThreads) {
-            reinterpret_cast<float4*>(wy)[i] = __ldg(wy4 + i);
-            reinterpret_cast<float4*>(wc)[i] = __ldg(wc4 + i);
-        }
-        if (r0 > 0)
-            stage_chroma_row(cb, cr, cco, b, r0 - 1, c0, cbh, cbw, tid);
-        stage_chroma_row(cb, cr, cco + kRowBlocks * kStride, b, r0, c0, cbh,
-                         cbw, tid);
+    // 1. stage this image's W_q matrices once for the band, and decode
+    //    chroma block rows r0-1 (when inside the plane) and r0 into the ring
+    job.load(raw, r0, true, tid);
+    stage_w(wqy + size_t(b) * 4096, wy, tid);
+    stage_w(wqc + size_t(b) * 4096, wc, tid);
+    store_job(raw, cf, tid);
+    __syncthreads();
+    job.load(raw, r0, false, tid);
+    if (g < 4 * kChromaCols / 4) {
+        const int q = g / (kChromaCols / 2), p = (g / (kChromaCols / 4)) & 1;
+        idct_rows(cf, wc, g, rho, acc);
+        if (r0 - 1 + q >= 0)
+            to_ring(ring, acc, p, r0 - 1 + q, 4 * (g % (kChromaCols / 4)),
+                    rho);
     }
     __syncthreads();
-    for (int q = tid >> 4; q < kRowBlocks; q += kThreads / 16) {
-        const int crow = r0 - 1 + q / (kRowBlocks / 2);
-        if (crow >= 0)
-            idct_chroma_row(cco + (q / (kRowBlocks / 2)) * kRowBlocks * kStride,
-                            wc, ring, crow, q % (kRowBlocks / 2), g);
-    }
+    store_job(raw, cf, tid);
 
-    const int lp = tid >> 4;                     // 0..15
-    const int lr = lp >> 3;                      // luma block row in tile
-    const int lx = 2 * (lp & 7);                 // first luma block col
-    const bool live = 2 * c0 + lx < lbw;         // both or neither in range
+    const int lr = g / (kLumaGroups / 2);       // luma block row in the job
+    const int lbx = 4 * (g % (kLumaGroups / 2));  // first luma block col
+    const int lbw = 2 * cbw;                    // luma blocks per row
+    const int nb = min(4, lbw - (2 * c0 + lbx));  // blocks of g in the plane
     const int ch = 8 * cbh, cw = 8 * cbw;
     const int oh = 16 * cbh, ow = 16 * cbw;
-    const int oy = 8 * lr + px;                  // output row in the MCU row
+    const int oy = 8 * lr + rho;                // output row in the MCU row
 
-    // 2. walk the band: each MCU row decodes its luma and chroma block row
-    //    row+1 (into the ring), then upsamples from ring rows row-1..row+1
+    // 2. walk the band: MCU row `row` decodes its luma (kept in registers)
+    //    and chroma block row row+1 (into the ring) while the next row's
+    //    coefficients load, then upsamples from ring rows row-1..row+1
     for (int row = r0; row < r1; ++row) {
-        __syncthreads();             // the previous row's epilogue is done
-        for (int i = tid; i < kLumaBlocks * 8; i += kThreads) {
-            const int blk = i >> 3, part = i & 7;
-            const int by = 2 * row + blk / 16, bx = 2 * c0 + blk % 16;
-            if (bx < lbw)
-                stage(yc + ((size_t(b) * 2 * cbh + by) * lbw + bx) * 64,
-                      lco + blk * kStride, part);
+        __syncthreads();             // cf staged; ring rows written
+        const bool next = row + 1 < r1;
+        if (next) job.load(raw, row + 1, false, tid);
+        const bool luma = g < kLumaGroups;
+        if (luma || row + 1 < cbh) idct_rows(cf, luma ? wy : wc, g, rho, acc);
+        if (!luma && row + 1 < cbh) {
+            const int cg = g - kLumaGroups;
+            to_ring(ring, acc, cg / (kChromaCols / 4), row + 1,
+                    4 * (cg % (kChromaCols / 4)), rho);
         }
-        const bool next = row + 1 < cbh;
-        if (next)
-            stage_chroma_row(cb, cr, cco, b, row + 1, c0, cbh, cbw, tid);
         __syncthreads();
-        if (next && lp < kRowBlocks / 2)
-            idct_chroma_row(cco, wc, ring, row + 1, lp, g);
-        float ya[2][4];
-        idct_tile(lco + (16 * lr + lx) * kStride,
-                  lco + (16 * lr + lx + 1) * kStride, wy, g, ya);
-        __syncthreads();
-        if (!live) continue;
-
-        // triangle upsample from the ring, colour, store 4 pixels per block
-        const int gy = 16 * row + oy;
-        const int cy = 8 * row + (oy >> 1);      // chroma row (global)
-        const int cyn = min(max(cy + ((oy & 1) ? 1 : -1), 0), ch - 1);
-        const int ty = cy % kRingH, tyn = cyn % kRingH;
+        if (luma && nb > 0) {
+            // triangle upsample from the ring, colour, store 32 pixels
+            const int gy = 16 * row + oy;
+            const int cy = 8 * row + (oy >> 1);  // chroma row (global)
+            const int cyn = min(max(cy + ((oy & 1) ? 1 : -1), 0), ch - 1);
+            const float* ty = ring + (cy % kRingH) * kRingW;
+            const float* tyn = ring + (cyn % kRingH) * kRingW;
+            const size_t o = (size_t(b) * oh + gy) * ow + 16 * c0 + 8 * lbx;
+            uint32_t q[3][8];                   // b, g, r bytes of 32 px
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            uint32_t bq = 0, gq = 0, rq = 0;
-            int32_t pk[4];
-            const int ox0 = 8 * (lx + j) + py;   // output col in the strip
+            for (int j = 0; j < 4; ++j) {
+                if (j >= nb) break;
+                // vertical taps at chroma cols base-1..base+4, clamped
+                const int base = 8 * c0 + 4 * (lbx + j);
+                float v[2][6];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int ox = ox0 + i;
-                const int cx = 8 * c0 + (ox >> 1);   // chroma col (global)
-                const int cxn = min(max(cx + ((ox & 1) ? 1 : -1), 0), cw - 1);
-                const int tx = cx - 8 * (c0 - 1), txn = cxn - 8 * (c0 - 1);
-                float cc[2];
+                for (int t = 0; t < 6; ++t) {
+                    const int tx =
+                        min(max(base - 1 + t, 0), cw - 1) - 8 * (c0 - 1);
 #pragma unroll
-                for (int p = 0; p < 2; ++p) {
-                    const float* t = ring + p * kRingH * kRingW;
-                    const float v = tri(t[ty * kRingW + tx],
-                                        t[tyn * kRingW + tx]);
-                    const float vn = tri(t[ty * kRingW + txn],
-                                         t[tyn * kRingW + txn]);
-                    cc[p] = __fsub_rn(tri(v, vn), 128.f);
+                    for (int p = 0; p < 2; ++p)
+                        v[p][t] = tri(ty[p * kRingH * kRingW + tx],
+                                      tyn[p * kRingH * kRingW + tx]);
                 }
-                const float y = ya[j][i];
-                const uint32_t rr = to_u8(__fmaf_rn(1.402f, cc[1], y));
-                const uint32_t gg = to_u8(__fmaf_rn(
-                    -0.714136286f, cc[1], __fmaf_rn(-0.344136286f, cc[0], y)));
-                const uint32_t bb = to_u8(__fmaf_rn(1.772f, cc[0], y));
+                int32_t pk[8];
+#pragma unroll
+                for (int x = 0; x < 8; ++x) {
+                    const int m = x >> 1;
+                    float cc[2];
+#pragma unroll
+                    for (int p = 0; p < 2; ++p)
+                        cc[p] = __fsub_rn(
+                            tri(v[p][1 + m], v[p][(x & 1) ? 2 + m : m]),
+                            128.f);
+                    const float y = acc[j][x];
+                    const uint32_t rr = to_u8(__fmaf_rn(1.402f, cc[1], y));
+                    const uint32_t gg = to_u8(__fmaf_rn(
+                        -0.714136286f, cc[1],
+                        __fmaf_rn(-0.344136286f, cc[0], y)));
+                    const uint32_t bb = to_u8(__fmaf_rn(1.772f, cc[0], y));
+                    if (kPacked) {
+                        pk[x] = static_cast<int32_t>(bb | (gg << 8) |
+                                                     (rr << 16) |
+                                                     0xFF000000u);
+                    } else {
+                        const int wd = 2 * j + (x >> 2), sh = 8 * (x & 3);
+                        if ((x & 3) == 0) q[0][wd] = q[1][wd] = q[2][wd] = 0;
+                        q[0][wd] |= bb << sh;
+                        q[1][wd] |= gg << sh;
+                        q[2][wd] |= rr << sh;
+                    }
+                }
                 if (kPacked) {
-                    pk[i] = static_cast<int32_t>(bb | (gg << 8) | (rr << 16) |
-                                                 0xFF000000u);
-                } else {
-                    bq |= bb << (8 * i);
-                    gq |= gg << (8 * i);
-                    rq |= rr << (8 * i);
+                    int4* d = reinterpret_cast<int4*>(opk + o + 8 * j);
+                    d[0] = make_int4(pk[0], pk[1], pk[2], pk[3]);
+                    d[1] = make_int4(pk[4], pk[5], pk[6], pk[7]);
                 }
             }
-            const size_t o = (size_t(b) * oh + gy) * ow + 16 * c0 + ox0;
-            if (kPacked) {
-                reinterpret_cast<int4*>(opk + o)[0] =
-                    make_int4(pk[0], pk[1], pk[2], pk[3]);
-            } else {
-                reinterpret_cast<uint32_t*>(ob + o)[0] = bq;
-                reinterpret_cast<uint32_t*>(og + o)[0] = gq;
-                reinterpret_cast<uint32_t*>(orr + o)[0] = rq;
+            if (!kPacked) {
+                uint8_t* planes[3] = {ob, og, orr};
+#pragma unroll
+                for (int p = 0; p < 3; ++p) {
+                    if (nb == 4) {
+                        uint4* d = reinterpret_cast<uint4*>(planes[p] + o);
+                        d[0] = make_uint4(q[p][0], q[p][1], q[p][2], q[p][3]);
+                        d[1] = make_uint4(q[p][4], q[p][5], q[p][6], q[p][7]);
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < 3; ++j)
+                            if (j < nb)
+                                reinterpret_cast<uint2*>(planes[p] + o)[j] =
+                                    make_uint2(q[p][2 * j], q[p][2 * j + 1]);
+                    }
+                }
             }
         }
+        if (next) store_job(raw, cf, tid);
     }
 }
 
@@ -305,7 +384,7 @@ int lpt_decode420(const void* yc, const void* cb, const void* cr,
                   void* stream) {
     if (batch <= 0 || cbh <= 0 || cbw <= 0 || batch > 65535 || cbh > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((cbw + kTileMcus - 1) / kTileMcus,
+    const dim3 grid((cbw + kStripMcus - 1) / kStripMcus,
                     (cbh + kBandRows - 1) / kBandRows, batch);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* y = static_cast<const int16_t*>(yc);
