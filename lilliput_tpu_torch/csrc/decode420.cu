@@ -24,23 +24,43 @@
 // sums use fmaf in k order, which is not XLA's order, so a u8 value may
 // differ by 1 from the plain version where a sum lands next to a .5 tie.
 //
-// Bound on an H100 SXM (data sheet figures, not measurements): at the
-// serving shape (B=128, cbh=68, cbw=70) the kernel reads 468 MB of
-// coefficients and writes 468 MB of planes (~0.28 ms at 3.35 TB/s), and
-// does 2*64 f32 FLOP per IDCT output (~30 GFLOP for the luma and chroma
-// planes, ~0.45 ms at 67 TFLOP/s non-tensor f32): f32 arithmetic bounds it
-// first. The design keeps the IDCT on the FMA pipe with few loads per FMA:
-//   * one thread block per (image, chroma block row, 8 MCUs across);
-//   * the image's two 64x64 W_q matrices, the tile's coefficients (as f32,
-//     block stride 65 so broadcast reads of two blocks never share a bank)
-//     and the decoded chroma tile live in shared memory (~70 KB);
-//   * the IDCT runs as small register-tiled matrix products: each thread
-//     owns 2 blocks x 4 pixels, so one k step is one float4 W load, two
-//     broadcast coefficient loads and 8 FMAs;
-//   * the chroma tile covers the MCU row's chroma blocks plus one block of
-//     halo on each side (rows and columns), so the triangle upsample reads
-//     its neighbours from shared memory; luma stays in registers through
-//     the colour conversion, and each thread stores 4 adjacent pixels.
+// Replaces pallas_kernels.py:390 (`pl.pallas_call` at :437).
+//
+// Bound on an H100 SXM (data-sheet peaks: 3.35 TB/s, 67 TFLOP/s f32 without
+// tensor cores), at B = 128, every input read once and every output written
+// once, against 2*64*64 FLOP per 8x8 block IDCT (chip_smoke.bound):
+//   window (luma 136x140 blocks, chroma 68x70): 0.94 GB -> 0.28 ms of
+//     bytes, 30.0 GFLOP -> 0.447 ms of operations;
+//   full frame (luma 136x240, chroma 68x120): 1.60 GB -> 0.48 ms of bytes,
+//     51.3 GFLOP -> 0.766 ms of operations.
+// f32 FMA issue bounds it at both. Times, planes epilogue, chip_smoke.py
+// phase 4 on "NVIDIA H100 80GB HBM3, 700.00 W": 1.274 ms at the window and
+// 2.155 ms at the full frame (35% of the f32 peak at both).
+//
+// The design:
+//   * Each chroma block is decoded once (plus a one-block halo). One thread
+//     block per (image, strip of 10 MCUs, band of 17 MCU rows) stages both
+//     W_q once and walks its band's MCU rows top to bottom. A 3-slot ring
+//     holds the decoded chroma block rows row-1, row, row+1 (2 planes x 24
+//     px rows x 96 px cols); each step decodes the 40 luma blocks of MCU row
+//     `row` and the 24 chroma blocks of block row row+1 (10 + a halo block
+//     each side, 2 planes) as one job of 64 blocks, then upsamples MCU row
+//     `row` from the ring. Rows outside the plane are never decoded: the
+//     clamped neighbour index already points inside it. Per band: 64 block
+//     IDCTs per step for 60 owned, plus chroma rows r0-1 and r0 once.
+//   * The IDCT is fed by few shared-memory loads per FMA: coefficients are
+//     staged as f32 in k-major order (cf_index), W_q with the halves of
+//     rows 4..7 swapped; each thread owns 4 blocks x 8 pixels (one pixel
+//     row), so one k step is two float4 W loads, one float4 coefficient
+//     load and 32 FMAs: 3 shared-memory wavefronts per 32 warp-FMAs.
+//   * The next step's coefficients load into registers while this step
+//     computes; luma stays in registers through the barrier into the
+//     colour conversion, and each thread stores 32 adjacent pixels.
+// 128 threads, kSmemBytes = 68,352 bytes of dynamic shared memory, 168
+// registers and no spills (ptxas, sm_90a): 3 blocks per SM. Every output
+// value comes from the same operation sequence as before (fmaf in k order
+// from 0, + 128, tri, the colour FMAs, rintf and the clip), so the result
+// does not depend on the tiling.
 // Later work: tensor-core (3xTF32 or bf16x3) IDCT, which the exactness
 // contract allows only with an error-free split.
 
