@@ -1,23 +1,22 @@
-// 4:2:2, 4:4:0 and 4:4:4 JPEG decode kernels for Hopper (sm_90a): int16
-// DCT coefficients -> three raster u8 planes (B, G, R) or packed BGRA int32.
+// 4:2:2 and 4:4:4 JPEG decode kernels for Hopper (sm_90a): int16 DCT
+// coefficients -> three raster u8 planes (B, G, R) or packed BGRA int32.
 //
-// One kernel template over the chroma sampling factors (FX, FY), with one C
-// entry point per layout. Each replaces one Pallas TPU kernel of
-// lilliput_tpu/ops/pallas_kernels.py:
+// One kernel template over the horizontal chroma sampling factor FX (the
+// vertical one is 1), with one C entry point per layout. Each replaces one
+// Pallas TPU kernel of lilliput_tpu/ops/pallas_kernels.py:
 //
-//   lpt_decode422  FX=2 FY=1  decode422_packed  (pl.pallas_call at :563)
-//   lpt_decode440  FX=1 FY=2  decode440_packed  (pl.pallas_call at :713)
-//   lpt_decode444  FX=1 FY=1  decode444_packed  (pl.pallas_call at :792)
+//   lpt_decode422  FX=2  decode422_packed  (pl.pallas_call at :563)
+//   lpt_decode444  FX=1  decode444_packed  (pl.pallas_call at :792)
 //
-// Same arithmetic as those kernels and the split path, per output pixel:
+// 4:2:0 is decode420.cu's kernel and 4:4:0 decode440.cu's. Same arithmetic
+// as those kernels and the split path, per output pixel:
 //
 //   luma   Y = sum_k f32(coef[k]) * Wqy[k][x*8+y] + 128       (W_q folds the
 //   chroma C = sum_k f32(coef[k]) * Wqc[k][x*8+y] + 128        dequant table)
 //   4:2:2  horizontal only: u = fma(3, C, C[col-/+1]) * 0.25 (even/odd col)
-//   4:4:0  vertical only:   u = fma(3, C, C[row-/+1]) * 0.25 (even/odd row)
 //   4:4:4  no upsample:     C' = sum_k f32(coef[k]) * Wqc[k][x*8+y]
 //   edges replicated at the window's chroma plane edges (cols 0 and
-//   8*cbw-1, rows 0 and 8*cbh-1)
+//   8*cbw-1)
 //   R = fma(1.402, Cr', Y), G = fma(-0.714136286, Cr', fma(-0.344136286,
 //   Cb', Y)), B = fma(1.772, Cb', Y)  with C' = u - 128 where upsampled;
 //   then clip(rint(v), 0, 255).
@@ -42,26 +41,23 @@
 // serving windows, B=128:
 //   4:4:4  1.37 GB of coefficients + planes (~0.41 ms at 3.35 TB/s),
 //          58.6 GFLOP of IDCT (~0.87 ms at 67 TFLOP/s f32 non-tensor);
-//   4:2:2  1.08 GB (~0.32 ms), 39.6 GFLOP (~0.59 ms);
-//   4:4:0  1.07 GB (~0.32 ms), 39.4 GFLOP (~0.59 ms).
+//   4:2:2  1.08 GB (~0.32 ms), 39.6 GFLOP (~0.59 ms).
 // f32 FMA work bounds each first. The design keeps the IDCT on the FMA pipe
-// with few loads per FMA, as decode420.cu does:
+// with few loads per FMA:
 //   * one thread block per (image, chroma block row, tile of 32 luma
-//     blocks): 16 chroma block columns for 4:2:2 and 4:4:0, 32 for 4:4:4;
+//     blocks): 16 chroma block columns for 4:2:2, 32 for 4:4:4;
 //   * the image's two 64x64 W_q matrices, the tile's coefficients (as f32,
 //     block stride 65 so broadcast reads of two blocks never share a bank)
 //     and the decoded chroma tile live in shared memory (60-91 KB);
 //   * the IDCT runs as small register-tiled matrix products: each thread
 //     owns 2 blocks x 4 pixels, so one k step is one float4 W load, two
 //     broadcast coefficient loads and 8 FMAs;
-//   * the chroma tile carries one block of halo on each side of the
-//     upsampled axis only (columns for 4:2:2, rows for 4:4:0, none for
-//     4:4:4), so the triangle taps read their neighbours from shared
+//   * the 4:2:2 chroma tile carries one block of halo on each side (none
+//     for 4:4:4), so the triangle taps read their neighbours from shared
 //     memory; luma stays in registers through the colour conversion, and
 //     each thread stores 4 adjacent pixels.
-// The 4:4:0 halo rows are decoded whole although the taps read one pixel
-// row of each: 96 chroma block IDCTs per 32 luma blocks, twice the minimum.
-// Later work: decode only the halo's edge row, and a tensor-core IDCT.
+// Later work: decode420.cu's k-major 4 blocks x 8 pixels IDCT tile, and a
+// tensor-core IDCT.
 
 #include <cuda_runtime.h>
 
@@ -73,23 +69,18 @@ constexpr int kThreads = 256;
 constexpr int kStride = 65;                   // f32 per staged block
 constexpr int kLumaBlocks = 32;               // luma blocks per thread block
 
-template <int FX, int FY>
+template <int FX>
 struct Geometry {
-    static constexpr int kTileC = kLumaBlocks / (FX * FY);  // chroma cols
-    static constexpr int kLumaCols = FX * kTileC;           // luma cols
+    static constexpr int kTileC = kLumaBlocks / FX;         // chroma cols
     static constexpr int kHaloX = FX - 1;
-    static constexpr int kHaloY = FY - 1;
     static constexpr int kChromaCols = kTileC + 2 * kHaloX;
-    static constexpr int kChromaRows = 1 + 2 * kHaloY;
-    static constexpr int kChromaBlocks = 2 * kChromaRows * kChromaCols;
-    static constexpr int kTileH = 8 * kChromaRows;          // tile rows (px)
+    static constexpr int kChromaBlocks = 2 * kChromaCols;   // 1 row, 2 planes
+    static constexpr int kTileH = 8;                        // tile rows (px)
     static constexpr int kTileW = 8 * kChromaCols;          // tile cols (px)
     static constexpr size_t kSmemBytes =
         sizeof(float) * (2 * 4096 + kLumaBlocks * kStride +
                          kChromaBlocks * kStride + 2 * kTileH * kTileW);
-    static_assert(FX == 1 || FY == 1, "4:2:0 is decode420.cu's kernel");
     static_assert(kChromaCols % 2 == 0, "chroma IDCT runs on block pairs");
-    static_assert(kLumaBlocks % kLumaCols == 0, "whole luma rows per tile");
 };
 
 // One register tile of the IDCT product: blocks a0/a1 (staged f32
@@ -143,17 +134,17 @@ __device__ __forceinline__ uint32_t to_u8(float v) {
     return static_cast<uint32_t>(fminf(fmaxf(rintf(v), 0.f), 255.f));
 }
 
-// Luma (B, FY*cbh, FX*cbw, 64), chroma (B, cbh, cbw, 64); output planes or
-// packed pixels (B, 8*FY*cbh, 8*FX*cbw).
-template <int FX, int FY, bool kPacked>
+// Luma (B, cbh, FX*cbw, 64), chroma (B, cbh, cbw, 64); output planes or
+// packed pixels (B, 8*cbh, 8*FX*cbw).
+template <int FX, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
               const int16_t* __restrict__ cr, const float* __restrict__ wqy,
               const float* __restrict__ wqc, uint8_t* __restrict__ ob,
               uint8_t* __restrict__ og, uint8_t* __restrict__ orr,
               int32_t* __restrict__ opk, int cbh, int cbw) {
-    using G = Geometry<FX, FY>;
-    constexpr bool kUpsample = FX == 2 || FY == 2;  // else 4:4:4, unshifted
+    using G = Geometry<FX>;
+    constexpr bool kUpsample = FX == 2;         // else 4:4:4, unshifted
     extern __shared__ __align__(16) float smem[];
     float* wy = smem;                                // [64][64]
     float* wc = wy + 4096;                           // [64][64]
@@ -176,24 +167,21 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
             reinterpret_cast<float4*>(wy)[i] = __ldg(wy4 + i);
             reinterpret_cast<float4*>(wc)[i] = __ldg(wc4 + i);
         }
-        // luma: FY block rows x kLumaCols block cols, 8 parts of 8 coefs
+        // luma: row `row` x kLumaBlocks block cols, 8 parts of 8 coefs
         for (int i = tid; i < kLumaBlocks * 8; i += kThreads) {
             const int blk = i >> 3, part = i & 7;
-            const int by = FY * row + blk / G::kLumaCols;
-            const int bx = lx0 + blk % G::kLumaCols;
+            const int bx = lx0 + blk;
             if (bx < lbw)
-                stage(yc + ((size_t(b) * FY * cbh + by) * lbw + bx) * 64,
+                stage(yc + ((size_t(b) * cbh + row) * lbw + bx) * 64,
                       lco + blk * kStride, part);
         }
-        // chroma: planes x rows row-HY..row+HY x cols c0-HX..c0+kTileC-1+HX
+        // chroma: planes x row `row` x cols c0-HX..c0+kTileC-1+HX
         for (int i = tid; i < G::kChromaBlocks * 8; i += kThreads) {
             const int blk = i >> 3, part = i & 7;
-            const int p = blk / (G::kChromaRows * G::kChromaCols);
-            const int r = (blk / G::kChromaCols) % G::kChromaRows;
-            const int c = blk % G::kChromaCols;
-            const int by = row - G::kHaloY + r, bx = c0 - G::kHaloX + c;
-            if (by >= 0 && by < cbh && bx >= 0 && bx < cbw)
-                stage((p ? cr : cb) + ((size_t(b) * cbh + by) * cbw + bx) * 64,
+            const int p = blk / G::kChromaCols, c = blk % G::kChromaCols;
+            const int bx = c0 - G::kHaloX + c;
+            if (bx >= 0 && bx < cbw)
+                stage((p ? cr : cb) + ((size_t(b) * cbh + row) * cbw + bx) * 64,
                       cco + blk * kStride, part);
         }
     }
@@ -205,15 +193,13 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
     // 2. chroma IDCT into the tile (block pairs along a tile row); pairs
     //    wholly past the plane's right edge are never read, so skipped
     for (int q = tid >> 4; q < G::kChromaBlocks / 2; q += kThreads / 16) {
-        const int blk = 2 * q;       // even: both blocks share plane and row
-        const int p = blk / (G::kChromaRows * G::kChromaCols);
-        const int r = (blk / G::kChromaCols) % G::kChromaRows;
-        const int c = blk % G::kChromaCols;
+        const int blk = 2 * q;       // even: both blocks share the plane
+        const int p = blk / G::kChromaCols, c = blk % G::kChromaCols;
         if (c0 - G::kHaloX + c >= cbw) continue;
         float acc[2][4];
         idct_tile<kUpsample>(cco + blk * kStride, cco + (blk + 1) * kStride,
                              wc, g, acc);
-        float* dst = tile + (p * G::kTileH + 8 * r + px) * G::kTileW + 8 * c + py;
+        float* dst = tile + (p * G::kTileH + px) * G::kTileW + 8 * c + py;
         reinterpret_cast<float4*>(dst)[0] =
             make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
         reinterpret_cast<float4*>(dst + 8)[0] =
@@ -221,30 +207,18 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
     }
 
     // 3. luma IDCT, kept in registers (block pair = 2 adjacent luma blocks)
-    constexpr int kPairsPerRow = G::kLumaCols / 2;
-    const int lp = tid >> 4;                     // 0..15
-    const int lr = lp / kPairsPerRow;            // luma block row in tile
-    const int lx = 2 * (lp % kPairsPerRow);      // first luma block col
+    const int lx = 2 * (tid >> 4);               // first luma block col
     const bool live = lx0 + lx < lbw;            // at least the first block
     float ya[2][4];
     if (live)
-        idct_tile(lco + (G::kLumaCols * lr + lx) * kStride,
-                  lco + (G::kLumaCols * lr + lx + 1) * kStride, wy, g, ya);
+        idct_tile(lco + lx * kStride, lco + (lx + 1) * kStride, wy, g, ya);
     __syncthreads();
     if (!live) return;
 
     // 4. upsample from the tile, colour, store 4 pixels per block
-    const int ch = 8 * cbh, cw = 8 * cbw;
-    const int oy = 8 * lr + px;                  // output row in the MCU row
-    const int gy = 8 * FY * row + oy;
-    const int cy = 8 * row + (FY == 2 ? (oy >> 1) : oy);  // chroma row
-    const int ty = cy - 8 * (row - G::kHaloY);
-    int tyn = ty;
-    if (FY == 2) {
-        const int cyn = min(max(cy + ((oy & 1) ? 1 : -1), 0), ch - 1);
-        tyn = cyn - 8 * (row - 1);
-    }
-    const int oh = 8 * FY * cbh, ow = 8 * FX * cbw;
+    const int cw = 8 * cbw;
+    const int gy = 8 * row + px;
+    const int oh = 8 * cbh, ow = 8 * FX * cbw;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
         if (lx0 + lx + j >= lbw) break;          // ragged right edge
@@ -265,10 +239,9 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
 #pragma unroll
             for (int p = 0; p < 2; ++p) {
                 const float* t = tile + p * G::kTileH * G::kTileW;
-                const float c = t[ty * G::kTileW + tx];
+                const float c = t[px * G::kTileW + tx];
                 float u = c;
-                if (FX == 2) u = tri(c, t[ty * G::kTileW + txn]);
-                if (FY == 2) u = tri(c, t[tyn * G::kTileW + tx]);
+                if (FX == 2) u = tri(c, t[px * G::kTileW + txn]);
                 cc[p] = kUpsample ? __fsub_rn(u, 128.f) : u;
             }
             const float y = ya[j][i];
@@ -297,29 +270,29 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
     }
 }
 
-template <int FX, int FY, bool kPacked>
+template <int FX, bool kPacked>
 cudaError_t launch(const dim3& grid, cudaStream_t s, const int16_t* y,
                    const int16_t* u, const int16_t* v, const float* wy,
                    const float* wc, uint8_t* o0, uint8_t* o1, uint8_t* o2,
                    int32_t* pk, int cbh, int cbw) {
-    constexpr size_t kSmem = Geometry<FX, FY>::kSmemBytes;
+    constexpr size_t kSmem = Geometry<FX>::kSmemBytes;
     // above 48 KB, dynamic shared memory must be asked for per kernel
     cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<FX, FY, kPacked>,
+        decode_kernel<FX, kPacked>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
     if (e != cudaSuccess) return e;
-    decode_kernel<FX, FY, kPacked><<<grid, kThreads, kSmem, s>>>(
+    decode_kernel<FX, kPacked><<<grid, kThreads, kSmem, s>>>(
         y, u, v, wy, wc, o0, o1, o2, pk, cbh, cbw);
     return cudaGetLastError();
 }
 
-template <int FX, int FY>
+template <int FX>
 int decode(const void* yc, const void* cb, const void* cr, const void* wqy,
            const void* wqc, void* o0, void* o1, void* o2, int packed,
            int batch, int cbh, int cbw, void* stream) {
     if (batch <= 0 || cbh <= 0 || cbw <= 0 || batch > 65535 || cbh > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int kTileC = Geometry<FX, FY>::kTileC;
+    constexpr int kTileC = Geometry<FX>::kTileC;
     const dim3 grid((cbw + kTileC - 1) / kTileC, cbh, batch);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* y = static_cast<const int16_t*>(yc);
@@ -328,10 +301,10 @@ int decode(const void* yc, const void* cb, const void* cr, const void* wqy,
     const auto* wy = static_cast<const float*>(wqy);
     const auto* wc = static_cast<const float*>(wqc);
     const cudaError_t e =
-        packed ? launch<FX, FY, true>(grid, s, y, u, v, wy, wc, nullptr,
+        packed ? launch<FX, true>(grid, s, y, u, v, wy, wc, nullptr,
                                       nullptr, nullptr,
                                       static_cast<int32_t*>(o0), cbh, cbw)
-               : launch<FX, FY, false>(grid, s, y, u, v, wy, wc,
+               : launch<FX, false>(grid, s, y, u, v, wy, wc,
                                        static_cast<uint8_t*>(o0),
                                        static_cast<uint8_t*>(o1),
                                        static_cast<uint8_t*>(o2), nullptr,
@@ -343,24 +316,16 @@ int decode(const void* yc, const void* cb, const void* cr, const void* wqy,
 
 extern "C" {
 
-// All three: yc (B, FY*cbh, FX*cbw, 64) int16, cb/cr (B, cbh, cbw, 64)
-// int16, wqy/wqc (B, 64, 64) f32, all contiguous on the device. packed=0:
-// o0/o1/o2 are the B/G/R u8 planes (B, 8*FY*cbh, 8*FX*cbw); packed=1: o0
-// is int32 BGRA of that shape. Launches on `stream` and returns the
+// Both: yc (B, cbh, FX*cbw, 64) int16, cb/cr (B, cbh, cbw, 64) int16,
+// wqy/wqc (B, 64, 64) f32, all contiguous on the device. packed=0:
+// o0/o1/o2 are the B/G/R u8 planes (B, 8*cbh, 8*FX*cbw); packed=1: o0 is
+// int32 BGRA of that shape. Launches on `stream` and returns the
 // launch's cudaError_t.
 int lpt_decode422(const void* yc, const void* cb, const void* cr,
                   const void* wqy, const void* wqc, void* o0, void* o1,
                   void* o2, int packed, int batch, int cbh, int cbw,
                   void* stream) {
-    return decode<2, 1>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
-                        cbw, stream);
-}
-
-int lpt_decode440(const void* yc, const void* cb, const void* cr,
-                  const void* wqy, const void* wqc, void* o0, void* o1,
-                  void* o2, int packed, int batch, int cbh, int cbw,
-                  void* stream) {
-    return decode<1, 2>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
+    return decode<2>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
                         cbw, stream);
 }
 
@@ -368,7 +333,7 @@ int lpt_decode444(const void* yc, const void* cb, const void* cr,
                   const void* wqy, const void* wqc, void* o0, void* o1,
                   void* o2, int packed, int batch, int cbh, int cbw,
                   void* stream) {
-    return decode<1, 1>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
+    return decode<1>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
                         cbw, stream);
 }
 

@@ -108,15 +108,21 @@ def test_kernel_matches_plain(h, w):
     _check_kernel("420", h, w)
 
 
+#: layout -> chroma block widths on either side of its kernel's strip edges
+STRIP_EDGES = {"420": (1, 7, 8, 9, 10, 11, 17, 21),
+               "440": (1, 10, 15, 16, 17, 33)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [1, 3])
-@pytest.mark.parametrize("cw", [1, 7, 8, 9, 10, 11, 17, 21])
-@pytest.mark.parametrize("ch", [1, 16, 17, 18, 35])
-def test_decode420_band_and_strip_edges(ch, cw, batch):
-    """decode420 walks bands of 17 MCU rows in strips of 10 MCUs: chroma
-    heights and widths on either side of those edges, both epilogues."""
+@pytest.mark.parametrize("sub,ch,cw,batch", [
+    (sub, ch, cw, batch) for sub, cws in STRIP_EDGES.items()
+    for ch in (1, 16, 17, 18, 35) for cw in cws for batch in (1, 3)])
+def test_band_and_strip_edges(sub, ch, cw, batch):
+    """decode420 and decode440 walk bands of 17 MCU rows in strips of 10
+    and 16 MCUs: chroma heights and widths on either side of those edges,
+    both epilogues."""
     _need_card()
-    _check_kernel("420", 16 * ch - 1, 16 * cw - 3, batch)
+    _check_kernel(sub, 16 * ch - 1, 8 * (1 + LAYOUTS[sub][0]) * cw - 3, batch)
 
 
 @pytest.mark.gpu
