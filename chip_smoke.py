@@ -21,8 +21,9 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
 2. the path's kernel against its plain PyTorch version on the card at the
    serving shape (the fixture's coefficients x128; both epilogues of a
    decode kernel) and, on the kernel's first path, at odd geometries with
-   per-image tables (q30/85/95); decode420 and decode440 also at their band
-   and strip edges (EDGE_420, EDGE_440, batches 1 and 3).
+   per-image tables (q30/85/95); decode420, decode440 and decode444 also
+   at their band and strip edges (EDGE_420, EDGE_440, EDGE_444, batches 1
+   and 3).
    dequant_idct_blocks is gated on the u8 values decode_gray makes of its
    output, its f32 difference printed;
 3. the main path: transcode_pipelined, with every launch count set to 0
@@ -65,7 +66,7 @@ KERNELS = {
     "decode420": (f"{_CSRC}/decode420.cu", f"{_TPU}:390", (True, True)),
     "decode422": (f"{_CSRC}/decode_packed.cu", f"{_TPU}:544", (True, False)),
     "decode440": (f"{_CSRC}/decode440.cu", f"{_TPU}:670", (False, True)),
-    "decode444": (f"{_CSRC}/decode_packed.cu", f"{_TPU}:771", (False, False)),
+    "decode444": (f"{_CSRC}/decode444.cu", f"{_TPU}:771", (False, False)),
     "dequant_idct_blocks": (f"{_CSRC}/idct_blocks.cu", f"{_TPU}:45", None),
 }
 IDCT = "dequant_idct_blocks"
@@ -86,12 +87,15 @@ BATCH = 128
 DST = 256
 CASES = [(64, 48), (67, 61), (16, 16), (130, 17), (8, 8), (24, 129)]
 #: decode420's and decode440's band and strip edges (bands of 17 MCU rows;
-#: strips of 10 and 16 MCUs), as chroma block rows x cols; on each kernel's
-#: first path only
+#: strips of 10 and 16 MCUs), and decode444's (steps of 4 and bands of 16
+#: MCU rows, strips of 16 MCUs), as chroma block rows x cols; on each
+#: kernel's first path only
 EDGE_420 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
             for cw in (1, 7, 8, 9, 10, 11, 17, 21)]
 EDGE_440 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
             for cw in (1, 10, 15, 16, 17, 33)]
+EDGE_444 = [(ch, cw) for ch in (1, 3, 4, 5, 15, 16, 17, 35)
+            for cw in (1, 15, 16, 17, 33)]
 KERNEL_MAX_DIFF, KERNEL_MAX_SHARE = 1, 1e-4
 STEP_MAX_DIFF, STEP_MAX_SHARE = 1, 1e-3
 DEVICE = "cuda"
@@ -226,10 +230,11 @@ def phase2(path, pipe, bufs, first: bool):
     if first:
         inputs += [(f"random {h}x{w}", random_case(rng, h, w, h2, v2))
                    for h, w in CASES]
-    edges = {"decode420": EDGE_420, "decode440": EDGE_440}.get(name, [])
+    edges = {"decode420": EDGE_420, "decode440": EDGE_440,
+             "decode444": EDGE_444}.get(name, [])
     if first:
         inputs += [(f"edge chroma {ch}x{cw} x{1 + 2 * (i % 2)}", random_case(
-            rng, 16 * ch - 1, 8 * (1 + h2) * cw - 3, h2, v2,
+            rng, 8 * (1 + v2) * ch - 1, 8 * (1 + h2) * cw - 3, h2, v2,
             batch=1 + 2 * (i % 2))) for i, (ch, cw) in enumerate(edges)]
     worst = 0
     for what, args in inputs:

@@ -1,30 +1,19 @@
-// 4:2:2 and 4:4:4 JPEG decode kernels for Hopper (sm_90a): int16 DCT
-// coefficients -> three raster u8 planes (B, G, R) or packed BGRA int32.
+// 4:2:2 JPEG decode kernel for Hopper (sm_90a): int16 DCT coefficients ->
+// three raster u8 planes (B, G, R) or packed BGRA int32.
 //
-// One kernel template over the horizontal chroma sampling factor FX (the
-// vertical one is 1), with one C entry point per layout. Each replaces one
-// Pallas TPU kernel of lilliput_tpu/ops/pallas_kernels.py:
-//
-//   lpt_decode422  FX=2  decode422_packed  (pl.pallas_call at :563)
-//   lpt_decode444  FX=1  decode444_packed  (pl.pallas_call at :792)
-//
-// 4:2:0 is decode420.cu's kernel and 4:4:0 decode440.cu's. Same arithmetic
-// as those kernels and the split path, per output pixel:
+// Replaces the Pallas TPU kernel decode422_packed of
+// lilliput_tpu/ops/pallas_kernels.py (pl.pallas_call at :563). 4:2:0 is
+// decode420.cu's kernel, 4:4:0 decode440.cu's and 4:4:4 decode444.cu's.
+// Same arithmetic as those kernels and the split path, per output pixel:
 //
 //   luma   Y = sum_k f32(coef[k]) * Wqy[k][x*8+y] + 128       (W_q folds the
 //   chroma C = sum_k f32(coef[k]) * Wqc[k][x*8+y] + 128        dequant table)
-//   4:2:2  horizontal only: u = fma(3, C, C[col-/+1]) * 0.25 (even/odd col)
-//   4:4:4  no upsample:     C' = sum_k f32(coef[k]) * Wqc[k][x*8+y]
+//   horizontal only: u = fma(3, C, C[col-/+1]) * 0.25 (even/odd col),
 //   edges replicated at the window's chroma plane edges (cols 0 and
 //   8*cbw-1)
 //   R = fma(1.402, Cr', Y), G = fma(-0.714136286, Cr', fma(-0.344136286,
-//   Cb', Y)), B = fma(1.772, Cb', Y)  with C' = u - 128 where upsampled;
+//   Cb', Y)), B = fma(1.772, Cb', Y)  with C' = u - 128;
 //   then clip(rint(v), 0, 255).
-// 4:4:4 chroma has no level shift: the JAX package adds 128 to the sum and
-// subtracts it again (pallas_kernels.py:754-757, and its split path), and
-// XLA folds (x + 128) - 128 to x when it compiles either; keeping the round
-// trip moves 18 of 2,384,640 u8 values of the 4:4:4 fixture's window by 1
-// against the JAX package on the CPU.
 //
 // Numerics as in decode420.cu: the fusions XLA makes on the CPU are written
 // out (__fmaf_rn), every other step is __fmul_rn/__fadd_rn/__fsub_rn, the
@@ -32,30 +21,28 @@
 // run in k order with fmaf, so a u8 value may differ by 1 from the plain
 // version where a sum lands next to a .5 tie.
 //
-// Not carried over from the TPU kernels: the pair-packing of two blocks into
+// Not carried over from the TPU kernel: the pair-packing of two blocks into
 // 128 lanes, the even-width pad, the _tile_rows row padding, the selection
 // matmuls and the 72/56 lane rolls. The kernel indexes pixels directly and
-// masks the ragged right edge (138 or 70 blocks are no multiple of a tile).
+// masks the ragged right edge (70 chroma blocks are no multiple of a tile).
 //
 // Bound on an H100 SXM (data sheet figures, not measurements) at the
-// serving windows, B=128:
-//   4:4:4  1.37 GB of coefficients + planes (~0.41 ms at 3.35 TB/s),
-//          58.6 GFLOP of IDCT (~0.87 ms at 67 TFLOP/s f32 non-tensor);
-//   4:2:2  1.08 GB (~0.32 ms), 39.6 GFLOP (~0.59 ms).
-// f32 FMA work bounds each first. The design keeps the IDCT on the FMA pipe
-// with few loads per FMA:
+// serving window, B=128: 1.08 GB of coefficients + planes (~0.32 ms at
+// 3.35 TB/s), 39.6 GFLOP of IDCT (~0.59 ms at 67 TFLOP/s f32 non-tensor).
+// f32 FMA work bounds it. The design keeps the IDCT on the FMA pipe with
+// few loads per FMA:
 //   * one thread block per (image, chroma block row, tile of 32 luma
-//     blocks): 16 chroma block columns for 4:2:2, 32 for 4:4:4;
+//     blocks, i.e. 16 chroma block columns);
 //   * the image's two 64x64 W_q matrices, the tile's coefficients (as f32,
 //     block stride 65 so broadcast reads of two blocks never share a bank)
-//     and the decoded chroma tile live in shared memory (60-91 KB);
+//     and the decoded chroma tile live in shared memory (59,664 bytes);
 //   * the IDCT runs as small register-tiled matrix products: each thread
 //     owns 2 blocks x 4 pixels, so one k step is one float4 W load, two
 //     broadcast coefficient loads and 8 FMAs;
-//   * the 4:2:2 chroma tile carries one block of halo on each side (none
-//     for 4:4:4), so the triangle taps read their neighbours from shared
-//     memory; luma stays in registers through the colour conversion, and
-//     each thread stores 4 adjacent pixels.
+//   * the chroma tile carries one block of halo on each side, so the
+//     triangle taps read their neighbours from shared memory; luma stays in
+//     registers through the colour conversion, and each thread stores 4
+//     adjacent pixels.
 // Later work: decode420.cu's k-major 4 blocks x 8 pixels IDCT tile, and a
 // tensor-core IDCT.
 
@@ -68,26 +55,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kStride = 65;                   // f32 per staged block
 constexpr int kLumaBlocks = 32;               // luma blocks per thread block
-
-template <int FX>
-struct Geometry {
-    static constexpr int kTileC = kLumaBlocks / FX;         // chroma cols
-    static constexpr int kHaloX = FX - 1;
-    static constexpr int kChromaCols = kTileC + 2 * kHaloX;
-    static constexpr int kChromaBlocks = 2 * kChromaCols;   // 1 row, 2 planes
-    static constexpr int kTileH = 8;                        // tile rows (px)
-    static constexpr int kTileW = 8 * kChromaCols;          // tile cols (px)
-    static constexpr size_t kSmemBytes =
-        sizeof(float) * (2 * 4096 + kLumaBlocks * kStride +
-                         kChromaBlocks * kStride + 2 * kTileH * kTileW);
-    static_assert(kChromaCols % 2 == 0, "chroma IDCT runs on block pairs");
-};
+constexpr int kTileC = kLumaBlocks / 2;       // chroma cols
+constexpr int kChromaCols = kTileC + 2;       // + one block of halo each side
+constexpr int kChromaBlocks = 2 * kChromaCols;   // 1 row, 2 planes
+constexpr int kTileH = 8;                     // tile rows (px)
+constexpr int kTileW = 8 * kChromaCols;       // tile cols (px)
+constexpr size_t kSmemBytes =
+    sizeof(float) * (2 * 4096 + kLumaBlocks * kStride +
+                     kChromaBlocks * kStride + 2 * kTileH * kTileW);
+static_assert(kChromaCols % 2 == 0, "chroma IDCT runs on block pairs");
 
 // One register tile of the IDCT product: blocks a0/a1 (staged f32
 // coefficients) against pixel columns 4g..4g+3 of W. acc[j][i] is pixel
-// 4g+i of block j, summed in k order with fmaf from 0, then +128 when
-// kShift.
-template <bool kShift = true>
+// 4g+i of block j, summed in k order with fmaf from 0, then +128.
 __device__ __forceinline__ void idct_tile(const float* __restrict__ a0,
                                           const float* __restrict__ a1,
                                           const float* __restrict__ w, int g,
@@ -108,7 +88,6 @@ __device__ __forceinline__ void idct_tile(const float* __restrict__ a0,
         acc[1][2] = fmaf(c1, wk.z, acc[1][2]);
         acc[1][3] = fmaf(c1, wk.w, acc[1][3]);
     }
-    if (!kShift) return;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         acc[0][i] = __fadd_rn(acc[0][i], 128.f);
@@ -134,30 +113,30 @@ __device__ __forceinline__ uint32_t to_u8(float v) {
     return static_cast<uint32_t>(fminf(fmaxf(rintf(v), 0.f), 255.f));
 }
 
-// Luma (B, cbh, FX*cbw, 64), chroma (B, cbh, cbw, 64); output planes or
-// packed pixels (B, 8*cbh, 8*FX*cbw).
-template <int FX, bool kPacked>
+// Luma (B, cbh, 2*cbw, 64), chroma (B, cbh, cbw, 64); output planes or
+// packed pixels (B, 8*cbh, 16*cbw).
+template <bool kPacked>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
-              const int16_t* __restrict__ cr, const float* __restrict__ wqy,
-              const float* __restrict__ wqc, uint8_t* __restrict__ ob,
-              uint8_t* __restrict__ og, uint8_t* __restrict__ orr,
-              int32_t* __restrict__ opk, int cbh, int cbw) {
-    using G = Geometry<FX>;
-    constexpr bool kUpsample = FX == 2;         // else 4:4:4, unshifted
+decode422_kernel(const int16_t* __restrict__ yc,
+                 const int16_t* __restrict__ cb,
+                 const int16_t* __restrict__ cr,
+                 const float* __restrict__ wqy,
+                 const float* __restrict__ wqc, uint8_t* __restrict__ ob,
+                 uint8_t* __restrict__ og, uint8_t* __restrict__ orr,
+                 int32_t* __restrict__ opk, int cbh, int cbw) {
     extern __shared__ __align__(16) float smem[];
     float* wy = smem;                                // [64][64]
     float* wc = wy + 4096;                           // [64][64]
     float* lco = wc + 4096;                          // [32][kStride]
     float* cco = lco + kLumaBlocks * kStride;        // [kChromaBlocks][..]
-    float* tile = cco + G::kChromaBlocks * kStride;  // [2][kTileH][kTileW]
+    float* tile = cco + kChromaBlocks * kStride;     // [2][kTileH][kTileW]
 
     const int b = blockIdx.z;
     const int row = blockIdx.y;                 // chroma block row
-    const int c0 = blockIdx.x * G::kTileC;      // first chroma block col
+    const int c0 = blockIdx.x * kTileC;         // first chroma block col
     const int tid = threadIdx.x;
-    const int lbw = FX * cbw;                   // luma blocks per row
-    const int lx0 = FX * c0;                    // first luma block col
+    const int lbw = 2 * cbw;                    // luma blocks per row
+    const int lx0 = 2 * c0;                     // first luma block col
 
     // 1. stage this image's W_q matrices and the tile's coefficients
     {
@@ -175,11 +154,11 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
                 stage(yc + ((size_t(b) * cbh + row) * lbw + bx) * 64,
                       lco + blk * kStride, part);
         }
-        // chroma: planes x row `row` x cols c0-HX..c0+kTileC-1+HX
-        for (int i = tid; i < G::kChromaBlocks * 8; i += kThreads) {
+        // chroma: planes x row `row` x cols c0-1..c0+kTileC
+        for (int i = tid; i < kChromaBlocks * 8; i += kThreads) {
             const int blk = i >> 3, part = i & 7;
-            const int p = blk / G::kChromaCols, c = blk % G::kChromaCols;
-            const int bx = c0 - G::kHaloX + c;
+            const int p = blk / kChromaCols, c = blk % kChromaCols;
+            const int bx = c0 - 1 + c;
             if (bx >= 0 && bx < cbw)
                 stage((p ? cr : cb) + ((size_t(b) * cbh + row) * cbw + bx) * 64,
                       cco + blk * kStride, part);
@@ -192,14 +171,13 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
 
     // 2. chroma IDCT into the tile (block pairs along a tile row); pairs
     //    wholly past the plane's right edge are never read, so skipped
-    for (int q = tid >> 4; q < G::kChromaBlocks / 2; q += kThreads / 16) {
+    for (int q = tid >> 4; q < kChromaBlocks / 2; q += kThreads / 16) {
         const int blk = 2 * q;       // even: both blocks share the plane
-        const int p = blk / G::kChromaCols, c = blk % G::kChromaCols;
-        if (c0 - G::kHaloX + c >= cbw) continue;
+        const int p = blk / kChromaCols, c = blk % kChromaCols;
+        if (c0 - 1 + c >= cbw) continue;
         float acc[2][4];
-        idct_tile<kUpsample>(cco + blk * kStride, cco + (blk + 1) * kStride,
-                             wc, g, acc);
-        float* dst = tile + (p * G::kTileH + px) * G::kTileW + 8 * c + py;
+        idct_tile(cco + blk * kStride, cco + (blk + 1) * kStride, wc, g, acc);
+        float* dst = tile + (p * kTileH + px) * kTileW + 8 * c + py;
         reinterpret_cast<float4*>(dst)[0] =
             make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
         reinterpret_cast<float4*>(dst + 8)[0] =
@@ -218,7 +196,7 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
     // 4. upsample from the tile, colour, store 4 pixels per block
     const int cw = 8 * cbw;
     const int gy = 8 * row + px;
-    const int oh = 8 * cbh, ow = 8 * FX * cbw;
+    const int oh = 8 * cbh, ow = 16 * cbw;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
         if (lx0 + lx + j >= lbw) break;          // ragged right edge
@@ -228,21 +206,15 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int ox = ox0 + i;
-            const int cx = 8 * c0 + (FX == 2 ? (ox >> 1) : ox);  // chroma col
-            const int tx = cx - 8 * (c0 - G::kHaloX);
-            int txn = tx;
-            if (FX == 2) {
-                const int cxn = min(max(cx + ((ox & 1) ? 1 : -1), 0), cw - 1);
-                txn = cxn - 8 * (c0 - 1);
-            }
+            const int cx = 8 * c0 + (ox >> 1);   // chroma col
+            const int cxn = min(max(cx + ((ox & 1) ? 1 : -1), 0), cw - 1);
+            const int tx = cx - 8 * (c0 - 1), txn = cxn - 8 * (c0 - 1);
             float cc[2];
 #pragma unroll
             for (int p = 0; p < 2; ++p) {
-                const float* t = tile + p * G::kTileH * G::kTileW;
-                const float c = t[px * G::kTileW + tx];
-                float u = c;
-                if (FX == 2) u = tri(c, t[px * G::kTileW + txn]);
-                cc[p] = kUpsample ? __fsub_rn(u, 128.f) : u;
+                const float* t = tile + p * kTileH * kTileW;
+                cc[p] = __fsub_rn(tri(t[px * kTileW + tx],
+                                      t[px * kTileW + txn]), 128.f);
             }
             const float y = ya[j][i];
             const uint32_t rr = to_u8(__fmaf_rn(1.402f, cc[1], y));
@@ -270,29 +242,35 @@ decode_kernel(const int16_t* __restrict__ yc, const int16_t* __restrict__ cb,
     }
 }
 
-template <int FX, bool kPacked>
+template <bool kPacked>
 cudaError_t launch(const dim3& grid, cudaStream_t s, const int16_t* y,
                    const int16_t* u, const int16_t* v, const float* wy,
                    const float* wc, uint8_t* o0, uint8_t* o1, uint8_t* o2,
                    int32_t* pk, int cbh, int cbw) {
-    constexpr size_t kSmem = Geometry<FX>::kSmemBytes;
     // above 48 KB, dynamic shared memory must be asked for per kernel
     cudaError_t e = cudaFuncSetAttribute(
-        decode_kernel<FX, kPacked>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
+        decode422_kernel<kPacked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBytes));
     if (e != cudaSuccess) return e;
-    decode_kernel<FX, kPacked><<<grid, kThreads, kSmem, s>>>(
+    decode422_kernel<kPacked><<<grid, kThreads, kSmemBytes, s>>>(
         y, u, v, wy, wc, o0, o1, o2, pk, cbh, cbw);
     return cudaGetLastError();
 }
 
-template <int FX>
-int decode(const void* yc, const void* cb, const void* cr, const void* wqy,
-           const void* wqc, void* o0, void* o1, void* o2, int packed,
-           int batch, int cbh, int cbw, void* stream) {
+}  // namespace
+
+extern "C" {
+
+// yc (B, cbh, 2*cbw, 64) int16, cb/cr (B, cbh, cbw, 64) int16, wqy/wqc
+// (B, 64, 64) f32, all contiguous on the device. packed=0: o0/o1/o2 are
+// the B/G/R u8 planes (B, 8*cbh, 16*cbw); packed=1: o0 is int32 BGRA of
+// that shape. Launches on `stream` and returns the launch's cudaError_t.
+int lpt_decode422(const void* yc, const void* cb, const void* cr,
+                  const void* wqy, const void* wqc, void* o0, void* o1,
+                  void* o2, int packed, int batch, int cbh, int cbw,
+                  void* stream) {
     if (batch <= 0 || cbh <= 0 || cbw <= 0 || batch > 65535 || cbh > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int kTileC = Geometry<FX>::kTileC;
     const dim3 grid((cbw + kTileC - 1) / kTileC, cbh, batch);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* y = static_cast<const int16_t*>(yc);
@@ -301,40 +279,13 @@ int decode(const void* yc, const void* cb, const void* cr, const void* wqy,
     const auto* wy = static_cast<const float*>(wqy);
     const auto* wc = static_cast<const float*>(wqc);
     const cudaError_t e =
-        packed ? launch<FX, true>(grid, s, y, u, v, wy, wc, nullptr,
-                                      nullptr, nullptr,
-                                      static_cast<int32_t*>(o0), cbh, cbw)
-               : launch<FX, false>(grid, s, y, u, v, wy, wc,
-                                       static_cast<uint8_t*>(o0),
-                                       static_cast<uint8_t*>(o1),
-                                       static_cast<uint8_t*>(o2), nullptr,
-                                       cbh, cbw);
+        packed ? launch<true>(grid, s, y, u, v, wy, wc, nullptr, nullptr,
+                              nullptr, static_cast<int32_t*>(o0), cbh, cbw)
+               : launch<false>(grid, s, y, u, v, wy, wc,
+                               static_cast<uint8_t*>(o0),
+                               static_cast<uint8_t*>(o1),
+                               static_cast<uint8_t*>(o2), nullptr, cbh, cbw);
     return static_cast<int>(e);
-}
-
-}  // namespace
-
-extern "C" {
-
-// Both: yc (B, cbh, FX*cbw, 64) int16, cb/cr (B, cbh, cbw, 64) int16,
-// wqy/wqc (B, 64, 64) f32, all contiguous on the device. packed=0:
-// o0/o1/o2 are the B/G/R u8 planes (B, 8*cbh, 8*FX*cbw); packed=1: o0 is
-// int32 BGRA of that shape. Launches on `stream` and returns the
-// launch's cudaError_t.
-int lpt_decode422(const void* yc, const void* cb, const void* cr,
-                  const void* wqy, const void* wqc, void* o0, void* o1,
-                  void* o2, int packed, int batch, int cbh, int cbw,
-                  void* stream) {
-    return decode<2>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
-                        cbw, stream);
-}
-
-int lpt_decode444(const void* yc, const void* cb, const void* cr,
-                  const void* wqy, const void* wqc, void* o0, void* o1,
-                  void* o2, int packed, int batch, int cbh, int cbw,
-                  void* stream) {
-    return decode<1>(yc, cb, cr, wqy, wqc, o0, o1, o2, packed, batch, cbh,
-                        cbw, stream);
 }
 
 const char* lpt_cuda_error_string(int err) {

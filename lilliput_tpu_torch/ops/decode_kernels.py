@@ -10,7 +10,7 @@ wrapper              CUDA source                TPU kernel (``pl.pallas_call``)
 decode420            ``csrc/decode420.cu``      ``_decode420_call`` (:437)
 decode422            ``csrc/decode_packed.cu``  ``decode422_packed`` (:563)
 decode440            ``csrc/decode440.cu``      ``decode440_packed`` (:713)
-decode444            ``csrc/decode_packed.cu``  ``decode444_packed`` (:792)
+decode444            ``csrc/decode444.cu``      ``decode444_packed`` (:792)
 dequant_idct_blocks  ``csrc/idct_blocks.cu``    ``dequant_idct_blocks`` (:63)
 ===================  =========================  ===============================
 
@@ -50,13 +50,14 @@ _KERNELS = {
     "decode420": ("libdecode420", True, True),
     "decode422": ("libdecode_packed", True, False),
     "decode440": ("libdecode440", False, True),
-    "decode444": ("libdecode_packed", False, False),
+    "decode444": ("libdecode444", False, False),
 }
 #: the split-path IDCT's library
 _IDCT_LIB = "libidct_blocks"
 #: library -> its CUDA source
 _LIBS = {"libdecode420": "decode420.cu",
          "libdecode440": "decode440.cu",
+         "libdecode444": "decode444.cu",
          "libdecode_packed": "decode_packed.cu",
          _IDCT_LIB: "idct_blocks.cu"}
 

@@ -15,6 +15,9 @@ The CUDA kernels themselves are held against the plain version on the card
 in tests/test_torch_gpu.py and chip_smoke.py phase 2.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,7 @@ from lilliput_tpu import pipeline as JP
 from lilliput_tpu.ops import jpeg_kernels as JK
 from lilliput_tpu.ops import pallas_kernels as PK
 from lilliput_tpu_torch import pipeline as TP
+from lilliput_tpu_torch.ops import _build
 from lilliput_tpu_torch.ops import decode_kernels as DK
 from lilliput_tpu_torch.ops import jpeg_kernels as K
 
@@ -68,7 +72,10 @@ def _assert_both_epilogues(yc, cb, cr, qy, qc, out_h, out_w, sub):
     (sub, h, w) for sub in SUBS for h, w in CASES] + [
     # 4:4:0 chroma 18 x 17 and 35 x 33 blocks: across decode440's band
     # (17 MCU rows) and strip (16 MCUs) edges
-    ("440", 287, 133), ("440", 559, 261)])
+    ("440", 287, 133), ("440", 559, 261),
+    # 4:4:4 chroma 18 x 17 and 35 x 33 blocks: across decode444's band
+    # (16 MCU rows) and strip (16 MCUs) edges
+    ("444", 143, 135), ("444", 279, 263)])
 def test_packed_matches_jax(sub, h, w):
     rng = np.random.default_rng(h * 1000 + w + int(sub))
     yc, cb, cr = coefs(rng, h, w, sub)
@@ -185,3 +192,31 @@ def test_packed_to_planes_matches_jax():
     for g, r in zip(got, ref):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def test_every_wrapper_has_a_kernel_source():
+    """Every decode wrapper's library, and the split-path IDCT's, is built
+    from a CUDA source that _LIBS names."""
+    libs = [lib for lib, _, _ in DK._KERNELS.values()] + [DK._IDCT_LIB]
+    assert set(libs) == set(DK._LIBS)
+
+
+@pytest.mark.parametrize("lib", sorted(DK._LIBS))
+def test_kernel_source_defines_its_entry_points(lib):
+    """The library's source under csrc/ defines lpt_<name> exactly once
+    for each wrapper mapped to it, and no lpt_decode* entry that _KERNELS
+    maps elsewhere (a source split in two must not leave a stale symbol
+    behind), beside one lpt_cuda_error_string. Read as text: no nvcc."""
+    with open(os.path.join(_build.CSRC_DIR, DK._LIBS[lib])) as f:
+        text = f.read()
+    defined = re.findall(r"^(?:int|const char\*) (lpt_\w+)\(", text, re.M)
+    want = ["lpt_" + name for name, (lib_name, _, _) in DK._KERNELS.items()
+            if lib_name == lib]
+    if lib == DK._IDCT_LIB:
+        want.append("lpt_dequant_idct_blocks")
+    assert want
+    for name in want + ["lpt_cuda_error_string"]:
+        assert defined.count(name) == 1, (lib, name, defined)
+    stale = [n for n in defined if n.startswith("lpt_decode")
+             and n not in want]
+    assert not stale, (lib, stale)
