@@ -47,17 +47,22 @@
 //     coefficient load and 32 FMAs: 3 shared-memory wavefronts per 32
 //     warp-FMAs.
 //   * The planes go through the IDCT one after the other (Y, Cb, Cr), each
-//     from one of two coefficient slots: while one plane computes, the next
-//     plane's coefficients load into registers and then fill the other slot,
-//     so one barrier per plane suffices. Y stays in registers; after Cb the
-//     thread finishes B and keeps fma(-0.344136286, Cb', Y) for G in the
-//     registers Cb' held; after Cr it finishes R and G. Colour never passes
-//     through shared memory, and all 128 threads run the epilogue, each
-//     storing 32 adjacent pixels per plane.
-// 128 threads, kSmemBytes = 65,536 bytes of dynamic shared memory (both W_q
-// and two coefficient slots): 3 blocks per SM (3 x (65,536 + 1,024
-// reserved) = 199,680 of 233,472 bytes; __launch_bounds__ caps registers at
-// 168, and 3 x 128 x 168 of 65,536 registers is the limit). Every output
+//     from one of two f32 coefficient slots: while one plane computes, the
+//     next plane's int16 coefficients land in a raw staging area by
+//     cp.async (no registers held), and each thread then converts its own
+//     copies into the other slot, so one barrier per plane suffices. Y stays
+//     in registers; after Cb the thread finishes B and keeps
+//     fma(-0.344136286, Cb', Y) for G in the registers Cb' held; after Cr
+//     it finishes R and G. Colour never passes through shared memory, and
+//     all 128 threads run the epilogue, each storing 32 adjacent pixels per
+//     plane.
+// 128 threads, kSmemBytes = 73,728 bytes of dynamic shared memory (both W_q,
+// two coefficient slots, 8 KB of raw staging). Planes epilogue: 3 blocks
+// per SM (3 x (73,728 + 1,024 reserved) = 224,256 of 233,472 bytes;
+// __launch_bounds__ caps registers at 168, 3 x 128 x 168 of 65,536). The
+// Cr IDCT runs with 96 floats live (Y, G's inner FMA, the Cr sum), so the
+// k steps are unrolled by 4, not 8: hoisting 8 steps' loads spilled at 168.
+// Packed epilogue: 2 blocks per SM (see decode444_kernel). Every output
 // value comes from one fixed operation sequence (fmaf in k order from 0,
 // + 128 for luma, the colour FMAs, rintf and the clip), so the result does
 // not depend on the tiling.
@@ -74,12 +79,13 @@ constexpr int kBandRows = 16;                 // MCU rows per band
 constexpr int kThreads = 128;                 // 16 groups x 8 pixel rows
 constexpr int kJobBlocks = kJobRows * kStripMcus;      // 64 per plane
 constexpr int kLoads = kJobBlocks * 8 / kThreads;      // int4 per thread
-constexpr size_t kSmemFloats = 4 * 4096;      // 2 W_q + 2 coefficient slots
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+// 2 W_q + 2 coefficient slots (f32), and the raw int16 staging area
+constexpr size_t kSmemBytes =
+    4 * 4096 * sizeof(float) + kLoads * kThreads * sizeof(int4);
 static_assert(kJobBlocks == 64 && kLoads == kJobRows,
               "a job is 16 groups of 4 blocks, thread t loads job row m");
 static_assert(kBandRows % kJobRows == 0, "a band is whole steps");
-static_assert(kSmemBytes == 65536, "3 blocks per SM");
+static_assert(kSmemBytes == 73728, "3 blocks per SM");
 
 // Coefficient staging: (k, block) of a job of 64 blocks at
 // cf[k * 64 + 4 * ((block >> 2) ^ (k >> 3)) + (block & 3)]: k-major, so one
@@ -110,7 +116,7 @@ __device__ __forceinline__ void idct_rows(const float* __restrict__ cf,
         const float4* cv = reinterpret_cast<const float4*>(cf) + kk * 128 +
                            (g ^ kk);
         const float4* wk = wv + kk * 128;
-#pragma unroll
+#pragma unroll 4
         for (int u = 0; u < 8; ++u) {
             const float4 wa = wk[u * 16 + s], wb = wk[u * 16 + (s ^ 1)];
             const float4 c4 = cv[u * 16];
@@ -143,37 +149,53 @@ __device__ __forceinline__ void stage_w(const float* __restrict__ src,
     }
 }
 
+// 16 bytes global -> shared without passing through registers; bytes = 0
+// reads nothing and fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(int4* dst, const void* src,
+                                           int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+}
+
 // The 64 blocks of one plane's job at MCU row row0 (block 16m + c: row
 // row0+m, col c0+c), 8 int4 (8 coefficients each) per block: thread t
-// loads part t % 8 of blocks t / 8 + 16m. Blocks outside the plane or the
-// band load as zeros.
+// copies part t % 8 of blocks t / 8 + 16m to raw[m * kThreads + t]. Blocks
+// outside the plane or the band are zeros. The copies land while the block
+// computes, and hold no registers meanwhile.
 struct Loader {
     int b, cbh, cbw, c0, r1;
 
-    __device__ __forceinline__ void load(int4 raw[kLoads],
-                                         const int16_t* __restrict__ plane,
-                                         int row0, int tid) const {
+    __device__ __forceinline__ void issue(int4* raw,
+                                          const int16_t* __restrict__ plane,
+                                          int row0, int tid) const {
         const int bx = c0 + (tid >> 3);
 #pragma unroll
         for (int m = 0; m < kLoads; ++m) {
             const int r = row0 + m;
-            raw[m] = r < r1 && bx < cbw
-                         ? __ldg(reinterpret_cast<const int4*>(
-                                     plane + ((size_t(b) * cbh + r) * cbw +
-                                              bx) * 64) + (tid & 7))
-                         : make_int4(0, 0, 0, 0);
+            const bool in = r < r1 && bx < cbw;
+            cp_async16(raw + m * kThreads + tid,
+                       in ? plane + ((size_t(b) * cbh + r) * cbw + bx) * 64 +
+                                8 * (tid & 7)
+                          : plane,
+                       in ? 16 : 0);
         }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
 };
 
-// Convert the loaded coefficients to f32 into a k-major staging slot.
-__device__ __forceinline__ void store_job(const int4 raw[kLoads],
+// Wait for this thread's copies (no other thread reads them, so no barrier)
+// and convert them to f32 into a k-major staging slot.
+__device__ __forceinline__ void store_job(const int4* raw,
                                           float* __restrict__ cf, int tid) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     const int part = tid & 7;
 #pragma unroll
     for (int m = 0; m < kLoads; ++m) {
+        const int4 v = raw[m * kThreads + tid];
         const int blk = (tid >> 3) + 16 * m;
-        const int16_t* s = reinterpret_cast<const int16_t*>(&raw[m]);
+        const int16_t* s = reinterpret_cast<const int16_t*>(&v);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
             cf[cf_index(8 * part + e, blk)] = static_cast<float>(s[e]);
@@ -209,8 +231,11 @@ __device__ __forceinline__ void store_u8(uint8_t* __restrict__ dst,
                 make_uint2(q[2 * j], q[2 * j + 1]);
 }
 
+// 3 blocks per SM cap registers at 168. The packed epilogue also holds the
+// B bytes of 32 pixels through the Cr IDCT, which spills at 168, so it runs
+// 2 blocks per SM (it serves decode_ycc_packed, no serving path).
 template <bool kPacked>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, kPacked ? 2 : 3)
 decode444_kernel(const int16_t* __restrict__ yc,
                  const int16_t* __restrict__ cb,
                  const int16_t* __restrict__ cr,
@@ -223,6 +248,7 @@ decode444_kernel(const int16_t* __restrict__ yc,
     float* wy = smem;                                // [64][64], swizzled
     float* wc = wy + 4096;                           // [64][64], swizzled
     float* cf = wc + 4096;                           // 2 x [64 k][64 blocks]
+    int4* raw = reinterpret_cast<int4*>(cf + 2 * 4096);  // [kLoads][128]
 
     const int b = blockIdx.z;
     const int r0 = blockIdx.y * kBandRows;      // first MCU row of the band
@@ -237,20 +263,19 @@ decode444_kernel(const int16_t* __restrict__ yc,
     const bool rows16 = (ow & 15) == 0;         // output rows 16-byte aligned
     const int steps = (r1 - r0 + kJobRows - 1) / kJobRows;
     const Loader ld{b, cbh, cbw, c0, r1};
-    int4 raw[kLoads];
     // Y; Cb', then G's inner FMA; Cr'
     float y[4][8], t[4][8], c[4][8];
 
     // 1. stage this image's W_q matrices once for the band, and the first
     //    step's luma into slot 0
-    ld.load(raw, yc, r0, tid);
+    ld.issue(raw, yc, r0, tid);
     stage_w(wqy + size_t(b) * 4096, wy, tid);
     stage_w(wqc + size_t(b) * 4096, wc, tid);
     store_job(raw, cf, tid);
 
     // 2. walk the band, 4 MCU rows per step, Y, Cb, Cr in turn: plane job
-    //    3s+p reads slot (s+p)&1 while the next job's coefficients load,
-    //    then fill the other slot
+    //    3s+p reads slot (s+p)&1 while the next job's coefficients land in
+    //    the raw area, then fill the other slot
     for (int s = 0; s < steps; ++s) {
         const int row0 = r0 + kJobRows * s;
         const bool live = row0 + jr < r1;        // whole warps
@@ -260,12 +285,12 @@ decode444_kernel(const int16_t* __restrict__ yc,
             (size_t(b) * oh + 8 * (row0 + jr) + rho) * ow + 8 * (c0 + lbx);
 
         __syncthreads();                         // Y staged in cur
-        ld.load(raw, cb, row0, tid);
+        ld.issue(raw, cb, row0, tid);
         if (live) idct_rows<true>(cur, wy, g, rho, y);
         store_job(raw, nxt, tid);
 
         __syncthreads();                         // Cb staged in nxt
-        ld.load(raw, cr, row0, tid);
+        ld.issue(raw, cr, row0, tid);
         if (live) idct_rows<false>(nxt, wc, g, rho, t);
         store_job(raw, cur, tid);
         uint32_t qb[8];                          // B bytes of 32 px
@@ -285,7 +310,7 @@ decode444_kernel(const int16_t* __restrict__ yc,
 
         __syncthreads();                         // Cr staged in cur
         const bool more = s + 1 < steps;
-        if (more) ld.load(raw, yc, row0 + kJobRows, tid);
+        if (more) ld.issue(raw, yc, row0 + kJobRows, tid);
         if (live) idct_rows<false>(cur, wc, g, rho, c);
         if (more) store_job(raw, nxt, tid);
         if (!live || nb <= 0) continue;
