@@ -21,9 +21,8 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
 2. the path's kernel against its plain PyTorch version on the card at the
    serving shape (the fixture's coefficients x128; both epilogues of a
    decode kernel) and, on the kernel's first path, at odd geometries with
-   per-image tables (q30/85/95); decode420, decode440 and decode444 also
-   at their band and strip edges (EDGE_420, EDGE_440, EDGE_444, batches 1
-   and 3).
+   per-image tables (q30/85/95); every decode kernel also at its band and
+   strip edges (EDGE_420, EDGE_422, EDGE_440, EDGE_444, batches 1 and 3).
    dequant_idct_blocks is gated on the u8 values decode_gray makes of its
    output, its f32 difference printed;
 3. the main path: transcode_pipelined, with every launch count set to 0
@@ -64,7 +63,7 @@ _CSRC = "lilliput_tpu_torch/csrc"
 #: kernel's chroma layout)
 KERNELS = {
     "decode420": (f"{_CSRC}/decode420.cu", f"{_TPU}:390", (True, True)),
-    "decode422": (f"{_CSRC}/decode_packed.cu", f"{_TPU}:544", (True, False)),
+    "decode422": (f"{_CSRC}/decode422.cu", f"{_TPU}:544", (True, False)),
     "decode440": (f"{_CSRC}/decode440.cu", f"{_TPU}:670", (False, True)),
     "decode444": (f"{_CSRC}/decode444.cu", f"{_TPU}:771", (False, False)),
     "dequant_idct_blocks": (f"{_CSRC}/idct_blocks.cu", f"{_TPU}:45", None),
@@ -86,12 +85,14 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 BATCH = 128
 DST = 256
 CASES = [(64, 48), (67, 61), (16, 16), (130, 17), (8, 8), (24, 129)]
-#: decode420's and decode440's band and strip edges (bands of 17 MCU rows;
-#: strips of 10 and 16 MCUs), and decode444's (steps of 4 and bands of 16
-#: MCU rows, strips of 16 MCUs), as chroma block rows x cols; on each
-#: kernel's first path only
+#: decode420's, decode422's and decode440's band and strip edges (bands of
+#: 17 MCU rows; strips of 10, 14 and 16 MCUs), and decode444's (steps of 4
+#: and bands of 16 MCU rows, strips of 16 MCUs), as chroma block rows x
+#: cols; on each kernel's first path only
 EDGE_420 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
             for cw in (1, 7, 8, 9, 10, 11, 17, 21)]
+EDGE_422 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
+            for cw in (1, 13, 14, 15, 28, 29)]
 EDGE_440 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
             for cw in (1, 10, 15, 16, 17, 33)]
 EDGE_444 = [(ch, cw) for ch in (1, 3, 4, 5, 15, 16, 17, 35)
@@ -167,7 +168,8 @@ def phase1():
     t1 = time.perf_counter()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Function properties" in ln]
         print(f"phase 1: {name} ptxas: {ptxas}", flush=True)
     print(f"phase 1: host library and {len(libs)} kernel libraries built "
           f"in {t1 - t0:.1f}s", flush=True)
@@ -230,8 +232,8 @@ def phase2(path, pipe, bufs, first: bool):
     if first:
         inputs += [(f"random {h}x{w}", random_case(rng, h, w, h2, v2))
                    for h, w in CASES]
-    edges = {"decode420": EDGE_420, "decode440": EDGE_440,
-             "decode444": EDGE_444}.get(name, [])
+    edges = {"decode420": EDGE_420, "decode422": EDGE_422,
+             "decode440": EDGE_440, "decode444": EDGE_444}.get(name, [])
     if first:
         inputs += [(f"edge chroma {ch}x{cw} x{1 + 2 * (i % 2)}", random_case(
             rng, 8 * (1 + v2) * ch - 1, 8 * (1 + h2) * cw - 3, h2, v2,

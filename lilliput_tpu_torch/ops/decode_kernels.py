@@ -4,15 +4,15 @@ The counterpart of ``lilliput_tpu/ops/pallas_kernels.py``. One kernel per
 chroma layout, each replacing one Pallas megakernel, and the split path's
 IDCT:
 
-===================  =========================  ===============================
-wrapper              CUDA source                TPU kernel (``pl.pallas_call``)
-===================  =========================  ===============================
-decode420            ``csrc/decode420.cu``      ``_decode420_call`` (:437)
-decode422            ``csrc/decode_packed.cu``  ``decode422_packed`` (:563)
-decode440            ``csrc/decode440.cu``      ``decode440_packed`` (:713)
-decode444            ``csrc/decode444.cu``      ``decode444_packed`` (:792)
-dequant_idct_blocks  ``csrc/idct_blocks.cu``    ``dequant_idct_blocks`` (:63)
-===================  =========================  ===============================
+===================  =======================  ===============================
+wrapper              CUDA source              TPU kernel (``pl.pallas_call``)
+===================  =======================  ===============================
+decode420            ``csrc/decode420.cu``    ``_decode420_call`` (:437)
+decode422            ``csrc/decode422.cu``    ``decode422_packed`` (:563)
+decode440            ``csrc/decode440.cu``    ``decode440_packed`` (:713)
+decode444            ``csrc/decode444.cu``    ``decode444_packed`` (:792)
+dequant_idct_blocks  ``csrc/idct_blocks.cu``  ``dequant_idct_blocks`` (:63)
+===================  =======================  ===============================
 
 Each decode kernel does per-image dequant + 8x8 IDCT of Y/Cb/Cr, libjpeg's
 "fancy" triangle chroma upsample along the subsampled axes (edges
@@ -48,7 +48,7 @@ from . import jpeg_kernels as K
 #: wrapper name -> (library, h2, v2): the chroma layout each kernel decodes
 _KERNELS = {
     "decode420": ("libdecode420", True, True),
-    "decode422": ("libdecode_packed", True, False),
+    "decode422": ("libdecode422", True, False),
     "decode440": ("libdecode440", False, True),
     "decode444": ("libdecode444", False, False),
 }
@@ -56,9 +56,9 @@ _KERNELS = {
 _IDCT_LIB = "libidct_blocks"
 #: library -> its CUDA source
 _LIBS = {"libdecode420": "decode420.cu",
+         "libdecode422": "decode422.cu",
          "libdecode440": "decode440.cu",
          "libdecode444": "decode444.cu",
-         "libdecode_packed": "decode_packed.cu",
          _IDCT_LIB: "idct_blocks.cu"}
 
 launches: Dict[str, int] = dict.fromkeys(

@@ -70,6 +70,9 @@ def _assert_both_epilogues(yc, cb, cr, qy, qc, out_h, out_w, sub):
 
 @pytest.mark.parametrize("sub,h,w", [
     (sub, h, w) for sub in SUBS for h, w in CASES] + [
+    # 4:2:2 chroma 18 x 15 and 35 x 29 blocks: across decode422's band
+    # (17 MCU rows) and strip (14 MCUs) edges
+    ("422", 143, 237), ("422", 279, 461),
     # 4:4:0 chroma 18 x 17 and 35 x 33 blocks: across decode440's band
     # (17 MCU rows) and strip (16 MCUs) edges
     ("440", 287, 133), ("440", 559, 261),
@@ -194,22 +197,33 @@ def test_packed_to_planes_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
+def _sources():
+    return sorted(f for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
+
+
+def _entry_points(source):
+    with open(os.path.join(_build.CSRC_DIR, source)) as f:
+        return re.findall(r"^(?:int|const char\*) (lpt_\w+)\(", f.read(),
+                          re.M)
+
+
 def test_every_wrapper_has_a_kernel_source():
     """Every decode wrapper's library, and the split-path IDCT's, is built
-    from a CUDA source that _LIBS names."""
+    from a CUDA source that _LIBS names, and every CUDA source under csrc/
+    is one of them: a source whose kernel moved is deleted."""
     libs = [lib for lib, _, _ in DK._KERNELS.values()] + [DK._IDCT_LIB]
     assert set(libs) == set(DK._LIBS)
+    assert _sources() == sorted(DK._LIBS.values())
 
 
 @pytest.mark.parametrize("lib", sorted(DK._LIBS))
 def test_kernel_source_defines_its_entry_points(lib):
     """The library's source under csrc/ defines lpt_<name> exactly once
     for each wrapper mapped to it, and no lpt_decode* entry that _KERNELS
-    maps elsewhere (a source split in two must not leave a stale symbol
-    behind), beside one lpt_cuda_error_string. Read as text: no nvcc."""
-    with open(os.path.join(_build.CSRC_DIR, DK._LIBS[lib])) as f:
-        text = f.read()
-    defined = re.findall(r"^(?:int|const char\*) (lpt_\w+)\(", text, re.M)
+    maps elsewhere, beside one lpt_cuda_error_string; no other source
+    under csrc/ defines those entries (a kernel moved to a source of its
+    own must not leave a stale symbol behind). Read as text: no nvcc."""
+    defined = _entry_points(DK._LIBS[lib])
     want = ["lpt_" + name for name, (lib_name, _, _) in DK._KERNELS.items()
             if lib_name == lib]
     if lib == DK._IDCT_LIB:
@@ -220,3 +234,6 @@ def test_kernel_source_defines_its_entry_points(lib):
     stale = [n for n in defined if n.startswith("lpt_decode")
              and n not in want]
     assert not stale, (lib, stale)
+    for other in _sources():
+        if other != DK._LIBS[lib]:
+            assert not set(want) & set(_entry_points(other)), (lib, other)

@@ -110,11 +110,13 @@ def test_kernel_matches_plain(h, w):
 
 #: layout -> chroma block widths on either side of its kernel's strip edges
 STRIP_EDGES = {"420": (1, 7, 8, 9, 10, 11, 17, 21),
+               "422": (1, 13, 14, 15, 28, 29),
                "440": (1, 10, 15, 16, 17, 33),
                "444": (1, 15, 16, 17, 33)}
 #: layout -> chroma block heights on either side of its kernel's band edges
 #: (and decode444's steps of 4 MCU rows)
-BAND_EDGES = {"420": (1, 16, 17, 18, 35), "440": (1, 16, 17, 18, 35),
+BAND_EDGES = {"420": (1, 16, 17, 18, 35), "422": (1, 16, 17, 18, 35),
+              "440": (1, 16, 17, 18, 35),
               "444": (1, 3, 4, 5, 15, 16, 17, 35)}
 
 
@@ -123,10 +125,10 @@ BAND_EDGES = {"420": (1, 16, 17, 18, 35), "440": (1, 16, 17, 18, 35),
     (sub, ch, cw, batch) for sub, cws in STRIP_EDGES.items()
     for ch in BAND_EDGES[sub] for cw in cws for batch in (1, 3)])
 def test_band_and_strip_edges(sub, ch, cw, batch):
-    """decode420 and decode440 walk bands of 17 MCU rows in strips of 10
-    and 16 MCUs, decode444 bands of 16 MCU rows, 4 per step, in strips of
-    16 MCUs: chroma heights and widths on either side of those edges, both
-    epilogues."""
+    """decode420, decode422 and decode440 walk bands of 17 MCU rows in
+    strips of 10, 14 and 16 MCUs, decode444 bands of 16 MCU rows, 4 per
+    step, in strips of 16 MCUs: chroma heights and widths on either side of
+    those edges, both epilogues."""
     _need_card()
     h2, v2 = LAYOUTS[sub]
     _check_kernel(sub, 8 * (1 + v2) * ch - 1, 8 * (1 + h2) * cw - 3, batch)

@@ -36,8 +36,8 @@ sys.path.insert(0, ROOT)
 import chip_smoke as S  # noqa: E402
 
 #: kernel -> the geometries of chip_smoke phase 2 at its band/strip edges
-EDGES = {"decode420": S.EDGE_420, "decode440": S.EDGE_440,
-         "decode444": S.EDGE_444}
+EDGES = {"decode420": S.EDGE_420, "decode422": S.EDGE_422,
+         "decode440": S.EDGE_440, "decode444": S.EDGE_444}
 
 
 def variant_source(spec: str, base: str, out: str) -> str:
@@ -83,7 +83,8 @@ def main(argv) -> int:
             libs[v], (DK._LIBS[libs[v]],)), libs)))
     for v, path in paths.items():
         for ln in _build.build_log(path).splitlines():
-            if "registers" in ln or "spill" in ln:
+            if ("registers" in ln or "spill" in ln
+                    or "Function properties" in ln):
                 print(f"{v}: {ln.strip()}", flush=True)
 
     def use(v):
