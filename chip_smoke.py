@@ -13,7 +13,8 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
                       the IDCT is a torch matmul as the JAX package's XLA
                       einsum;
   gray_o6             grayscale, EXIF orientation 6 (bench_1080p_gray_o6.jpg),
-                      the whole frame through dequant_idct_blocks;
+                      the whole frame through dequant_idct_blocks' u8
+                      epilogue;
   420_o6              4:2:0, EXIF orientation 6 (bench_1080p_o6.jpg), the
                       whole frame through decode420.
 
@@ -21,10 +22,11 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
 2. the path's kernel against its plain PyTorch version on the card at the
    serving shape (the fixture's coefficients x128; both epilogues of a
    decode kernel) and, on the kernel's first path, at odd geometries with
-   per-image tables (q30/85/95); every decode kernel also at its band and
-   strip edges (EDGE_420, EDGE_422, EDGE_440, EDGE_444, batches 1 and 3).
-   dequant_idct_blocks is gated on the u8 values decode_gray makes of its
-   output, its f32 difference printed;
+   per-image tables (q30/85/95); every kernel also at its band and strip
+   edges (EDGE_420, EDGE_422, EDGE_440, EDGE_444, EDGE_IDCT, batches 1 and
+   3). dequant_idct_blocks' f32 epilogue is gated on the u8 values
+   decode_gray makes of it, its f32 difference printed, and its u8
+   epilogue must equal that rounded f32 output (0 differing values);
 3. the main path: transcode_pipelined, with every launch count set to 0
    just before and read just after: the path's kernel must launch once per
    device step and no other kernel at all (none on the gray path), every
@@ -34,8 +36,9 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
    holding a corrupt buffer that must fail only its own slot, and checks
    that the entropy round trip is lossless; the other paths run 2 batches;
 4. times (CUDA events; host clock around work that ends in a sync): each
-   kernel and its plain version (dequant_idct_blocks also beside
-   torch.baddbmm, the one PyTorch call computing its function), each
+   kernel and its plain version (dequant_idct_blocks: the u8 epilogue the
+   path runs, and the f32 epilogue beside torch.baddbmm, the one PyTorch
+   call computing that function; the bound of each), each
    path's H2D, device step and end-to-end rate, the 4:2:0 stage
    breakdown, and the device's busy share under torch.profiler.
 
@@ -97,6 +100,10 @@ EDGE_440 = [(ch, cw) for ch in (1, 16, 17, 18, 35)
             for cw in (1, 10, 15, 16, 17, 33)]
 EDGE_444 = [(ch, cw) for ch in (1, 3, 4, 5, 15, 16, 17, 35)
             for cw in (1, 15, 16, 17, 33)]
+#: dequant_idct_blocks' step (4 block rows), band (16 block rows) and strip
+#: (16 block columns) edges, as block rows x cols
+EDGE_IDCT = [(bh, bw) for bh in (1, 3, 4, 5, 15, 16, 17, 33)
+             for bw in (1, 15, 16, 17, 33)]
 KERNEL_MAX_DIFF, KERNEL_MAX_SHARE = 1, 1e-4
 STEP_MAX_DIFF, STEP_MAX_SHARE = 1, 1e-3
 DEVICE = "cuda"
@@ -257,38 +264,70 @@ def _u8(p):
     return torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
 
 
-def phase2_idct(path, pipe, bufs, first: bool):
-    """dequant_idct_blocks vs its plain version: the u8 values decode_gray
-    makes of each (round half to even, clip) within KERNEL_MAX_*, the f32
-    difference printed. Returns (max f32 difference, serving args)."""
+def plain_idct(coefs, wq):
+    """dequant_idct_blocks' plain version (f32); one image's is taken from a
+    stack of two copies of it, as in plain_decode."""
+    import torch
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    if coefs.shape[0] > 1:
+        return DK.dequant_idct_blocks_reference(coefs, wq)
+    return DK.dequant_idct_blocks_reference(torch.cat([coefs, coefs]),
+                                            torch.cat([wq, wq]))[:1]
+
+
+def idct_inputs(rng):
+    """dequant_idct_blocks' phase-2 inputs besides the serving shape: the
+    CASES at batch 3 and the EDGE_IDCT grids at batches 1 and 3 in turn,
+    coefficients in -400..399 with per-image q30/85/95 tables, as
+    [(what, (coefs, wq))]."""
     import torch
     from lilliput_tpu_torch.codecs.jpeg import scaled_qtables
+    from lilliput_tpu_torch.ops import jpeg_kernels as K
+    qs = np.stack([scaled_qtables(q)[0] for q in (30, 85, 95)])
+    wq = K.fold_qtables(torch.from_numpy(qs.astype(np.float32)).to(DEVICE))
+
+    def case(bh, bw, batch=3):
+        return torch.from_numpy(rng.integers(
+            -400, 400, (batch, bh, bw, 64)).astype(np.int16)).to(DEVICE), \
+            wq[:batch]
+    return [(f"random {h}x{w}", case(-(-h // 8), -(-w // 8)))
+            for h, w in CASES] + [
+        (f"edge blocks {bh}x{bw} x{1 + 2 * (i % 2)}",
+         case(bh, bw, 1 + 2 * (i % 2)))
+        for i, (bh, bw) in enumerate(EDGE_IDCT)]
+
+
+def phase2_idct(path, pipe, bufs, first: bool):
+    """dequant_idct_blocks vs its plain version: the f32 epilogue's u8
+    values (decode_gray's round half to even and clip) within KERNEL_MAX_*,
+    its f32 difference printed; the u8 epilogue equal to the rounded f32
+    output. Returns (max f32 difference, serving args)."""
+    import torch
     from lilliput_tpu_torch.ops import decode_kernels as DK
     from lilliput_tpu_torch.ops import jpeg_kernels as K
     ys, qty = pipe.decode_entropy(bufs)
     serving = (torch.from_numpy(ys).to(DEVICE), K.fold_qtables(
         torch.from_numpy(qty.astype(np.float32)).to(DEVICE)))
     inputs = [(f"{path} fixture x{BATCH} {tuple(ys.shape[1:3])}", serving)]
-    rng = np.random.default_rng(4321)
-    qs = np.stack([scaled_qtables(q)[0] for q in (30, 85, 95)])
-    wq = K.fold_qtables(torch.from_numpy(qs.astype(np.float32)).to(DEVICE))
     if first:
-        inputs += [(f"random {h}x{w}", (torch.from_numpy(rng.integers(
-            -400, 400, (3, -(-h // 8), -(-w // 8), 64)).astype(np.int16)).to(
-                DEVICE), wq)) for h, w in CASES]
+        inputs += idct_inputs(np.random.default_rng(4321))
     worst = 0.0
     for what, args in inputs:
         got = DK.dequant_idct_blocks(*args)
-        ref = DK.dequant_idct_blocks_reference(*args)
+        got8 = DK.dequant_idct_blocks(*args, out="u8")
+        ref = plain_idct(*args)
         f32 = float((got - ref).abs().max())
         worst = max(worst, f32)
         mx, nd, n = diff_stats([_u8(got)], [_u8(ref)])
+        _, nd8, _ = diff_stats([got8], [_u8(got)])
         print(f"phase 2: {IDCT} {what}: f32 max_abs_diff={f32!r}; u8 "
-              f"max_abs_diff={mx} differing={nd}/{n} ({nd / n:.3g})",
-              flush=True)
+              f"max_abs_diff={mx} differing={nd}/{n} ({nd / n:.3g}); u8 "
+              f"epilogue vs rounded f32 differing={nd8}", flush=True)
         check(mx <= KERNEL_MAX_DIFF and nd <= KERNEL_MAX_SHARE * n,
               f"{IDCT} disagrees with its plain version on {what}")
-        del got, ref
+        check(nd8 == 0, f"{IDCT}'s u8 epilogue differs from its rounded f32 "
+              f"output on {what}")
+        del got, got8, ref
     return worst, serving
 
 
@@ -452,17 +491,19 @@ def busy_share(fn) -> float:
 
 
 def kernel_times(name, serving):
-    """The kernel, its plain version and (for dequant_idct_blocks) the
-    PyTorch call computing its function, at the serving shape."""
+    """The kernel and its plain version at the serving shape; for
+    dequant_idct_blocks the u8 epilogue the path runs, and the f32 epilogue
+    beside the PyTorch call computing that function."""
     import torch
     from lilliput_tpu_torch.ops import decode_kernels as DK
     kernel = getattr(DK, name)
     t = {}
     if name == IDCT:
         coefs, wq = serving
-        t["kernel_ms"] = cuda_ms(lambda: kernel(coefs, wq), 10)
-        t["plain_ms"] = cuda_ms(
-            lambda: DK.dequant_idct_blocks_reference(coefs, wq), 10)
+        ref = DK.dequant_idct_blocks_reference
+        t["kernel_ms"] = cuda_ms(lambda: kernel(coefs, wq, out="u8"), 10)
+        t["plain_ms"] = cuda_ms(lambda: ref(coefs, wq, out="u8"), 10)
+        t["f32_ms"] = cuda_ms(lambda: kernel(coefs, wq), 10)
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
         b = coefs.shape[0]
         flat = coefs.reshape(b, -1, 64).to(torch.float32)
@@ -470,13 +511,15 @@ def kernel_times(name, serving):
         t["library_ms"] = cuda_ms(lambda: torch.baddbmm(base, flat, wq), 10)
         del flat, base
         t["bound_ms"], t["bound_by"] = bound(
+            serving, [kernel(coefs, wq, out="u8")], coefs.numel() // 64)
+        t["f32_bound_ms"], t["f32_bound_by"] = bound(
             serving, [kernel(coefs, wq)], coefs.numel() // 64)
     else:
         h2, v2 = KERNELS[name][2]
         t["kernel_ms"] = cuda_ms(lambda: kernel(*serving), 10)
         t["plain_ms"] = cuda_ms(
             lambda: DK.decode_ycc_reference(*serving, h2, v2), 10)
-        t["library_ms"] = None
+        t["library_ms"] = t["f32_ms"] = None
         t["bound_ms"], t["bound_by"] = bound(
             serving, kernel(*serving),
             sum(c.numel() // 64 for c in serving[:3]))
@@ -567,7 +610,8 @@ def main() -> int:
                 "replaces": replaces, "launches": counts[name],
                 "max_abs_err": worst, "ms": t["kernel_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "f32_ms": t["f32_ms"]}
         del serving, pipe
         torch.cuda.empty_cache()
     check(set(kernels) == set(KERNELS), f"kernels not driven: "

@@ -21,6 +21,8 @@ even and a clip to u8. It writes three raster u8 planes (the serving path)
 or packed BGRA int32 (what the TPU kernels compute). ``dequant_idct_blocks``
 is the dequant + IDCT alone, to an f32 raster plane: the split decode's
 first stage, which the grayscale path and the off-spec colour fallback run.
+Its u8 epilogue rounds and clips as it stores, the grayscale decode's
+plane.
 
 * A CUDA tensor launches the kernel (built with nvcc for sm_90a at first
   use, see ``_build.py``) or the call raises.
@@ -96,10 +98,11 @@ def _load(name: str) -> ctypes.CDLL:
                                    ctypes.c_int, vp]
                     fn.restype = ctypes.c_int
             if name == _IDCT_LIB:
-                fn = lib.lpt_dequant_idct_blocks
-                fn.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, vp]
-                fn.restype = ctypes.c_int
+                for fn in (lib.lpt_dequant_idct_blocks,
+                           lib.lpt_dequant_idct_blocks_u8):
+                    fn.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, vp]
+                    fn.restype = ctypes.c_int
             lib.lpt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.lpt_cuda_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
@@ -152,12 +155,13 @@ def _pad_luma(yc: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return yc
 
 
-def _launch(lib: ctypes.CDLL, name: str, device, *args) -> None:
-    """Call lpt_<name> on the device's current stream, raise on a non-zero
-    launch status, and count the launch."""
+def _launch(lib: ctypes.CDLL, name: str, device, *args,
+            entry: str = "") -> None:
+    """Call lpt_<name><entry> on the device's current stream, raise on a
+    non-zero launch status, and count the launch under `name`."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "lpt_" + name)(*args, stream)
+        rc = getattr(lib, "lpt_" + name + entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.lpt_cuda_error_string(rc).decode())
@@ -261,7 +265,9 @@ def decode_ycc_reference(yc: torch.Tensor, cb: torch.Tensor,
     return bb | (gg << 8) | (rr << 16) | _ALPHA_FF
 
 
-def _check_idct(coefs: torch.Tensor, wq: torch.Tensor) -> None:
+def _check_idct(coefs: torch.Tensor, wq: torch.Tensor, out: str) -> None:
+    if out not in ("f32", "u8"):
+        raise ValueError("out must be 'f32' or 'u8'")
     if coefs.dtype != torch.int16:
         raise TypeError(f"coefs must be torch.int16, got {coefs.dtype}")
     if wq.dtype != torch.float32:
@@ -276,14 +282,17 @@ def _check_idct(coefs: torch.Tensor, wq: torch.Tensor) -> None:
                          f"{tuple(wq.shape)}")
 
 
-def dequant_idct_blocks(coefs: torch.Tensor,
-                        wq: torch.Tensor) -> torch.Tensor:
+def dequant_idct_blocks(coefs: torch.Tensor, wq: torch.Tensor,
+                        out: str = "f32") -> torch.Tensor:
     """(B, bh, bw, 64) int16 coefficients with dequant-folded IDCT matrices
     (B, 64, 64) f32, or one (1, 64, 64) shared by every image -> (B, 8·bh,
-    8·bw) f32 raster plane: coef·W_q + 128 per 8x8 block, unrounded."""
-    _check_idct(coefs, wq)
+    8·bw) raster plane of coef·W_q + 128 per 8x8 block: out="f32"
+    unrounded (what the TPU kernel computes); out="u8" rounded half to even
+    and clipped to 0..255 (decode_gray's round, clamp and cast, done as the
+    kernel stores)."""
+    _check_idct(coefs, wq, out)
     if coefs.device.type == "cpu":
-        return dequant_idct_blocks_reference(coefs, wq)
+        return dequant_idct_blocks_reference(coefs, wq, out)
     if coefs.device.type != "cuda":
         raise ValueError(f"dequant_idct_blocks runs on cuda or cpu, not "
                          f"{coefs.device}")
@@ -294,16 +303,19 @@ def dequant_idct_blocks(coefs: torch.Tensor,
             raise ValueError("dequant_idct_blocks: inputs must be 16-byte "
                              "aligned")
     b, bh, bw = coefs.shape[:3]
-    out = torch.empty((b, 8 * bh, 8 * bw), dtype=torch.float32,
-                      device=coefs.device)
+    res = torch.empty((b, 8 * bh, 8 * bw), device=coefs.device,
+                      dtype=torch.uint8 if out == "u8" else torch.float32)
     _launch(lib, "dequant_idct_blocks", coefs.device, coefs.data_ptr(),
-            wq.data_ptr(), out.data_ptr(), b, bh, bw, int(wq.shape[0] != 1))
-    return out
+            wq.data_ptr(), res.data_ptr(), b, bh, bw, int(wq.shape[0] != 1),
+            entry="_u8" if out == "u8" else "")
+    return res
 
 
-def dequant_idct_blocks_reference(coefs: torch.Tensor,
-                                  wq: torch.Tensor) -> torch.Tensor:
+def dequant_idct_blocks_reference(coefs: torch.Tensor, wq: torch.Tensor,
+                                  out: str = "f32") -> torch.Tensor:
     """Plain PyTorch version of dequant_idct_blocks (same arguments and
-    result), on any device: one batched f32 matmul, + 128, relayout."""
-    _check_idct(coefs, wq)
-    return K.idct_folded(coefs, wq)
+    result), on any device: one batched f32 matmul, + 128, relayout; for
+    out="u8" then round and clip the fresh plane in place, and cast."""
+    _check_idct(coefs, wq, out)
+    p = K.idct_folded(coefs, wq)
+    return p.round_().clamp_(0.0, 255.0).to(torch.uint8) if out == "u8" else p

@@ -111,8 +111,9 @@ def _lead_batch(coefs: torch.Tensor, qtable: torch.Tensor):
 
 
 def dequant_idct(coefs: torch.Tensor, qtable: torch.Tensor,
-                 plain: bool = False) -> torch.Tensor:
-    """(..., bh, bw, 64) int16 + (64,) or (B, 64) -> (..., bh*8, bw*8) f32.
+                 plain: bool = False, out: str = "f32") -> torch.Tensor:
+    """(..., bh, bw, 64) int16 + (64,) or (B, 64) -> (..., bh*8, bw*8) f32
+    (out="u8": rounded half to even and clipped, as u8).
 
     Dequantization folds into the IDCT matrix rows (W_q = diag(q) @ W). A
     2-D qtable carries per-image tables for a (B, bh, bw, 64) stack; each
@@ -124,7 +125,7 @@ def dequant_idct(coefs: torch.Tensor, qtable: torch.Tensor,
     lead, b = _lead_batch(coefs, qtable)
     fn = DK.dequant_idct_blocks_reference if plain else DK.dequant_idct_blocks
     p = fn(coefs.reshape((b,) + tuple(coefs.shape[-3:])),
-           fold_qtables(qtable))
+           fold_qtables(qtable), out)
     return p.reshape(lead + tuple(p.shape[1:]))
 
 
@@ -146,9 +147,9 @@ def decode_gray(y_coefs: torch.Tensor, qt_luma: torch.Tensor, out_h: int,
                 out_w: int, plain: bool = False) -> torch.Tensor:
     """Grayscale decode: (..., bh, bw, 64) int16 -> (..., out_h, out_w) u8
     plane (the JAX function's (..., H, W, 1) without the channel axis).
-    Rounds and clips the IDCT's fresh output in place."""
-    y = dequant_idct(y_coefs, qt_luma, plain)[..., :out_h, :out_w]
-    return y.round_().clamp_(0.0, 255.0).to(torch.uint8)
+    Rounds half to even and clips in dequant_idct's u8 epilogue: on the
+    card the kernel does so as it stores, and no f32 plane is written."""
+    return dequant_idct(y_coefs, qt_luma, plain, "u8")[..., :out_h, :out_w]
 
 
 # ---------------------------------------------------------------------------

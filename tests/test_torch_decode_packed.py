@@ -219,7 +219,8 @@ def test_every_wrapper_has_a_kernel_source():
 @pytest.mark.parametrize("lib", sorted(DK._LIBS))
 def test_kernel_source_defines_its_entry_points(lib):
     """The library's source under csrc/ defines lpt_<name> exactly once
-    for each wrapper mapped to it, and no lpt_decode* entry that _KERNELS
+    for each wrapper mapped to it (the IDCT also lpt_<name>_u8, its u8
+    epilogue), and no lpt_decode* entry that _KERNELS
     maps elsewhere, beside one lpt_cuda_error_string; no other source
     under csrc/ defines those entries (a kernel moved to a source of its
     own must not leave a stale symbol behind). Read as text: no nvcc."""
@@ -227,7 +228,7 @@ def test_kernel_source_defines_its_entry_points(lib):
     want = ["lpt_" + name for name, (lib_name, _, _) in DK._KERNELS.items()
             if lib_name == lib]
     if lib == DK._IDCT_LIB:
-        want.append("lpt_dequant_idct_blocks")
+        want += ["lpt_dequant_idct_blocks", "lpt_dequant_idct_blocks_u8"]
     assert want
     for name in want + ["lpt_cuda_error_string"]:
         assert defined.count(name) == 1, (lib, name, defined)

@@ -15,7 +15,8 @@ lands next to a .5 tie: max 1 on at most 1e-4 of the values. The device
 step then allows max 1 on at most 1e-3 of the quantized coefficients
 (a moved pixel shifts the resized value by a fraction, which can flip a
 coefficient rounding). dequant_idct_blocks is held to the same u8 bound
-after decode_gray's round and clip."""
+after decode_gray's round and clip, and its u8 epilogue must equal its f32
+output rounded and clipped (0 differing values)."""
 
 import numpy as np
 import pytest
@@ -187,6 +188,11 @@ def test_gray_and_oriented_device_step_matches_plain_and_cpu(sub, name):
 
 
 def _check_idct_kernel(h, w, batch, shared):
+    """Both epilogues of dequant_idct_blocks: f32 against the plain version
+    within the u8 bound after decode_gray's round and clip, u8 equal to the
+    rounded f32 output of the same kernel and within that bound of the
+    plain version's u8. At batch 1 the plain version is taken from a stack
+    of two copies (see _plain)."""
     rng = np.random.default_rng(h * 7 + w + batch)
     yc = rng.integers(-400, 400, (batch, -(-h // 8), -(-w // 8), 64))
     yc = torch.from_numpy(yc.astype(np.int16)).cuda()
@@ -195,14 +201,20 @@ def _check_idct_kernel(h, w, batch, shared):
     wq = K.fold_qtables(torch.from_numpy(qs.astype(np.float32)).cuda())
     before = DK.launches["dequant_idct_blocks"]
     got = DK.dequant_idct_blocks(yc, wq)
-    ref = DK.dequant_idct_blocks_reference(yc, wq)
-    assert DK.launches["dequant_idct_blocks"] == before + 1
+    got8 = DK.dequant_idct_blocks(yc, wq, out="u8")
+    assert DK.launches["dequant_idct_blocks"] == before + 2
+    args = (yc, wq) if batch > 1 else (torch.cat([yc, yc]),
+                                       torch.cat([wq, wq]))
+    ref = DK.dequant_idct_blocks_reference(*args)[:batch]
     assert got.shape == ref.shape and got.dtype == torch.float32
+    assert got8.shape == ref.shape and got8.dtype == torch.uint8
 
     def u8(p):
         return torch.clamp(torch.round(p), 0, 255).to(torch.uint8)
-    mx, nd, n = _diff([u8(got)], [u8(ref)])
-    assert mx <= 1 and nd <= 1e-4 * n
+    assert torch.equal(got8, u8(got))
+    for g in (u8(got), got8):
+        mx, nd, n = _diff([g], [u8(ref)])
+        assert mx <= 1 and nd <= 1e-4 * n
 
 
 @pytest.mark.gpu
@@ -213,3 +225,18 @@ def test_idct_kernel_matches_plain(h, w, shared):
     with per-image tables and with one shared table."""
     _need_card()
     _check_idct_kernel(h, w, 8 if h == 1080 else 3, shared)
+
+
+#: block rows and columns on either side of dequant_idct_blocks' step (4
+#: rows), band (16 rows) and strip (16 columns) edges
+IDCT_ROWS = (1, 3, 4, 5, 15, 16, 17, 33)
+IDCT_COLS = (1, 15, 16, 17, 33)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,bw,batch", [
+    (bh, bw, batch) for bh in IDCT_ROWS for bw in IDCT_COLS
+    for batch in (1, 3)])
+def test_idct_kernel_band_and_strip_edges(bh, bw, batch):
+    _need_card()
+    _check_idct_kernel(8 * bh - 1, 8 * bw - 3, batch, False)

@@ -6,7 +6,10 @@ on the CPU:
   pallas_kernels.dequant_idct_blocks in interpret mode, vmapped over
   per-image tables as jpeg_kernels.dequant_idct does: atol 0 at the odd
   geometries of test_megakernel.py with q30/85/95 tables, and at the
-  grayscale fixture's whole frame;
+  grayscale fixture's whole frame; its u8 epilogue (and the wrapper's, on
+  the CPU) against the Pallas kernel's output rounded and clipped, atol 0,
+  also at block grids on either side of the CUDA kernel's strip and step
+  edges;
 * ops/jpeg_kernels.dequant_idct, dequant_idct_u8, decode_gray and
   decode_ycc_420 (the kernel route and the split route) against the JAX
   functions under jax.jit: atol 0;
@@ -82,6 +85,29 @@ def test_plain_version_matches_pallas_kernel_on_gray_frame():
                                   _jax_blocks_raster(ys, wq.numpy()))
 
 
+#: block grids (bh, bw) on either side of the CUDA kernel's strip (16
+#: block columns) and step (4 block rows) edges
+EDGE_GRIDS = [(bh, bw) for bh in (3, 4, 5) for bw in (15, 16, 17)]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_image", "shared"])
+@pytest.mark.parametrize("bh,bw", [(-(-h // 8), -(-w // 8))
+                                   for h, w in CASES] + EDGE_GRIDS)
+def test_u8_epilogue_matches_pallas_kernel(bh, bw, shared):
+    """out="u8" of the wrapper (its plain version on the CPU) and of the
+    plain version against clip(round(.)) of the Pallas kernel in interpret
+    mode, with per-image tables and with one shared table."""
+    yc = _blocks(8 * bh, 8 * bw, 3, bh * 100 + bw)
+    qy = qtables()[0]
+    wq = _folded(qy[1] if shared else qy)
+    want = _jax_blocks_raster(yc, np.broadcast_to(wq.numpy(), (3, 64, 64)))
+    want = np.clip(np.round(want), 0, 255).astype(np.uint8)
+    for fn in (DK.dequant_idct_blocks, DK.dequant_idct_blocks_reference):
+        got = fn(torch.from_numpy(yc), wq, out="u8")
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     yc = torch.from_numpy(_blocks(67, 61, 3, 7))
     qy = qtables()[0]
@@ -109,6 +135,8 @@ def test_wrapper_rejects_bad_inputs():
             fn(yc[0], wq)                             # no batch axis
         with pytest.raises(ValueError):
             fn(yc, wq[:2])                            # 2 tables, 3 images
+        with pytest.raises(ValueError):
+            fn(yc, wq, out="f16")                     # no such epilogue
     assert not any(DK.launches.values())
 
 
