@@ -4,11 +4,12 @@
 
 Needs one CUDA card; builds the host entropy library (g++) and the kernels
 (nvcc, sm_90a; one nvcc per source, all at once) from the sources in this
-checkout, then drives seven serving paths, each JpegTranscodePipeline(
+checkout, then drives twelve serving paths, each JpegTranscodePipeline(
 fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
 
   420, 422, 440, 444  the chroma layouts, upright (bench_1080p{,_422,_440,
-                      _444}.jpg), each through its decode kernel;
+                      _444}.jpg), AREA, chroma_mode="rgb", each through its
+                      decode kernel;
   gray                grayscale, upright (bench_1080p_gray.jpg): no kernel,
                       the IDCT is a torch matmul as the JAX package's XLA
                       einsum;
@@ -16,7 +17,19 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
                       the whole frame through dequant_idct_blocks' u8
                       epilogue;
   420_o6              4:2:0, EXIF orientation 6 (bench_1080p_o6.jpg), the
-                      whole frame through decode420.
+                      whole frame through decode420;
+  420_direct          4:2:0, chroma_mode="direct": no kernel, the IDCTs are
+                      torch matmuls (dequant_idct_u8);
+  420_direct_s2       4:2:0, chroma_mode="direct", dct_scale=2: no kernel
+                      (dequant_idct_scaled), 16 of 64 coefficient lanes
+                      shipped;
+  420_linear          4:2:0, method="linear": decode420, then the streaming
+                      Q11 bilinear;
+  444_cubic           4:4:4 (bench_1080p_444.jpg), method="cubic": decode444,
+                      then the streaming fixed-point bicubic;
+  420_exact           4:2:0 with LILLIPUT_FUSED_EXACT=1 (set for this path
+                      only, restored after): decode420, then the exact
+                      sequential-tap AREA tail.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -29,10 +42,12 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
    epilogue must equal that rounded f32 output (0 differing values);
 3. the main path: transcode_pipelined, with every launch count set to 0
    just before and read just after: the path's kernel must launch once per
-   device step and no other kernel at all (none on the gray path), every
+   device step and no other kernel at all (none on the gray and direct
+   paths), every
    output must be a 256x256 JPEG with the source's component count, and
    the device step must agree with the same step through the plain
-   version and with the CPU step (2 images). 4:2:0 runs 3 batches, one
+   version and with the CPU step (2 images, a CPU pipeline built with the
+   path's keywords and environment). 4:2:0 runs 3 batches, one
    holding a corrupt buffer that must fail only its own slot, and checks
    that the entropy round trip is lossless; the other paths run 2 batches;
 4. times (CUDA events; host clock around work that ends in a sync): each
@@ -40,7 +55,10 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
    path runs, and the f32 epilogue beside torch.baddbmm, the one PyTorch
    call computing that function; the bound of each), each
    path's H2D, device step and end-to-end rate, the 4:2:0 stage
-   breakdown, and the device's busy share under torch.profiler.
+   breakdown (also on 420_exact, whose resize is the exact form), the
+   direct mode's three IDCTs, and the device's busy share under
+   torch.profiler; the H2D of 420_direct_s2's truncated lanes beside
+   420's.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -49,12 +67,14 @@ exit code is non-zero and the last line is not printed. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -72,16 +92,34 @@ KERNELS = {
     "dequant_idct_blocks": (f"{_CSRC}/idct_blocks.cu", f"{_TPU}:45", None),
 }
 IDCT = "dequant_idct_blocks"
-#: path -> (fixture, the kernel its device step launches once (None: no
-#: kernel), output components)
+
+
+class Path(NamedTuple):
+    fixture: str
+    kernel: "str | None"   # launched once per device step; None: no kernel
+    ncomp: int             # output components
+    kw: dict = {}          # JpegTranscodePipeline keywords
+    env: dict = {}         # environment set for this path only
+
+
 PATHS = {
-    "420": ("bench_1080p.jpg", "decode420", 3),
-    "422": ("bench_1080p_422.jpg", "decode422", 3),
-    "440": ("bench_1080p_440.jpg", "decode440", 3),
-    "444": ("bench_1080p_444.jpg", "decode444", 3),
-    "gray": ("bench_1080p_gray.jpg", None, 1),
-    "gray_o6": ("bench_1080p_gray_o6.jpg", IDCT, 1),
-    "420_o6": ("bench_1080p_o6.jpg", "decode420", 3),
+    "420": Path("bench_1080p.jpg", "decode420", 3),
+    "422": Path("bench_1080p_422.jpg", "decode422", 3),
+    "440": Path("bench_1080p_440.jpg", "decode440", 3),
+    "444": Path("bench_1080p_444.jpg", "decode444", 3),
+    "gray": Path("bench_1080p_gray.jpg", None, 1),
+    "gray_o6": Path("bench_1080p_gray_o6.jpg", IDCT, 1),
+    "420_o6": Path("bench_1080p_o6.jpg", "decode420", 3),
+    "420_direct": Path("bench_1080p.jpg", None, 3,
+                       {"chroma_mode": "direct"}),
+    "420_direct_s2": Path("bench_1080p.jpg", None, 3,
+                          {"chroma_mode": "direct", "dct_scale": 2}),
+    "420_linear": Path("bench_1080p.jpg", "decode420", 3,
+                       {"method": "linear"}),
+    "444_cubic": Path("bench_1080p_444.jpg", "decode444", 3,
+                      {"method": "cubic"}),
+    "420_exact": Path("bench_1080p.jpg", "decode420", 3, {},
+                      {"LILLIPUT_FUSED_EXACT": "1"}),
 }
 #: H100 SXM data-sheet peaks: HBM bytes/s and f32 non-tensor FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -218,10 +256,10 @@ def plain_decode(args, h2, v2, out):
 def phase2(path, pipe, bufs, first: bool):
     """The path's kernel vs its plain version on the card. Returns (max
     diff, args at the serving shape), (None, None) without a kernel."""
-    name = PATHS[path][1]
+    name = PATHS[path].kernel
     if name is None:
-        print(f"phase 2: {path}: no kernel on this path (the IDCT is a "
-              "torch matmul, as the JAX package's XLA einsum)", flush=True)
+        print(f"phase 2: {path}: no kernel on this path (the IDCTs are "
+              "torch matmuls, as the JAX package's XLA dots)", flush=True)
         return None, None
     if name == IDCT:
         return phase2_idct(path, pipe, bufs, first)
@@ -333,7 +371,7 @@ def phase2_idct(path, pipe, bufs, first: bool):
 
 def check_outputs(path, res, skip=()):
     from lilliput_tpu_torch.codecs import jpeg as J
-    ncomp = PATHS[path][2]
+    ncomp = PATHS[path].ncomp
     for bi, outs in enumerate(res):
         for i, o in enumerate(outs):
             if (bi, i) in skip:
@@ -351,7 +389,7 @@ def run_main_path(path, pipe, batches):
     just after; the path's kernel must launch once per device step and no
     other kernel at all. Returns (results, counts)."""
     from lilliput_tpu_torch.ops import decode_kernels as DK
-    name = PATHS[path][1]
+    name = PATHS[path].kernel
     DK.reset_launches()
     res = pipe.transcode_pipelined(batches, return_exceptions=True)
     counts = dict(DK.launches)
@@ -384,9 +422,12 @@ def check_plain_step(path, pipe, batch):
 
 
 def check_cpu_step(path, pipe, fixture):
-    """device_step on the card vs the CPU pipeline's step, 2 images."""
+    """device_step on the card vs the CPU pipeline's step, 2 images; the
+    CPU pipeline has the path's keywords, and runs inside the path's
+    environment."""
     from lilliput_tpu_torch import JpegTranscodePipeline
-    cpu = JpegTranscodePipeline(fixture, DST, DST, quality=85, device="cpu")
+    cpu = JpegTranscodePipeline(fixture, DST, DST, quality=85, device="cpu",
+                                **PATHS[path].kw)
     args = pipe.decode_entropy([fixture] * 2)
     step = [t.cpu().numpy() for t in pipe.device_step(*args)]
     host = [t.numpy() for t in cpu.device_step(*args)]
@@ -448,7 +489,7 @@ def phase3(path, pipe, fixture):
     res, counts = run_main_path(path, pipe, batches)
     check_outputs(path, res)
     print(f"phase 3: {path} {sum(len(b) for b in res)} outputs are "
-          f"{DST}x{DST} {PATHS[path][2]}-component JPEGs", flush=True)
+          f"{DST}x{DST} {PATHS[path].ncomp}-component JPEGs", flush=True)
     check_plain_step(path, pipe, batches[0])
     check_cpu_step(path, pipe, fixture)
     return counts
@@ -527,14 +568,16 @@ def kernel_times(name, serving):
 
 
 def phase4(path, pipe, bufs, serving, card):
-    name = PATHS[path][1]
+    name = PATHS[path].kernel
     t = kernel_times(name, serving) if name else {}
     args = pipe.decode_entropy(bufs)
     coefs = args[:pipe.ncomp]
     t["h2d_ms"] = cuda_ms(lambda: [pipe._to_device(a) for a in coefs], 5)
     t["device_step_ms"] = cuda_ms(lambda: pipe.device_step(*args), 10)
-    if path == "420":
+    if path in ("420", "420_exact"):
         t.update(stage_breakdown_420(pipe, bufs, args, serving))
+    if path == "420_direct":
+        t["idct_ms"] = direct_idct_ms(pipe, args)
     t0 = time.perf_counter()
     pipe.transcode_pipelined([bufs] * 4)
     t["pipelined_ips"] = 4 * BATCH / (time.perf_counter() - t0)
@@ -543,6 +586,18 @@ def phase4(path, pipe, bufs, serving, card):
     for k, v in t.items():
         print(f"phase 4: {path} {k}={v!r} [{card}]", flush=True)
     return t
+
+
+def direct_idct_ms(pipe, args):
+    """The direct mode's three IDCTs with their u8 rounding
+    (dequant_idct_u8 of Y, Cb and Cr, torch matmuls) on the step's
+    inputs: the part of its device step that takes the decode kernel's
+    place."""
+    from lilliput_tpu_torch.ops import jpeg_kernels as K
+    ys, cbs, crs = (pipe._to_device(a) for a in args[:3])
+    qy, qc = (pipe._to_device(q.astype(np.float32)) for q in args[3:])
+    return cuda_ms(lambda: [K.dequant_idct_u8(c, q) for c, q in
+                            ((ys, qy), (cbs, qc), (crs, qc))], 10)
 
 
 def stage_breakdown_420(pipe, bufs, args, serving):
@@ -579,26 +634,47 @@ def stage_breakdown_420(pipe, bufs, args, serving):
     return t
 
 
+@contextlib.contextmanager
+def path_env(env):
+    """The path's environment variables, restored afterwards."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main() -> int:
     import torch
     phase1()
     from lilliput_tpu_torch import JpegTranscodePipeline
     card = card_line()
     kernels = {}
-    for path, (fixture_name, name, ncomp) in PATHS.items():
-        with open(os.path.join(ASSETS, fixture_name), "rb") as f:
+    h2d = {}
+    for path, spec in PATHS.items():
+        name = spec.kernel
+        with open(os.path.join(ASSETS, spec.fixture), "rb") as f:
             fixture = f.read()
-        pipe = JpegTranscodePipeline(fixture, DST, DST, quality=85,
-                                     device=DEVICE)
-        check(pipe.ncomp == ncomp, f"{fixture_name} has {pipe.ncomp} "
-              f"components, not {ncomp}")
-        if name and name != IDCT:
-            check((pipe.geom.h2, pipe.geom.v2) == KERNELS[name][2],
-                  f"{fixture_name} is not the layout of {name}")
-        bufs = [fixture] * BATCH
-        worst, serving = phase2(path, pipe, bufs, name not in kernels)
-        counts = phase3(path, pipe, fixture)
-        t = phase4(path, pipe, bufs, serving, card)
+        with path_env(spec.env):
+            if spec.env:
+                print(f"phase 2: {path}: environment {spec.env}", flush=True)
+            pipe = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                         device=DEVICE, **spec.kw)
+            check(pipe.ncomp == spec.ncomp, f"{spec.fixture} has "
+                  f"{pipe.ncomp} components, not {spec.ncomp}")
+            if name and name != IDCT:
+                check((pipe.geom.h2, pipe.geom.v2) == KERNELS[name][2],
+                      f"{spec.fixture} is not the layout of {name}")
+            bufs = [fixture] * BATCH
+            worst, serving = phase2(path, pipe, bufs, name not in kernels)
+            counts = phase3(path, pipe, fixture)
+            t = phase4(path, pipe, bufs, serving, card)
+        h2d[path] = t["h2d_ms"]
         if name in kernels:      # a later path of the same kernel
             kernels[name]["launches"] += counts[name]
             kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
@@ -616,6 +692,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     check(set(kernels) == set(KERNELS), f"kernels not driven: "
           f"{set(KERNELS) - set(kernels)}")
+    print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
+          f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
+          f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

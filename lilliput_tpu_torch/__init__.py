@@ -3,10 +3,12 @@
 The JAX package (``lilliput_tpu``) is the reference; this package mirrors its
 module names so each piece has an obvious counterpart. It imports ``torch``
 and never ``jax`` or ``lilliput_tpu``. The slice ported so far is the JPEG
-Fit transcode serving path (``JpegTranscodePipeline``, rgb chroma mode,
-4:2:0, 4:2:2, 4:4:0, 4:4:4 and grayscale sources at any EXIF orientation,
-AREA resize, JPEG output); its decode kernels are CUDA (``csrc/*.cu``),
-and the host entropy stages are C++ built at first use (``binding.py``).
+Fit transcode serving path (``JpegTranscodePipeline``: 4:2:0, 4:2:2, 4:4:0,
+4:4:4 and grayscale sources at any EXIF orientation, JPEG output, in every
+JPEG-out mode: AREA, LINEAR or CUBIC resize, chroma_mode "rgb" or "direct",
+dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT tier); its decode
+kernels are CUDA (``csrc/*.cu``), and the host entropy stages are C++
+built at first use (``binding.py``).
 """
 
 import torch as _torch

@@ -5,7 +5,9 @@ The subset of ``lilliput_tpu/ops/jpeg_kernels.py`` the JPEG Fit slice runs:
 Decode: coefs -> dequant -> IDCT -> +128 -> fancy (triangle) chroma upsample
         -> YCbCr->BGR -> u8.   (one CUDA kernel per chroma layout on the
         card, decode_kernels; grayscale: dequant_idct, whose IDCT is the
-        dequant_idct_blocks CUDA kernel, or dequant_idct_u8's matmul)
+        dequant_idct_blocks CUDA kernel, or dequant_idct_u8's matmul; the
+        direct mode's planes: dequant_idct_u8, or dequant_idct_scaled's
+        k/8-scale matmul for dct_scale 2 and 4)
 Encode: BGR -> YCbCr -> pad to MCU -> 2x2 box chroma downsample -> -128 ->
         fDCT -> quantize(round) -> int16 coefs.
 
@@ -141,6 +143,88 @@ def dequant_idct_u8(coefs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
                fold_qtables(qtable)) + 128.0
     p = torch.clamp(torch.round(p), 0.0, 255.0).to(torch.uint8)
     return _blocks_to_plane(p, lead, bh, bw)
+
+
+@functools.lru_cache(maxsize=4)
+def scaled_idct_kron_matrix(k: int) -> np.ndarray:
+    """(64, k*k) matrix reconstructing a kxk pixel block from the top-left
+    kxk DCT coefficients — libjpeg's M/8 scaled decode (jpeg_idct_4x4 etc.,
+    OpenCV's IMREAD_REDUCED_*): a k-point inverse DCT of the truncated
+    spectrum with the sqrt(k/8) energy rescale folded in."""
+    bk = np.zeros((k, k), np.float64)
+    for u in range(k):
+        a = np.sqrt(1.0 / k) if u == 0 else np.sqrt(2.0 / k)
+        for m in range(k):
+            bk[m, u] = a * np.cos((2 * m + 1) * u * np.pi / (2 * k))
+    w = np.zeros((64, k * k), np.float64)
+    scale = k / 8.0  # sqrt(k/8) per axis
+    for u in range(k):
+        for v in range(k):
+            for mx in range(k):
+                for my in range(k):
+                    w[u * 8 + v, mx * k + my] = bk[mx, u] * bk[my, v] * scale
+    return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def scaled_coef_indices(k: int) -> np.ndarray:
+    """Natural-order indices of the top-left kxk DCT coefficients, the only
+    rows scaled_idct_kron_matrix(k) reads. A coefficient batch cut to these
+    k*k lanes on the host decodes bit-identically while shipping 64/(k*k)
+    less data to the device (4x at dct_scale=2, 16x at dct_scale=4)."""
+    return np.array([u * 8 + v for u in range(k) for v in range(k)], np.int64)
+
+
+@functools.lru_cache(maxsize=16)
+def _scaled_idct_on(k: int, device: str):
+    """(the k*k rows of scaled_idct_kron_matrix(k) that
+    scaled_coef_indices(k) names, those indices) on `device`, uploaded
+    once."""
+    idx = scaled_coef_indices(k)
+    return (torch.from_numpy(np.ascontiguousarray(
+        scaled_idct_kron_matrix(k)[idx])).to(device),
+        torch.from_numpy(idx).to(device))
+
+
+def _dot_by_residue(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w summed as XLA:CPU sums these narrow dots: four partial sums
+    over the lanes of each residue mod 4, in lane order, then
+    (s0 + s1) + (s2 + s3)."""
+    t = [matmul(a[..., j::4], w[..., j::4, :]) for j in range(4)]
+    return (t[0] + t[1]) + (t[2] + t[3])
+
+
+def dequant_idct_scaled(coefs: torch.Tensor, qtable: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """(..., bh, bw, 64) int16 + (64,) or (B, 64) tables -> (..., bh*k,
+    bw*k) f32 plane at k/8 scale, level-shifted (+128). The tables fold
+    into the matrix rows, per image for a (B, 64) table.
+
+    Also takes HOST-TRUNCATED coefficients (..., bh, bw, k*k) holding only
+    the scaled_coef_indices(k) lanes (the table stays 64 wide). Only those
+    lanes meet nonzero matrix rows, so both forms contract the k*k lanes
+    and agree bit for bit, in the JAX package's sum order
+    (_dot_by_residue). The JAX package computes this with an XLA dot on
+    every backend, outside any Pallas kernel, so it stays torch matmuls."""
+    nc = coefs.shape[-1]
+    if nc != 64 and not (nc == k * k and k != 8):
+        raise ValueError(
+            f"coefficient lane dim must be 64 or {k * k}, got {nc}")
+    w_base, idx = _scaled_idct_on(k, str(coefs.device))
+    if nc == 64:
+        coefs = coefs.index_select(-1, idx)
+    q = qtable.to(torch.float32)[..., idx]
+    lead = tuple(coefs.shape[:-3])
+    bh, bw = coefs.shape[-3], coefs.shape[-2]
+    if q.dim() == 1:
+        p = _dot_by_residue(coefs.reshape(-1, k * k).to(torch.float32),
+                            w_base * q[:, None])
+    else:
+        b = int(np.prod(lead)) if lead else 1
+        p = _dot_by_residue(coefs.reshape(b, -1, k * k).to(torch.float32),
+                            w_base[None] * q.reshape(b, -1)[:, :, None])
+    p = (p + 128.0).reshape(lead + (bh, bw, k, k)).transpose(-3, -2)
+    return p.reshape(lead + (bh * k, bw * k))
 
 
 def decode_gray(y_coefs: torch.Tensor, qt_luma: torch.Tensor, out_h: int,

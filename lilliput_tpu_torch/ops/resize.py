@@ -1,36 +1,46 @@
-"""OpenCV-compatible INTER_AREA resize of the JPEG Fit slice (torch).
+"""OpenCV-compatible resize of the JPEG Fit slice (torch).
 
-The subset of ``lilliput_tpu/ops/resize.py`` the slice runs:
+The port of ``lilliput_tpu/ops/resize.py``'s serving half:
 
-* the streaming ``resize(img, dst_w, dst_h, AREA)`` of (..., H, W, C)
-  images, bit-exact to cv::resize (the grayscale oriented tail): the
+* the streaming ``resize(img, dst_w, dst_h, method)`` of (..., H, W, C)
+  images with cv::resize's semantics: INTER_AREA bit-exact (the
   integer-factor path, the fractional decimation path with gathers and
   sequential taps, each product rounded to f32 as cv::resize rounds it,
-  and the upscale's Q11 fixed-point bilinear with area coordinates;
+  and the upscale's Q11 fixed-point bilinear with area coordinates);
+  INTER_LINEAR bit-exact (Q11 fixed point for u8); INTER_CUBIC bit-exact
+  to OpenCV's portable fixed-point kernel for u8 (``_cubic_u8``); float
+  inputs through the f32 separable forms;
 * the matmul form (the colour tails): the per-axis AREA matrices
   (decimation taps when downscaling, cv::resize's area-rule bilinear when
   any axis upscales), the Fit crop folded into them
-  (``area_matrix_embedded``), and the banded contraction that reads only
-  each 64-output-row group's source window; ``resize_area_mxu`` and its
-  planes form, the default branch of the JAX ``resize_area_mxu_or_exact``.
+  (``area_matrix_embedded``), the general-position matrices of the direct
+  and scaled modes (``area_axis_matrix_scaled``), and the banded
+  contraction that reads only each 64-output-row group's source window;
+  ``resize_area_mxu`` and its planes form;
+* the ``LILLIPUT_FUSED_EXACT`` tier: with the variable set, the fused
+  tails (``resize_area_plane_embedded``, ``resize_area_mxu_or_exact_planes``)
+  take the sequential-tap forms, byte-identical to crop + streaming AREA.
 
 The numpy tables are built by the same code as the JAX package's, so they
 are equal bit for bit; the contractions are ``torch.matmul`` over the same
-slabs, in f32. Slabs live on the plane's device and are built once per
-geometry. Eager torch never fuses a separate multiply and add, so the
-streaming path keeps cv::resize's product rounding without the JAX
-package's guard against XLA's FMA contraction (``_rounded_product``).
+slabs, in f32. Tables and slabs live on the image's device and are built
+once per geometry. Eager torch never fuses a separate multiply and add, so
+the AREA taps keep cv::resize's product rounding without the JAX package's
+guard against XLA's FMA contraction (``_rounded_product``); where the JAX
+function has no guard (the f32 LINEAR and CUBIC forms), XLA:CPU fuses the
+first product of each ``a*x + b*y`` and the port writes that fusion out
+(``_fma``).
 
 Accuracy of the matmul form: within ±1 u8 of the bit-exact streaming
 resize (the reference's own tier for this form — matmul partial sums
-reassociate cv::resize's sequential taps). LINEAR and CUBIC as methods and
-the ``LILLIPUT_FUSED_EXACT`` forms are not ported yet (ROADMAP queue 1).
+reassociate cv::resize's sequential taps).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple, Union
+import os
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,24 +57,62 @@ def _index(idx: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(device)
 
 
-def _take_w(img: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    return torch.index_select(img, -2, _index(idx, img.device))
+def _table(a: np.ndarray, device) -> torch.Tensor:
+    """A per-output weight table on `device`, dtype kept (f32, or the Q11
+    tables' int32: an int64 weight would promote the fixed-point sums)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _take_h(img: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    return torch.index_select(img, -3, _index(idx, img.device))
+def _along(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """Per-output table `w` shaped to broadcast along `axis` (-2: W, -3: H)
+    of a (..., H, W, C) image."""
+    return w.reshape((-1,) + (1,) * (-axis - 1))
 
 
-def _col(a: np.ndarray, device, ndim: int) -> torch.Tensor:
-    """Per-output table `a` on `device`, shaped to broadcast along the axis
-    ndim-from-the-end of a (..., H, W, C) image (ndim 2: W, ndim 3: H)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device).reshape(
-        (-1,) + (1,) * (ndim - 1))
+def _fma(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 x*w + c rounded ONCE, as XLA:CPU fuses the first product of an
+    ``a*x + b*y`` (the f32 product is exact in f64; see
+    jpeg_kernels._fma)."""
+    return (x.double() * w.double() + c.double()).float()
+
+
+@functools.lru_cache(maxsize=128)
+def _linear_taps(src: int, dst: int, area_mode: bool, clamp: bool,
+                 q11: bool, device: str):
+    """Bilinear tables on `device`, uploaded once per geometry: (left
+    index, right index, left weight, right weight). The indices are
+    clipped to the source (the y rule keeps its true fractions and clips
+    at the gather; the clamped x rule's indices are in range already);
+    q11 picks the 8U fixed-point weights, else f32."""
+    tables = T.linear_tables if q11 else T.linear_tables_f32
+    s, a0, a1 = tables(src, dst, area_mode, clamp)
+    d = torch.device(device)
+    return (_index(np.clip(s, 0, src - 1), d),
+            _index(np.clip(s + 1, 0, src - 1), d), _table(a0, d),
+            _table(a1, d))
+
+
+@functools.lru_cache(maxsize=128)
+def _cubic_taps(src: int, dst: int, q11: bool, device: str):
+    """The 4 bicubic taps on `device` as [(indices, weights)], f32 or the
+    8U path's Q11 int32 weights, uploaded once per geometry."""
+    idx, w = (T.cubic_tables_q11 if q11 else T.cubic_tables)(src, dst)
+    d = torch.device(device)
+    return [(_index(idx[:, k], d), _table(w[:, k], d)) for k in range(4)]
 
 
 # ---------------------------------------------------------------------------
-# streaming INTER_AREA (bit-exact to cv::resize)
+# streaming INTER_LINEAR / INTER_CUBIC / INTER_AREA (bit-exact to cv::resize)
 # ---------------------------------------------------------------------------
+
+def _linear_pass(img: torch.Tensor, taps, axis: int, fused: bool):
+    i0, i1, a0, a1 = taps
+    g0 = torch.index_select(img, axis, i0)
+    p1 = torch.index_select(img, axis, i1) * _along(a1, axis)
+    if fused:
+        return _fma(g0, _along(a0, axis), p1)
+    return g0 * _along(a0, axis) + p1
+
 
 def _linear_u8(img: torch.Tensor, dst_w: int, dst_h: int,
                area_mode: bool) -> torch.Tensor:
@@ -72,19 +120,66 @@ def _linear_u8(img: torch.Tensor, dst_w: int, dst_h: int,
     when area_mode: x edge coefficients clamped, y fractions kept with the
     row indices clipped at the gather (resize_tables._linear_coords)."""
     src_h, src_w = img.shape[-3], img.shape[-2]
-    sx, ax0, ax1 = T.linear_tables(src_w, dst_w, area_mode, clamp=True)
-    sy, ay0, ay1 = T.linear_tables(src_h, dst_h, area_mode, clamp=False)
-    sx_r = np.minimum(sx + 1, src_w - 1)
-    sy0 = np.clip(sy, 0, src_h - 1)
-    sy1 = np.clip(sy + 1, 0, src_h - 1)
-    dev = img.device
-    s = img.to(torch.int32)
-    h = (_take_w(s, sx) * _col(ax0, dev, 2)
-         + _take_w(s, sx_r) * _col(ax1, dev, 2))
-    s0, s1 = _take_h(h, sy0), _take_h(h, sy1)
-    b0, b1 = _col(ay0, dev, 3), _col(ay1, dev, 3)
+    dev = str(img.device)
+    h = _linear_pass(img.to(torch.int32), _linear_taps(
+        src_w, dst_w, area_mode, True, True, dev), -2, False)
+    i0, i1, b0, b1 = _linear_taps(src_h, dst_h, area_mode, False, True, dev)
+    s0, s1 = torch.index_select(h, -3, i0), torch.index_select(h, -3, i1)
+    b0, b1 = _along(b0, -3), _along(b1, -3)
     # VResizeLinear 8U: uchar((((b0*(S0>>4))>>16) + ((b1*(S1>>4))>>16) + 2) >> 2)
     out = (((b0 * (s0 >> 4)) >> 16) + ((b1 * (s1 >> 4)) >> 16) + 2) >> 2
+    return torch.clamp(out, 0, 255).to(torch.uint8)
+
+
+def _linear_f32(img: torch.Tensor, dst_w: int, dst_h: int,
+                area_mode: bool) -> torch.Tensor:
+    """The float bilinear: cv's unquantized f32 coefficients, each pass
+    ``fma(g0, a0, g1*a1)`` as XLA:CPU compiles the JAX function."""
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    dev = str(img.device)
+    h = _linear_pass(img.to(torch.float32), _linear_taps(
+        src_w, dst_w, area_mode, True, False, dev), -2, True)
+    return _linear_pass(h, _linear_taps(src_h, dst_h, area_mode, False,
+                                        False, dev), -3, True)
+
+
+def _cubic(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
+    """The float32 separable bicubic: per pass (t0 + t1) + (t2 + t3) of the
+    4 weighted taps, with the first product of each pair fused as XLA:CPU
+    compiles the JAX function."""
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    dev = str(img.device)
+
+    def pass_(arr, taps, axis):
+        g = [(torch.index_select(arr, axis, i), _along(w, axis))
+             for i, w in taps]
+        return (_fma(*g[0], g[1][0] * g[1][1])
+                + _fma(*g[2], g[3][0] * g[3][1]))
+
+    h = pass_(img.to(torch.float32), _cubic_taps(src_w, dst_w, False, dev),
+              -2)
+    return pass_(h, _cubic_taps(src_h, dst_h, False, dev), -3)
+
+
+def _cubic_u8(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
+    """OpenCV's PORTABLE scalar fixed-point 8U cubic (the JAX package's
+    _cubic_u8 says why this kernel is the target): Q11 coefficients in both
+    passes, int32 accumulation with two's-complement wrap (every operand
+    stays int32), and FixedPtCast<int,uchar,22>: (acc + (1<<21)) >> 22,
+    saturated."""
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    dev = str(img.device)
+
+    def pass_(arr, taps, axis):
+        acc = None
+        for i, w in taps:
+            p = torch.index_select(arr, axis, i) * _along(w, axis)
+            acc = p if acc is None else acc + p
+        return acc
+
+    h = pass_(img.to(torch.int32), _cubic_taps(src_w, dst_w, True, dev), -2)
+    acc = pass_(h, _cubic_taps(src_h, dst_h, True, dev), -3)
+    out = (acc + (1 << 21)) >> 22
     return torch.clamp(out, 0, 255).to(torch.uint8)
 
 
@@ -118,7 +213,7 @@ def _area_taps(src: int, dst: int, device: str):
     memory would make the host wait for the device's queue at every tap."""
     idx, w = T.area_tables(src, dst)
     d = torch.device(device)
-    return [(_index(idx[:, k], d), torch.from_numpy(w[:, k].copy()).to(d))
+    return [(_index(idx[:, k], d), _table(w[:, k], d))
             for k in range(idx.shape[1])]
 
 
@@ -154,27 +249,26 @@ def _area(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
         return _area_general(img, dst_w, dst_h, is_u8)
     # cv::resize: INTER_AREA with any upscaling axis falls back to bilinear
     # with the area-specific coordinate rule.
-    if is_u8:
-        return _linear_u8(img, dst_w, dst_h, area_mode=True)
-    raise NotImplementedError(
-        "float INTER_AREA upscale (resize._linear_f32) is not ported to "
-        "lilliput_tpu_torch yet (ROADMAP queue 1, item 4.6)")
+    return (_linear_u8 if is_u8 else _linear_f32)(img, dst_w, dst_h,
+                                                  area_mode=True)
 
 
 def resize(img: torch.Tensor, dst_w: int, dst_h: int,
            method: str = AREA) -> torch.Tensor:
     """Resize (..., H, W, C) to (..., dst_h, dst_w, C) with OpenCV
-    semantics. INTER_AREA only: LINEAR and CUBIC raise NotImplementedError
-    (ROADMAP queue 1, item 4.6)."""
+    semantics: AREA, LINEAR or CUBIC; u8 images through the fixed-point
+    kernels, other dtypes through the f32 forms."""
     src_h, src_w = img.shape[-3], img.shape[-2]
     if (src_w, src_h) == (dst_w, dst_h):
         return img
+    is_u8 = img.dtype == torch.uint8
     if method == AREA:
         return _area(img, dst_w, dst_h)
-    if method in (LINEAR, CUBIC):
-        raise NotImplementedError(
-            f"resize method {method!r} is not ported to lilliput_tpu_torch "
-            "yet (ROADMAP queue 1, item 4.6)")
+    if method == LINEAR:
+        return (_linear_u8 if is_u8 else _linear_f32)(img, dst_w, dst_h,
+                                                      area_mode=False)
+    if method == CUBIC:
+        return (_cubic_u8 if is_u8 else _cubic)(img, dst_w, dst_h)
     raise ValueError(f"unknown resize method {method!r}")
 
 
@@ -286,18 +380,68 @@ def _embedded_banded(window: int, off: int, length: int, dst: int,
                                           force_linear), torch.device(device))
 
 
-def resize_area_plane_embedded(plane: torch.Tensor, off_x: int, w: int,
-                               dst_w: int, off_y: int, h: int,
-                               dst_h: int) -> torch.Tensor:
-    """The fused tail's plane resize with the crop [off_y:off_y+h,
-    off_x:off_x+w) folded into the AREA matrices (±1 tier vs streaming).
-    The JAX package's LILLIPUT_FUSED_EXACT form is not ported yet."""
+def area_axis_matrix_scaled(src: int, dst: int, scale: float,
+                            offset: float) -> np.ndarray:
+    """(dst, src) INTER_AREA matrix for a dst grid whose sample d covers the
+    source interval [offset + d*scale, offset + (d+1)*scale): the general-
+    position form of the YCbCr-direct mode, where a chroma plane (or a
+    dct_scale-reduced luma plane) is resampled at its own resolution with
+    a possibly fractional crop offset."""
+    m = np.zeros((dst, src), np.float64)
+    inv = 1.0 / scale
+    for d in range(dst):
+        a = offset + d * scale
+        b = a + scale
+        for k in range(max(int(np.floor(a)), 0),
+                       min(int(np.ceil(b)), src)):
+            ov = min(b, k + 1.0) - max(a, float(k))
+            if ov > 0:
+                m[d, k] = ov * inv
+    return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def scaled_banded(src: int, dst: int, scale: float, offset: float,
+                  device: str) -> Banded:
+    """Device-resident slabs of area_axis_matrix_scaled, built once per
+    geometry and device (the Python loops and the upload would otherwise
+    run at every step)."""
+    return to_banded(area_axis_matrix_scaled(src, dst, scale, offset),
+                     torch.device(device))
+
+
+def _resize_area_plane_matrices(plane: torch.Tensor, off_x: int, w: int,
+                                dst_w: int, off_y: int, h: int,
+                                dst_h: int) -> torch.Tensor:
+    """The embedded-matrix contraction of the crop (±1 tier vs
+    streaming)."""
     lin = dst_w > w or dst_h > h           # cv: any upscale -> all bilinear
     dev = str(plane.device)
     return resize_area_plane_mat(
         plane,
         _embedded_banded(plane.shape[-1], off_x, w, dst_w, lin, dev),
         _embedded_banded(plane.shape[-2], off_y, h, dst_h, lin, dev))
+
+
+def resize_area_plane_embedded(plane: torch.Tensor, off_x: int, w: int,
+                               dst_w: int, off_y: int, h: int,
+                               dst_h: int) -> torch.Tensor:
+    """The fused tails' plane resize of the crop [off_y:off_y+h,
+    off_x:off_x+w): the exact forms when LILLIPUT_FUSED_EXACT is set
+    (byte-identical to streaming: downscales by sequential taps, upscaling
+    geometries by the integer bilinear), else the crop folded into the
+    AREA matrices (±1 tier vs streaming). Returns f32; the caller rounds
+    and clips."""
+    if _fused_exact_enabled():
+        if w < dst_w or h < dst_h:
+            return resize_linear_window_exact_u8(plane, off_x, w, dst_w,
+                                                 off_y, h, dst_h)
+        out = resize_area_window_exact(plane, off_x, w, dst_w, off_y, h,
+                                       dst_h)
+        if out is not None:
+            return out
+    return _resize_area_plane_matrices(plane, off_x, w, dst_w, off_y, h,
+                                       dst_h)
 
 
 def resize_area_mxu_planes(plane: torch.Tensor, dst_w: int,
@@ -313,7 +457,8 @@ def resize_area_mxu_planes(plane: torch.Tensor, dst_w: int,
             and T.area_is_fast(src_w, src_h, dst_w, dst_h)):
         fast = _area_fast_u8 if plane.dtype == torch.uint8 else _area_fast_f32
         return fast(plane[..., None], dst_w, dst_h)[..., 0]
-    out = resize_area_plane_embedded(plane, 0, src_w, dst_w, 0, src_h, dst_h)
+    out = _resize_area_plane_matrices(plane, 0, src_w, dst_w, 0, src_h,
+                                      dst_h)
     if plane.dtype == torch.uint8:
         return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
     return out
@@ -322,8 +467,94 @@ def resize_area_mxu_planes(plane: torch.Tensor, dst_w: int,
 def resize_area_mxu(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
     """INTER_AREA resize of (..., H, W, C) as matrix contractions (no
     gathers), within ±1 u8 of the streaming ``resize``: each channel
-    through resize_area_mxu_planes. The JAX ``resize_area_mxu_or_exact``
-    calls this unless LILLIPUT_FUSED_EXACT is set, which the port does not
-    read yet (ROADMAP queue 1, item 4.8)."""
+    through resize_area_mxu_planes."""
     return resize_area_mxu_planes(img.movedim(-1, 0), dst_w,
                                   dst_h).movedim(0, -1)
+
+
+def resize_area_mxu_or_exact_planes(plane: torch.Tensor, dst_w: int,
+                                    dst_h: int) -> torch.Tensor:
+    """The JAX ``resize_area_mxu_or_exact`` of (..., H, W) planes (the
+    oriented colour tail): with LILLIPUT_FUSED_EXACT set, the exact forms'
+    f32 values (integer bilinear when an axis upscales, else sequential
+    taps; NOT rounded, as the JAX function returns them), else
+    resize_area_mxu_planes. The exact forms are per channel, so a plane
+    gives the values of its channel in the interleaved form."""
+    if _fused_exact_enabled():
+        img = plane[..., None]
+        if plane.shape[-1] < dst_w or plane.shape[-2] < dst_h:
+            return resize_linear_exact_u8(img, dst_w, dst_h)[..., 0]
+        out = resize_area_exact(img, dst_w, dst_h)
+        if out is not None:
+            return out[..., 0]
+    return resize_area_mxu_planes(plane, dst_w, dst_h)
+
+
+# ---------------------------------------------------------------------------
+# LILLIPUT_FUSED_EXACT: the byte-identical forms of the fused tails
+# ---------------------------------------------------------------------------
+
+
+def _fused_exact_enabled() -> bool:
+    """LILLIPUT_FUSED_EXACT (any value but 0/false/off) switches the fused
+    serving tails from the embedded-matrix AREA contraction (±1 u8 vs
+    streaming) to the exact forms below, byte-identical to crop +
+    streaming resize(AREA). Read at every call: eager torch has no trace
+    to bake it into."""
+    return os.environ.get("LILLIPUT_FUSED_EXACT", "0") not in (
+        "0", "false", "off")
+
+
+def resize_area_exact(img: torch.Tensor, dst_w: int,
+                      dst_h: int) -> Optional[torch.Tensor]:
+    """INTER_AREA downscale of (..., H, W, C), byte-identical to the
+    streaming ``resize(img, ..., AREA)``, as f32 whose clip(round(.)) is
+    the streaming u8: the streaming path's own plain gathers and sequential
+    taps. (The JAX package turns these gathers into 0/1 selection dots, a
+    TPU gather workaround the port does not keep.) Integer factors give the
+    block totals times 1/(fx*fy), or the 2x2 specialization's final
+    integer floor((tot + 2) / 4). None when an axis upscales, or when the
+    block totals could pass 2^24 (fx*fy*255 >= 2^24), where the JAX form
+    stops being exact and declines to the ±1 matrix form."""
+    src_h, src_w = img.shape[-3], img.shape[-2]
+    if src_w < dst_w or src_h < dst_h:
+        return None
+    if T.area_is_fast(src_w, src_h, dst_w, dst_h):
+        fx, fy = src_w // dst_w, src_h // dst_h
+        if fx * fy * 255 >= 1 << 24:
+            return None
+        tot, _, _ = _area_fast_sum(img, dst_w, dst_h, torch.float32)
+        if fx == 2 and fy == 2:
+            return torch.floor((tot + 2.0) * 0.25)
+        return tot * float(np.float32(1.0 / (fx * fy)))
+    return _area_general(img, dst_w, dst_h, round_u8=False)
+
+
+def resize_linear_exact_u8(img: torch.Tensor, dst_w: int,
+                           dst_h: int) -> torch.Tensor:
+    """INTER_AREA of (..., H, W, C) u8-valued images when an axis upscales
+    (cv::resize then runs the fixed-point bilinear with area coordinates),
+    byte-identical to the streaming ``resize(img, ..., AREA)``: the Q11
+    integer kernel by plain gathers (the JAX package's selection dots are
+    a TPU workaround). Returns the integers as f32."""
+    return _linear_u8(img, dst_w, dst_h, area_mode=True).to(torch.float32)
+
+
+def resize_area_window_exact(plane: torch.Tensor, off_x: int, w: int,
+                             dst_w: int, off_y: int, h: int,
+                             dst_h: int) -> Optional[torch.Tensor]:
+    """resize_area_exact of the crop [off_y:off_y+h, off_x:off_x+w) of a
+    (..., H, W) plane: (..., dst_h, dst_w) f32, or None (an upscaling axis,
+    or the 2^24 decline)."""
+    crop = plane.narrow(-1, off_x, w).narrow(-2, off_y, h)
+    out = resize_area_exact(crop[..., None], dst_w, dst_h)
+    return None if out is None else out[..., 0]
+
+
+def resize_linear_window_exact_u8(plane: torch.Tensor, off_x: int, w: int,
+                                  dst_w: int, off_y: int, h: int,
+                                  dst_h: int) -> torch.Tensor:
+    """resize_linear_exact_u8 of the crop [off_y:off_y+h, off_x:off_x+w)
+    of a (..., H, W) u8-valued plane: integer-valued f32 in [0, 255]."""
+    crop = plane.narrow(-1, off_x, w).narrow(-2, off_y, h)
+    return resize_linear_exact_u8(crop[..., None], dst_w, dst_h)[..., 0]

@@ -1,32 +1,41 @@
 """Batched JPEG Fit transcode — the port's serving path.
 
-The slice of ``lilliput_tpu/pipeline.py`` that runs the main path: a batch
-of same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
-orientation) to Fit-cropped JPEGs at the destination size, AREA resize,
-chroma_mode="rgb". Five stages:
+The JPEG-out half of ``lilliput_tpu/pipeline.py``: a batch of
+same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
+orientation) to Fit-cropped JPEGs at the destination size, in every mode
+the JAX pipeline has for JPEG output: AREA, LINEAR or CUBIC resize,
+chroma_mode "rgb" or "direct", dct_scale 1, 2 or 4, and the
+LILLIPUT_FUSED_EXACT tier. Five stages:
 
 1. host Huffman decode (``decode_entropy``, jpeg_huff.cpp): upright
    sources into the MCU window around the Fit crop, oriented ones whole;
+   dct_scale 2/4 ships only the top-left kxk coefficients;
 2. the decode kernel (``ops/decode_kernels``, CUDA): the colour layout's
    ``decode420``, ``decode422``, ``decode440`` or ``decode444`` to three
    raster u8 planes; for grayscale, ``dequant_idct_blocks`` (oriented
    sources) or a torch matmul (upright, as the JAX package's XLA einsum);
-3. EXIF orientation (``ops/orient``) and INTER_AREA resize
-   (``ops/resize``): upright 4:2:0 folds the crop into the banded matrices
-   (the JAX block tail), the other upright layouts crop the planes and
-   resize from offset 0 (the JAX packed tail), upright grayscale folds the
-   crop like 4:2:0; oriented sources are oriented, cropped and resized,
-   grayscale with the bit-exact streaming resize, colour with the matmul
-   form;
+   chroma_mode="direct" runs no kernel: its planes stay YCbCr, decoded by
+   matmuls (``dequant_idct_u8``, or ``dequant_idct_scaled`` at k/8 scale);
+3. EXIF orientation (``ops/orient``) and resize (``ops/resize``): upright
+   AREA 4:2:0 folds the crop into the banded matrices (the JAX block
+   tail), the other upright AREA layouts crop the planes and resize from
+   offset 0 (the JAX packed tail), upright grayscale folds the crop like
+   4:2:0; LINEAR/CUBIC crop and run the streaming fixed-point kernels;
+   oriented sources are oriented, cropped and resized (grayscale and
+   LINEAR/CUBIC with the streaming resize, colour AREA with the matmul
+   form); the direct mode resamples each chroma plane once at its own
+   resolution (general-position AREA matrices); LILLIPUT_FUSED_EXACT
+   switches the AREA tails to the byte-identical sequential-tap forms;
 4. BGR->YCbCr, 2x2 chroma downsample, fDCT and quantization
-   (``ops/jpeg_kernels``; the luma fDCT alone for grayscale);
+   (``ops/jpeg_kernels``; the luma fDCT alone for grayscale; the fDCT of
+   the three YCbCr planes in the direct mode);
 5. host Huffman encode (``encode_entropy``, csrc/host/jpeg_enc.cpp).
 
 Stages 2-4 run on the pipeline's torch device; the host threads run the
 serial entropy stages and overlap with device work through CUDA's
 asynchronous launches (``transcode_pipelined``). Everything outside the
-slice raises NotImplementedError naming its ROADMAP queue 1 item; nothing
-falls back.
+port (.webp/.png outputs, encode_options, optimize_coding) raises
+NotImplementedError naming its ROADMAP queue 1 item; nothing falls back.
 """
 
 from __future__ import annotations
@@ -133,34 +142,45 @@ def _oriented_fit(src_w: int, src_h: int, dst_w: int, dst_h: int,
 def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                          src_w: int, src_h: int, dst_w: int, dst_h: int,
                          window, h2: bool, v2: bool, orientation: int = 1,
-                         plain: bool = False):
+                         method: str = R.AREA, plain: bool = False):
     """(B, bh, bw, 64) coefficient batches -> quantized encode coefficients
-    (yq, cbq, crq): the AREA branches of the JAX function
-    (lilliput_tpu/pipeline.py:247-318).
+    (yq, cbq, crq): chroma_mode="rgb" (lilliput_tpu/pipeline.py:247-318).
 
-    Upright (window = the host's decode window): the decode kernel writes
-    raster u8 planes. 4:2:0 takes the block tail (:259-281): each plane's
-    resize folds the Fit crop into its AREA matrices. 4:2:2, 4:4:0 and
-    4:4:4 take the packed tail (:282-301): the planes are cropped to the
-    Fit rect and resized from offset 0. Other orientations (:304-318): the
-    whole frame is decoded, oriented, cropped to the Fit rect of the
-    upright size and resized (resize_area_mxu). Either way the resized
-    planes are rounded, clipped and re-encoded at 4:2:0. plain=True decodes
-    with the plain PyTorch versions of the kernels (for comparisons on the
-    card)."""
+    Upright AREA (window = the host's decode window): the decode kernel
+    writes raster u8 planes. 4:2:0 takes the block tail (:259-281): each
+    plane's resize folds the Fit crop into its AREA matrices. 4:2:2, 4:4:0
+    and 4:4:4 take the packed tail (:282-301): the planes are cropped to
+    the Fit rect and resized from offset 0. Upright LINEAR/CUBIC (:302-303,
+    :313-314): the layout's decode kernel writes the window's planes, which
+    are cropped and resized by the streaming kernels. Other orientations
+    (:304-318): the whole frame is decoded, oriented, cropped to the Fit
+    rect of the upright size and resized (AREA: resize_area_mxu, or the
+    exact forms under LILLIPUT_FUSED_EXACT; else the streaming kernels).
+    Either way the resized planes are re-encoded at 4:2:0; the JAX
+    function's interleaved (..., H, W, 3) resize is per channel, so each
+    plane gives its channel's values. plain=True decodes with the plain
+    PyTorch versions of the kernels (for comparisons on the card)."""
     if orientation != 1:
         planes = K.decode_ycc_420(yc, cb, cr, qt_y, qt_c, src_h, src_w, h2,
                                   v2, plain=plain)
         left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h,
                                         orientation)
-        out = [R.resize_area_mxu_planes(
-            O.orient_planes(p, orientation)[..., top:top + h,
-                                            left:left + w],
-            dst_w, dst_h).to(torch.float32) for p in planes]
+        crops = [O.orient_planes(p, orientation)[..., top:top + h,
+                                                 left:left + w]
+                 for p in planes]
+        out = [_resize_cropped(p, dst_w, dst_h, method) for p in crops]
         return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
                                         enc_qt_c, subsample=True)
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
     x0, y0, rw, rh = window
+    if method != R.AREA:
+        planes = K.decode_ycc_420(yc, cb, cr, qt_y, qt_c, rh, rw, h2, v2,
+                                  plain=plain)
+        out = [_resize_cropped(p[..., top - y0:top - y0 + h,
+                                 left - x0:left - x0 + w], dst_w, dst_h,
+                               method) for p in planes]
+        return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
+                                        enc_qt_c, subsample=True)
     if h2 and v2:
         planes = K.decode_ycc_u8_plane_blocks(yc, cb, cr, qt_y, qt_c, True,
                                               True, plain=plain)
@@ -183,33 +203,123 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                                     enc_qt_c, subsample=True)
 
 
+def _resize_cropped(plane, dst_w: int, dst_h: int, method: str):
+    """A cropped (..., h, w) u8 plane resized to f32 values: AREA through
+    the fused tail's resize_area_mxu_or_exact (the JAX
+    resize_area_mxu_or_exact), other methods through the streaming
+    kernels, as (..., h, w, 1) images."""
+    if method == R.AREA:
+        return R.resize_area_mxu_or_exact_planes(plane, dst_w, dst_h).to(
+            torch.float32)
+    return R.resize(plane[..., None], dst_w, dst_h, method)[..., 0].to(
+        torch.float32)
+
+
+def _scaled_plane(coefs, qt, k: int):
+    """dequant_idct_scaled's k/8-scale plane rounded and clipped to u8."""
+    return torch.clamp(torch.round(K.dequant_idct_scaled(coefs, qt, k)),
+                       0, 255).to(torch.uint8)
+
+
+def _resize_scaled(plane, dst_w: int, dst_h: int, scale_w: float,
+                   off_w: float, scale_h: float, off_h: float):
+    """A (..., H, W) plane through area_axis_matrix_scaled's matrices
+    (device-resident, built once per geometry), rounded and clipped."""
+    dev = str(plane.device)
+    return torch.clamp(torch.round(R.resize_area_plane_mat(
+        plane,
+        R.scaled_banded(plane.shape[-1], dst_w, scale_w, off_w, dev),
+        R.scaled_banded(plane.shape[-2], dst_h, scale_h, off_h, dev))),
+        0, 255)
+
+
+def _fused_jpeg_fit_ycc_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
+                             src_w: int, src_h: int, dst_w: int, dst_h: int,
+                             window, dct_scale: int = 1):
+    """chroma_mode="direct" (lilliput_tpu/pipeline.py:321-419, JPEG out):
+    the planes never leave YCbCr. Luma is cropped and resized straight to
+    the output grid; each chroma plane is resampled ONCE at its native half
+    resolution to the output's 4:2:0 grid (general-position AREA matrices
+    absorb the half-pixel crop offset); no YCbCr<->BGR, triangle upsample
+    or 2x2 re-downsample. Needs 4:2:0, an upright source and even output
+    dims (the constructor's gate). dct_scale 2 or 4 decodes every plane at
+    1/2 or 1/4 scale from the top-left kxk coefficients (k = 8 //
+    dct_scale), which the host may have cut to those lanes. No decode
+    kernel runs: the IDCTs are torch matmuls, as the JAX package's XLA
+    dots (dequant_idct_u8, dequant_idct_scaled)."""
+    left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
+    x0, y0 = window[:2]
+    tx, ty = left - x0, top - y0
+    s = dct_scale
+    if s == 1:
+        y8 = K.dequant_idct_u8(yc, qt_y)
+        lin = dst_w > w or dst_h > h
+        dev = str(y8.device)
+        yr = torch.clamp(torch.round(R.resize_area_plane_mat(
+            y8, R._embedded_banded(y8.shape[-1], tx, w, dst_w, lin, dev),
+            R._embedded_banded(y8.shape[-2], ty, h, dst_h, lin, dev))),
+            0, 255)
+    else:
+        y = _scaled_plane(yc, qt_y, 8 // s)
+        yr = _resize_scaled(y, dst_w, dst_h, w / s / dst_w, tx / s,
+                            h / s / dst_h, ty / s)
+
+    def chroma(cplane):
+        p = (K.dequant_idct_u8(cplane, qt_c) if s == 1
+             else _scaled_plane(cplane, qt_c, 8 // s))
+        return _resize_scaled(p, dst_w // 2, dst_h // 2, w / s / dst_w,
+                              tx / (2 * s), h / s / dst_h, ty / (2 * s))
+
+    cbr, crr = chroma(cb), chroma(cr)
+    ph = (dst_h + 15) // 16 * 16
+    pw = (dst_w + 15) // 16 * 16
+    return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),
+            K.fdct_quant(K._pad_to(cbr, ph // 2, pw // 2), enc_qt_c),
+            K.fdct_quant(K._pad_to(crr, ph // 2, pw // 2), enc_qt_c))
+
+
 def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
                               dst_w: int, dst_h: int, window,
-                              orientation: int = 1, plain: bool = False):
+                              orientation: int = 1, method: str = R.AREA,
+                              dct_scale: int = 1, plain: bool = False):
     """(B, bh, bw, 64) luma coefficients -> quantized luma encode
-    coefficients (yq,): the AREA, dct_scale=1 branches of the JAX function
-    (lilliput_tpu/pipeline.py:422-478), 1-component JPEG in and out.
+    coefficients (yq,), 1-component JPEG in and out (the JAX function,
+    lilliput_tpu/pipeline.py:422-478).
 
-    Upright (window = the host's decode window): the IDCT with its u8
-    rounding is a torch matmul (dequant_idct_u8, as the JAX package's XLA
-    einsum) and the Fit crop folds into the AREA matrices. Other
-    orientations: decode_gray decodes the whole frame through the
-    dequant_idct_blocks kernel, then the plane is oriented, cropped to the
-    Fit rect of the upright size and resized with the bit-exact streaming
-    resize. plain=True decodes with the kernel's plain PyTorch version."""
+    Upright (window = the host's decode window): AREA at dct_scale 1 runs
+    the IDCT with its u8 rounding as a torch matmul (dequant_idct_u8, as
+    the JAX package's XLA einsum) and folds the Fit crop into the AREA
+    matrices; LINEAR/CUBIC crop that u8 plane and run the streaming
+    kernels; dct_scale 2/4 decodes at k/8 scale (dequant_idct_scaled) and
+    resizes with area_axis_matrix_scaled's matrices. Other orientations:
+    decode_gray decodes the whole frame through the dequant_idct_blocks
+    kernel, then the plane is oriented, cropped to the Fit rect of the
+    upright size and resized with the streaming resize of `method`.
+    plain=True decodes with the kernel's plain PyTorch version."""
+    s = dct_scale
     if orientation == 1:
         left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
         x0, y0 = window[:2] if window is not None else (0, 0)
-        y8 = K.dequant_idct_u8(yc, qt_y)
-        yr = torch.clamp(torch.round(R.resize_area_plane_embedded(
-            y8, left - x0, w, dst_w, top - y0, h, dst_h)), 0, 255)
+        tx, ty = left - x0, top - y0
+        if s == 1 and method != R.AREA:
+            y8 = K.dequant_idct_u8(yc, qt_y)
+            yr = _resize_cropped(y8[..., ty:ty + h, tx:tx + w], dst_w, dst_h,
+                                 method)
+        elif s == 1:
+            y8 = K.dequant_idct_u8(yc, qt_y)
+            yr = torch.clamp(torch.round(R.resize_area_plane_embedded(
+                y8, tx, w, dst_w, ty, h, dst_h)), 0, 255)
+        else:
+            yr = _resize_scaled(_scaled_plane(yc, qt_y, 8 // s), dst_w,
+                                dst_h, w / s / dst_w, tx / s, h / s / dst_h,
+                                ty / s)
     else:
         gray = O.orient_planes(K.decode_gray(yc, qt_y, src_h, src_w, plain),
                                orientation)
         left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h,
                                         orientation)
         cropped = gray[..., top:top + h, left:left + w, None]
-        yr = R.resize(cropped, dst_w, dst_h, R.AREA)[..., 0].to(
+        yr = R.resize(cropped, dst_w, dst_h, method)[..., 0].to(
             torch.float32)
     ph = (dst_h + 7) // 8 * 8
     pw = (dst_w + 7) // 8 * 8
@@ -373,6 +483,13 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         pipe = JpegTranscodePipeline(sample_jpeg_bytes, 256, 256, quality=85)
         outs = pipe.transcode(list_of_jpeg_bytes)   # same geometry as sample
 
+    Modes, as in the JAX package: method AREA (default), "linear" or
+    "cubic"; chroma_mode "rgb" (default) or "direct" (YCbCr-domain: 4:2:0,
+    upright, AREA, even output dims; grayscale falls back to "rgb");
+    dct_scale 2 or 4 with "direct" (a reduced decode from the top-left kxk
+    coefficients, which the host alone ships). JPEG out only: .webp/.png
+    outputs, encode_options and optimize_coding raise NotImplementedError.
+
     device: the torch device of the dense stages, "cuda" by default; the
     CPU runs only when asked for (device="cpu"), with the decode kernels'
     plain versions. Grayscale sources give 1-component JPEGs. Source ICC
@@ -391,12 +508,13 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         fmt = {".jpg": ".jpeg"}.get(output_format, output_format)
         if fmt not in (".jpeg", ".webp", ".png"):
             raise ValueError("output_format must be .jpeg, .webp or .png")
-        if chroma_mode == "direct":
-            _not_ported("chroma_mode='direct'", "item 4.1")
-        if dct_scale != 1:
-            _not_ported("dct_scale>1", "item 4.2")
-        if method != R.AREA:
-            _not_ported(f"method={method!r}", "item 4.6")
+        if dct_scale != 1 and chroma_mode != "direct":
+            raise ValueError("dct_scale needs chroma_mode='direct'")
+        if dct_scale != 1 and method != R.AREA:
+            # the reduced decode's fractional crop geometry has only an
+            # AREA-matrix form (grayscale's coercion below must not slip
+            # past it)
+            raise ValueError("dct_scale>1 requires method=AREA")
         if fmt != ".jpeg":
             _not_ported(f"output_format={fmt!r}", "item 4.7")
         if optimize_coding:
@@ -429,9 +547,21 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                     "distinct Cb/Cr quant tables: use the streaming "
                     "ImageOps path for this source")
         self.ncomp = int(info.num_components)
+        if self.ncomp == 1 and chroma_mode == "direct":
+            # grayscale has no chroma: the luma-only path is its one mode
+            self.chroma_mode = chroma_mode = "rgb"
         self.geom = geometry_of(info)
         g = self.geom
         self.orientation = int(J.exif_orientation(sample))
+        if dct_scale != 1 and self.orientation != 1:
+            # the truncated kxk coefficients cannot rebuild the full-size
+            # pixels the orientation path decodes
+            raise DecodingFailedError(
+                "dct_scale>1 requires upright (orientation 1) sources")
+        if self.chroma_mode == "direct" and not self._direct_ok():
+            raise DecodingFailedError(
+                "chroma_mode='direct' needs 4:2:0, upright orientation, "
+                "AREA method, and even output dims")
         # host-side decode window of upright sources: coefficients outside
         # the MCU-aligned crop window never leave the host. Vertically
         # subsampled layouts take whole MCU rows of luma (the zero pad row
@@ -453,6 +583,19 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         self.enc_qt_y_np, self.enc_qt_c_np = eql, eqc
         self.enc_qt_y = torch.from_numpy(eql.astype(np.float32)).to(self.device)
         self.enc_qt_c = torch.from_numpy(eqc.astype(np.float32)).to(self.device)
+
+    @staticmethod
+    def direct_eligible(geom, orientation: int, dst_w: int, dst_h: int,
+                        method: str) -> bool:
+        """chroma_mode='direct' preconditions: 4:2:0, upright, even output
+        dims, AREA."""
+        return (geom.h2 and geom.v2 and orientation == 1
+                and dst_w % 2 == 0 and dst_h % 2 == 0
+                and method == R.AREA)
+
+    def _direct_ok(self) -> bool:
+        return self.direct_eligible(self.geom, self.orientation,
+                                    self.dst_w, self.dst_h, self.method)
 
     # -- host entropy stages --------------------------------------------------
 
@@ -490,10 +633,12 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 f"{self.orientation}, got {o}")
         return info
 
-    def _alloc(self, shape, zeros: bool = False) -> np.ndarray:
-        """Host batch array; page-locked on CUDA so the H2D copy of a batch
-        is asynchronous and overlaps the next batch's host decode."""
-        if self.device.type == "cuda":
+    def _alloc(self, shape, zeros: bool = False,
+               pin: bool = True) -> np.ndarray:
+        """Host batch array; page-locked on CUDA (unless pin is False, for
+        arrays that never leave the host) so the H2D copy of a batch is
+        asynchronous and overlaps the next batch's host decode."""
+        if pin and self.device.type == "cuda":
             make = torch.zeros if zeros else torch.empty
             return make(shape, dtype=torch.int16, pin_memory=True).numpy()
         return (np.zeros if zeros else np.empty)(shape, np.int16)
@@ -537,6 +682,12 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         rounded up to whole MCU rows: the pad row is zeros, nothing writes
         it, and pooled reuse keeps it zero.
 
+        dct_scale 2 or 4 returns only the k*k lanes the scaled IDCT reads
+        (jpeg_kernels.scaled_coef_indices(8 // dct_scale), the top-left kxk
+        of each block), copied into pinned arrays of their own pool
+        (pool=True) for the H2D; the full arrays the decoder writes stay
+        on the host, unpinned.
+
         errors: when a dict, per-item failures are ISOLATED: a corrupt
         buffer's exception lands in errors[i] and its lane is zero-filled
         (coefficients AND qtables, so pooled reuse cannot leak a previous
@@ -567,13 +718,15 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         else:
             _, _, _, _, yr, ycs, crr, ccs = win
 
+            pin = self.dct_scale == 1  # truncated lanes are shipped instead
+
             def _alloc_arrays():
                 ys = self._alloc((b, yr.stop - yr.start,
-                                  ycs.stop - ycs.start, 64))
+                                  ycs.stop - ycs.start, 64), pin=pin)
                 if gray:
                     return (ys,)
                 c = (b, crr.stop - crr.start, ccs.stop - ccs.start, 64)
-                return ys, self._alloc(c), self._alloc(c)
+                return ys, self._alloc(c, pin=pin), self._alloc(c, pin=pin)
 
             # per-component block windows {y0, x0, h, w} for
             # lp_jpeg_decode_coefs_win, which decodes straight into them
@@ -586,6 +739,19 @@ class JpegTranscodePipeline(_ServingPipelineBase):
 
         arrs = (self._pooled((b, "win" if win else "full"), _alloc_arrays)
                 if pool else _alloc_arrays())
+        k = 8 // self.dct_scale
+        if k < 8:
+            # the k*k lanes the scaled IDCT reads, copied out per image by
+            # the decode threads into pinned arrays of their own pool: the
+            # 2-slot ordering argument of _pooled holds for them as for the
+            # full arrays, and a failed item's lane is zeroed in both
+            def _alloc_lanes():
+                return tuple(self._alloc(a.shape[:-1] + (k * k,))
+                             for a in arrs)
+            outs = (self._pooled((b, "lanes"), _alloc_lanes) if pool
+                    else _alloc_lanes())
+        else:
+            outs = arrs
         qty = np.empty((b, 64), np.uint16)
         qtc = None if gray else np.empty((b, 64), np.uint16)
         n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
@@ -607,6 +773,10 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             qty[i] = qtables[info.comp_quant_tbl[0]]
             if not gray:
                 qtc[i] = qtables[info.comp_quant_tbl[1]]
+            if outs is not arrs:
+                for a, o in zip(arrs, outs):
+                    o[i].reshape(o.shape[1:-1] + (k, k))[...] = a[i].reshape(
+                        a.shape[1:-1] + (8, 8))[..., :k, :k]
 
         if errors is not None:
             decode_one = one
@@ -616,8 +786,8 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                     decode_one(i)
                 except Exception as e:  # noqa: BLE001 — isolate per item
                     errors[i] = e
-                    for a in arrs:       # benign all-zero lane; also wipes
-                        a[i] = 0         # pooled previous-batch data
+                    for a in arrs + outs:  # benign all-zero lane; also
+                        a[i] = 0           # wipes pooled previous data
                     qty[i] = 0
                     if not gray:
                         qtc[i] = 0
@@ -630,8 +800,8 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             with ThreadPoolExecutor(n_workers) as ex:
                 list(ex.map(one, range(b)))
         if gray:
-            return arrs[0], qty
-        return (*arrs, qty, qtc)
+            return outs[0], qty
+        return (*outs, qty, qtc)
 
     # -- device stage ----------------------------------------------------------
 
@@ -646,7 +816,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         crq), or (yq,) for grayscale. Takes decode_entropy's output: colour
         pipelines (ys, cbs, crs, qty, qtc), grayscale (ys, qty).
         plain=True runs the plain PyTorch versions of the decode kernels
-        instead of the kernels."""
+        instead of the kernels (the direct mode runs none)."""
         g = self.geom
         if self.ncomp == 1:
             qty = cbs  # the (ys, qty) calling convention
@@ -655,15 +825,21 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 self.enc_qt_y, src_w=g.width, src_h=g.height,
                 dst_w=self.dst_w, dst_h=self.dst_h,
                 window=self.window_static, orientation=self.orientation,
-                plain=plain)
+                method=self.method, dct_scale=self.dct_scale, plain=plain)
+        args = (self._to_device(ys), self._to_device(cbs),
+                self._to_device(crs),
+                self._to_device(qty.astype(np.float32)),
+                self._to_device(qtc.astype(np.float32)),
+                self.enc_qt_y, self.enc_qt_c)
+        if self.chroma_mode == "direct":
+            return _fused_jpeg_fit_ycc_impl(
+                *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
+                dst_h=self.dst_h, window=self.window_static,
+                dct_scale=self.dct_scale)
         return _fused_jpeg_fit_impl(
-            self._to_device(ys), self._to_device(cbs), self._to_device(crs),
-            self._to_device(qty.astype(np.float32)),
-            self._to_device(qtc.astype(np.float32)),
-            self.enc_qt_y, self.enc_qt_c,
-            src_w=g.width, src_h=g.height, dst_w=self.dst_w,
+            *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
             dst_h=self.dst_h, window=self.window_static, h2=g.h2, v2=g.v2,
-            orientation=self.orientation, plain=plain)
+            orientation=self.orientation, method=self.method, plain=plain)
 
     # -- end to end --------------------------------------------------------------
 

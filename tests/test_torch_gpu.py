@@ -1,9 +1,11 @@
 """The port on a CUDA card: each decode kernel (decode420, decode422,
 decode440, decode444, dequant_idct_blocks) against its plain PyTorch
 version, and each serving path's device step (the four layouts upright,
-grayscale upright and oriented, 4:2:0 oriented) against the same step
-through the plain version and on the CPU. Imports no jax, so it runs on
-the card's machine:
+grayscale upright and oriented, 4:2:0 oriented; chroma_mode="direct",
+dct_scale 2 and 4, LINEAR and CUBIC, LILLIPUT_FUSED_EXACT) against the
+same step through the plain version and on the CPU; the streaming
+fixed-point LINEAR and CUBIC resize on the card equal to the CPU's. Imports
+no jax, so it runs on the card's machine:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -145,13 +147,14 @@ def test_layout_kernels_match_plain(sub, h, w, batch):
     _check_kernel(sub, h, w, batch)
 
 
-def _check_device_step(sub, name):
+def _check_device_step(sub, name, **kw):
     """The path's device step launches `name` once (no kernel when None)
-    and agrees with the plain step and the CPU step."""
+    and agrees with the plain step and the CPU step (pipelines built with
+    the keywords kw)."""
     with open(_fixture(sub), "rb") as f:
         buf = f.read()
-    gpu = JpegTranscodePipeline(buf, 256, 256, device="cuda")
-    cpu = JpegTranscodePipeline(buf, 256, 256, device="cpu")
+    gpu = JpegTranscodePipeline(buf, 256, 256, device="cuda", **kw)
+    cpu = JpegTranscodePipeline(buf, 256, 256, device="cpu", **kw)
     args = gpu.decode_entropy([buf] * 4)
     before = dict(DK.launches)
     step = [t.cpu() for t in gpu.device_step(*args)]
@@ -185,6 +188,62 @@ def test_layout_device_step_matches_plain_and_cpu(sub):
 def test_gray_and_oriented_device_step_matches_plain_and_cpu(sub, name):
     _need_card()
     _check_device_step(sub, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub,name,kw", [
+    ("420", None, {"chroma_mode": "direct"}),
+    ("420", None, {"chroma_mode": "direct", "dct_scale": 2}),
+    ("420", None, {"chroma_mode": "direct", "dct_scale": 4}),
+    ("gray", None, {"chroma_mode": "direct", "dct_scale": 2}),
+    ("420", "decode420", {"method": "linear"}),
+    ("444", "decode444", {"method": "cubic"}),
+    ("422", "decode422", {"method": "cubic"}),
+    ("440", "decode440", {"method": "linear"}),
+    ("o6", "decode420", {"method": "cubic"}),
+    ("gray", None, {"method": "linear"}),
+    ("gray_o6", "dequant_idct_blocks", {"method": "cubic"})],
+    ids=lambda v: v if isinstance(v, str) else (
+        "-".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict)
+        else str(v)))
+def test_mode_device_step_matches_plain_and_cpu(sub, name, kw):
+    """The direct, dct_scale and LINEAR/CUBIC modes: the direct modes launch
+    no kernel (their IDCTs are matmuls); the others their layout's."""
+    _need_card()
+    _check_device_step(sub, name, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub,name", [("420", "decode420"),
+                                      ("444", "decode444"), ("gray", None),
+                                      ("o6", "decode420")])
+def test_fused_exact_device_step_matches_plain_and_cpu(sub, name,
+                                                       monkeypatch):
+    """LILLIPUT_FUSED_EXACT=1: the exact tails on the card."""
+    _need_card()
+    monkeypatch.setenv("LILLIPUT_FUSED_EXACT", "1")
+    _check_device_step(sub, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+@pytest.mark.parametrize("src,dst", [((1080, 1080), (256, 256)),
+                                     ((61, 67), (100, 90)),
+                                     ((480, 640), (481, 320))], ids=str)
+def test_fixed_point_resize_equals_cpu(method, src, dst):
+    """_linear_u8 and _cubic_u8 are integer arithmetic: the card's result
+    equals the CPU's at atol 0 (int32 wraps alike on both)."""
+    _need_card()
+    from lilliput_tpu_torch.ops import resize as R
+    img = np.random.default_rng(sum(src) + sum(dst)).integers(
+        0, 256, (4,) + src + (3,)).astype(np.uint8)
+    t = torch.from_numpy(img)
+    got = R.resize(t.cuda(), *dst, method).cpu()
+    assert torch.equal(got, R.resize(t, *dst, method))
+    if method == "linear":      # the AREA upscale's area-rule bilinear
+        up = (src[1] + 7, src[0] + 3)
+        assert torch.equal(R._linear_u8(t.cuda(), *up, True).cpu(),
+                           R._linear_u8(t, *up, True))
 
 
 def _check_idct_kernel(h, w, batch, shared):

@@ -16,7 +16,10 @@ against the JAX package's JpegTranscodePipeline.
 * transcode's bytes equal the JAX encode_entropy of the JAX coefficients,
   3-component and grayscale.
 * Corrupt buffers fail only their own slots, in every layout, grayscale
-  and oriented; paths outside the slice raise NotImplementedError.
+  and oriented; paths outside the slice (.webp/.png outputs,
+  optimize_coding, encode_options) raise NotImplementedError, and the
+  direct, dct_scale and LINEAR/CUBIC modes construct (their parity tests
+  are tests/test_torch_direct.py and tests/test_torch_pipeline_modes.py).
 """
 
 import io
@@ -192,9 +195,8 @@ def _exif_jpeg(orientation: int) -> bytes:
 
 def test_paths_outside_the_slice_refuse():
     src = pil_jpeg(200, 150, 85, 0)
-    for kw in ({"chroma_mode": "direct"}, {"dct_scale": 2},
-               {"method": "linear"}, {"output_format": ".webp"},
-               {"optimize_coding": True}):
+    for kw in ({"output_format": ".webp"}, {"optimize_coding": True},
+               {"encode_options": {"lossless": True}}):
         with pytest.raises(NotImplementedError):
             JpegTranscodePipeline(src, 64, 48, device="cpu", **kw)
         with pytest.raises(NotImplementedError):       # grayscale too
@@ -202,12 +204,20 @@ def test_paths_outside_the_slice_refuse():
                                   device="cpu", **kw)
     from PIL import Image
     # every chroma layout, grayscale, and EXIF orientations (PIL's own
-    # Exif writer here) are served
+    # Exif writer here) are served, in every JPEG-out mode
     assert JpegTranscodePipeline(_exif_jpeg(6), 64, 48,
                                  device="cpu").orientation == 6
     for sub in LAYOUTS:
         JpegTranscodePipeline(layout_jpeg(200, 150, 85, 0, sub), 64, 48,
                               device="cpu")
+    for kw in ({"chroma_mode": "direct"},
+               {"chroma_mode": "direct", "dct_scale": 2},
+               {"chroma_mode": "direct", "dct_scale": 4},
+               {"method": "linear"}, {"method": "cubic"}):
+        for buf, dst in ((src, (64, 48)), (gray_jpeg(64, 48, 85, 0),
+                                           (32, 32))):
+            pipe = JpegTranscodePipeline(buf, *dst, device="cpu", **kw)
+            assert pipe.dct_scale == kw.get("dct_scale", 1)
     bio = io.BytesIO()
     Image.new("L", (64, 48), 90).save(bio, "JPEG")
     assert JpegTranscodePipeline(bio.getvalue(), 32, 32,

@@ -190,7 +190,8 @@ def main(argv) -> int:
             DK._KERNELS[name] = (libs[v],) + DK._KERNELS[name][1:]
             DK._load(libs[v])
 
-    fixture_name = next(f for f, k, _ in S.PATHS.values() if k == name)
+    fixture_name = next(p.fixture for p in S.PATHS.values()
+                        if p.kernel == name)
     with open(os.path.join(S.ASSETS, fixture_name), "rb") as f:
         fixture = f.read()
     pipe = JpegTranscodePipeline(fixture, S.DST, S.DST, device="cuda")
