@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card; builds the host entropy library (g++) and the kernels
-(nvcc, sm_90a; one nvcc per source, all at once) from the sources in this
-checkout, then drives twelve serving paths, each JpegTranscodePipeline(
-fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
+Needs one CUDA card; builds the host library (g++: Huffman decode and
+encode, PNG row filters) and the kernels (nvcc, sm_90a; one nvcc per
+source, all at once) from the sources in this checkout, then drives
+fourteen serving paths, each JpegTranscodePipeline(fixture -> 256x256 Fit
+JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
 
   420, 422, 440, 444  the chroma layouts, upright (bench_1080p{,_422,_440,
                       _444}.jpg), AREA, chroma_mode="rgb", each through its
@@ -29,7 +30,15 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
                       then the streaming fixed-point bicubic;
   420_exact           4:2:0 with LILLIPUT_FUSED_EXACT=1 (set for this path
                       only, restored after): decode420, then the exact
-                      sequential-tap AREA tail.
+                      sequential-tap AREA tail;
+  420_png             4:2:0, output_format=".png": decode420 and the block
+                      tail, the planes packed to BGRA pixels, PNG on the
+                      host;
+  gray_o6_png         grayscale o6, output_format=".png": dequant_idct_blocks
+                      (u8), gray pixels, 1-channel PNG;
+
+then the single-image surface (the still phase) and the overlap check of
+transcode_pipelined.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -49,7 +58,10 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
    version and with the CPU step (2 images, a CPU pipeline built with the
    path's keywords and environment). 4:2:0 runs 3 batches, one
    holding a corrupt buffer that must fail only its own slot, and checks
-   that the entropy round trip is lossless; the other paths run 2 batches;
+   that the entropy round trip is lossless; the other paths run 2 batches.
+   The .png paths' outputs must decode (zlib and the port's
+   lp_png_unfilter) to 256x256 pixels with the source's channel count, and
+   their packed pixels are held to the kernel gate instead;
 4. times (CUDA events; host clock around work that ends in a sync): each
    kernel and its plain version (dequant_idct_blocks: the u8 epilogue the
    path runs, and the f32 epilogue beside torch.baddbmm, the one PyTorch
@@ -58,7 +70,20 @@ fixture -> 256x256 Fit JPEG, q85, batch 128), fixtures under tests/assets/:
    breakdown (also on 420_exact, whose resize is the exact form), the
    direct mode's three IDCTs, and the device's busy share under
    torch.profiler; the H2D of 420_direct_s2's truncated lanes beside
-   420's.
+   420's;
+5. the still phase: for each fixture, new_decoder(device="cuda") ->
+   ImageOps(8192).transform to .jpeg and to .png, Fit 256x256, and one
+   decode_to, with every launch count 0 just before and read after: each
+   decode launches its layout's kernel (dequant_idct_blocks for gray)
+   exactly once. The decoded frame equals the plain decode (from a 2-image
+   stack) and the CPU port's under the kernel gate, the .png pixels the
+   CPU port's under the same gate, the .jpeg coefficients the CPU port's
+   under the step gate. Prints ms per image for decode, transform and
+   encode, and each kernel's batch-1 whole-frame time beside its plain
+   version and bound;
+6. the overlap check: one transcode_pipelined of 4 batches on 4:2:0, in
+   which every _to_host of batch i-1 must return while step i's event is
+   still pending (event.query() False); images/s and the busy share.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -120,7 +145,15 @@ PATHS = {
                       {"method": "cubic"}),
     "420_exact": Path("bench_1080p.jpg", "decode420", 3, {},
                       {"LILLIPUT_FUSED_EXACT": "1"}),
+    "420_png": Path("bench_1080p.jpg", "decode420", 3,
+                    {"output_format": ".png"}),
+    "gray_o6_png": Path("bench_1080p_gray_o6.jpg", IDCT, 1,
+                        {"output_format": ".png"}),
 }
+#: the still phase's fixtures: every layout, grayscale, and orientation 6
+STILLS = ["bench_1080p.jpg", "bench_1080p_422.jpg", "bench_1080p_440.jpg",
+          "bench_1080p_444.jpg", "bench_1080p_gray.jpg",
+          "bench_1080p_gray_o6.jpg", "bench_1080p_o6.jpg"]
 #: H100 SXM data-sheet peaks: HBM bytes/s and f32 non-tensor FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 BATCH = 128
@@ -216,8 +249,10 @@ def phase1():
                  if "registers" in ln or "spill" in ln
                  or "Function properties" in ln]
         print(f"phase 1: {name} ptxas: {ptxas}", flush=True)
+    deflate = ("linked" if binding.load().lp_zlib_fast_available()
+               else "absent: PNG deflates with Python zlib")
     print(f"phase 1: host library and {len(libs)} kernel libraries built "
-          f"in {t1 - t0:.1f}s", flush=True)
+          f"in {t1 - t0:.1f}s; libdeflate {deflate}", flush=True)
 
 
 def random_case(rng, h, w, h2, v2, batch=3):
@@ -369,6 +404,56 @@ def phase2_idct(path, pipe, bufs, first: bool):
     return worst, serving
 
 
+def png_pixels(buf: bytes) -> np.ndarray:
+    """An 8-bit, non-interlaced gray/RGB PNG's pixels, (H, W, C) u8: the
+    chunk walk of the port's codecs/png.py, Python's zlib and the port's
+    lp_png_unfilter (the card's machine has no image library)."""
+    import struct
+    import zlib
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.codecs.png import PNG_MAGIC, iter_chunks
+    check(buf.startswith(PNG_MAGIC), "not a PNG")
+    idat = []
+    for ctype, off, ln, _ in iter_chunks(buf):
+        if ctype == b"IHDR":
+            w, h, depth, ctype_, _, _, lace = struct.unpack(
+                ">IIBBBBB", buf[off:off + 13])
+        elif ctype == b"IDAT":
+            idat.append(buf[off:off + ln])
+    check(depth == 8 and lace == 0 and ctype_ in (0, 2),
+          f"unexpected PNG depth {depth} type {ctype_} interlace {lace}")
+    ch = {0: 1, 2: 3}[ctype_]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).copy()
+    out = np.empty(h * w * ch, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = binding.load().lp_png_unfilter(
+        raw.ctypes.data_as(u8p), out.ctypes.data_as(u8p), h, w * ch, ch)
+    check(rc == 0, f"PNG unfilter failed ({rc})")
+    return out.reshape(h, w, ch)
+
+
+def jpeg_coefs(buf: bytes):
+    """A JPEG's quantized coefficients per component (jpeg_huff.cpp)."""
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.codecs import jpeg as J
+    info = J.read_info(buf)
+    comps = [np.zeros((info.comp_blocks_h[c], info.comp_blocks_w[c], 64),
+                      np.int16) for c in range(info.num_components)]
+    qt = np.zeros((4, 64), np.uint16)
+    arr = np.frombuffer(buf, np.uint8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    rc = binding.load().lp_jpeg_decode_coefs_fast(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), arr.size,
+        (i16p * len(comps))(*[c.ctypes.data_as(i16p) for c in comps]),
+        qt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), 1)
+    check(rc == 0, f"re-decode of a JPEG output failed ({rc})")
+    return comps
+
+
+def is_png_path(path) -> bool:
+    return PATHS[path].kw.get("output_format") == ".png"
+
+
 def check_outputs(path, res, skip=()):
     from lilliput_tpu_torch.codecs import jpeg as J
     ncomp = PATHS[path].ncomp
@@ -378,9 +463,12 @@ def check_outputs(path, res, skip=()):
                 continue
             check(isinstance(o, bytes), f"{path} batch {bi} item {i} "
                   f"failed: {o!r}")
-            info = J.read_info(o)
-            check((info.width, info.height, info.num_components)
-                  == (DST, DST, ncomp),
+            if is_png_path(path):
+                shape = png_pixels(o).shape
+            else:
+                info = J.read_info(o)
+                shape = (info.height, info.width, info.num_components)
+            check(shape == (DST, DST, ncomp),
                   f"{path} output {bi}/{i} is not {DST}x{DST}x{ncomp}")
 
 
@@ -402,12 +490,20 @@ def run_main_path(path, pipe, batches):
 
 
 def _check_step_diff(path, step, ref, what):
+    """A step's coefficients within the step gate, or its packed pixels
+    (.png paths) within the kernel gate."""
     import torch
-    mx, nd, n = diff_stats([torch.from_numpy(a) for a in step],
-                           [torch.from_numpy(a) for a in ref])
+    if is_png_path(path):
+        got, exp = torch.from_numpy(step[0]), torch.from_numpy(ref[0])
+        gate, unit = (KERNEL_MAX_DIFF, KERNEL_MAX_SHARE), "pixel bytes"
+    else:
+        got = [torch.from_numpy(a) for a in step]
+        exp = [torch.from_numpy(a) for a in ref]
+        gate, unit = (STEP_MAX_DIFF, STEP_MAX_SHARE), "coefficients"
+    mx, nd, n = diff_stats(got, exp)
     print(f"phase 3: {path} device_step vs {what}: max_abs_diff={mx} "
-          f"differing={nd}/{n} ({nd / n:.3g}) coefficients", flush=True)
-    check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+          f"differing={nd}/{n} ({nd / n:.3g}) {unit}", flush=True)
+    check(mx <= gate[0] and nd <= gate[1] * n,
           f"{path} device_step disagrees with the {what}")
 
 
@@ -489,7 +585,8 @@ def phase3(path, pipe, fixture):
     res, counts = run_main_path(path, pipe, batches)
     check_outputs(path, res)
     print(f"phase 3: {path} {sum(len(b) for b in res)} outputs are "
-          f"{DST}x{DST} {PATHS[path].ncomp}-component JPEGs", flush=True)
+          f"{DST}x{DST} {PATHS[path].ncomp}-component "
+          f"{'PNG' if is_png_path(path) else 'JPEG'}s", flush=True)
     check_plain_step(path, pipe, batches[0])
     check_cpu_step(path, pipe, fixture)
     return counts
@@ -634,6 +731,199 @@ def stage_breakdown_420(pipe, bufs, args, serving):
     return t
 
 
+def still_kernel(info) -> str:
+    """The kernel a JpegDecoder of this header launches: the layout's
+    decode kernel, dequant_idct_blocks for grayscale."""
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    if info.num_components == 1:
+        return IDCT
+    return DK.kernel_for(info.comp_h_samp[0] // info.comp_h_samp[1] == 2,
+                         info.comp_v_samp[0] // info.comp_v_samp[1] == 2)
+
+
+def plain_still(dec):
+    """The plain version of a JpegDecoder's frame, (H, W, C) u8, taken
+    from a stack of two copies of its coefficients (see plain_decode)."""
+    import torch
+    from lilliput_tpu_torch.ops import jpeg_kernels as K
+    info = dec._info
+    h, w = info.height, info.width
+
+    def two(c, get):
+        t = get(c)
+        return torch.stack([t, t])
+    if info.num_components == 1:
+        return K.decode_gray(two(0, dec._coef), two(0, dec._qtable), h, w,
+                             plain=True)[0][..., None]
+    planes = K.decode_ycc_420(
+        *(two(c, dec._coef) for c in range(3)),
+        *(two(c, dec._qtable) for c in range(2)), h, w,
+        info.comp_h_samp[0] // info.comp_h_samp[1] == 2,
+        info.comp_v_samp[0] // info.comp_v_samp[1] == 2, plain=True)
+    return torch.stack([p[0] for p in planes], dim=-1)
+
+
+def still_args(dec):
+    """A JpegDecoder's coefficients and folded tables as its kernel's
+    batch-1 arguments."""
+    from lilliput_tpu_torch.ops import jpeg_kernels as K
+    n = 1 if dec._info.num_components == 1 else 3
+    return (tuple(dec._coef(c)[None] for c in range(n))
+            + tuple(K.fold_qtables(dec._qtable(c)) for c in range(min(n, 2))))
+
+
+def _gate(what, got, ref, limits, unit):
+    mx, nd, n = diff_stats(got, ref)
+    print(f"phase 5: {what}: max_abs_diff={mx} differing={nd}/{n} "
+          f"({nd / n:.3g}) {unit}", flush=True)
+    check(mx <= limits[0] and nd <= limits[1] * n, f"{what} disagrees")
+
+
+def still_times(fixture, reps: int = 5):
+    """Host-clock ms per image of the single-image surface's stages on the
+    card, each ended by a sync: decode (header, host Huffman, H2D, the
+    kernel), transform (orientation and Fit), encode to .jpeg and to .png
+    (device stages, D2H, host entropy)."""
+    import torch
+    from lilliput_tpu_torch import Framebuffer, new_decoder, new_encoder
+    t = {}
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dec = new_decoder(fixture, device=DEVICE)
+        fb = Framebuffer()
+        dec.decode_to(fb)
+        torch.cuda.synchronize()
+    t["decode_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        x = Framebuffer(fb.array)
+        x.orientation_transform(dec.header().orientation)
+        out = x.fit(DST, DST)
+        torch.cuda.synchronize()
+    t["transform_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    for fmt in (".jpeg", ".png"):
+        enc = new_encoder(fmt, dec)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            enc.encode(out, {})
+        t[f"encode{fmt.replace('.', '_')}_ms"] = (
+            1e3 * (time.perf_counter() - t0) / reps)
+    return t
+
+
+def phase5(card, kernels):
+    """The single-image surface: new_decoder -> ImageOps.transform to
+    .jpeg and .png (Fit 256x256) for each still, with the launch counts 0
+    just before and read just after; then the comparisons and times.
+    Adds the launches to `kernels` and each kernel's batch-1 whole-frame
+    times (still_ms, still_plain_ms, still_bound_ms)."""
+    import torch
+    from lilliput_tpu_torch import (Framebuffer, ImageOps, ImageOptions,
+                                    ResizeMethod, new_decoder)
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+
+    def opts(fmt):
+        return ImageOptions(file_type=fmt, width=DST, height=DST,
+                            resize_method=ResizeMethod.FIT)
+    timed = set()
+    for still in STILLS:
+        with open(os.path.join(ASSETS, still), "rb") as f:
+            fixture = f.read()
+        dec = new_decoder(fixture, device=DEVICE)
+        kernel = still_kernel(dec._info)
+        want = {k: int(k == kernel) for k in DK.launches}
+        outs = {}
+        DK.reset_launches()
+        for fmt in (".jpeg", ".png", "decode_to"):
+            before = dict(DK.launches)
+            if fmt == "decode_to":
+                fb = Framebuffer()
+                dec.decode_to(fb)
+            else:
+                outs[fmt] = ImageOps(8192).transform(
+                    new_decoder(fixture, device=DEVICE), opts(fmt))
+            check({k: DK.launches[k] - before[k] for k in before} == want,
+                  f"{still} {fmt}: {kernel} did not launch exactly once "
+                  f"(or another kernel launched)")
+        counts = dict(DK.launches)
+        print(f"phase 5: {still} transform .jpeg, .png and decode_to: "
+              f"launches={counts}", flush=True)
+        kernels[kernel]["launches"] += counts[kernel]
+        kernels[kernel]["still_launches"] = (
+            kernels[kernel].get("still_launches", 0) + counts[kernel])
+
+        gate = (KERNEL_MAX_DIFF, KERNEL_MAX_SHARE)
+        cpu = Framebuffer()
+        new_decoder(fixture, device="cpu").decode_to(cpu)
+        _gate(f"{still} decode vs plain decode (2-image stack)", [fb.array],
+              [plain_still(dec)], gate, "u8")
+        _gate(f"{still} decode vs CPU decode", [fb.array],
+              [cpu.array.to(DEVICE)], gate, "u8")
+        cpu_outs = {fmt: ImageOps(8192).transform(
+            new_decoder(fixture, device="cpu"), opts(fmt))
+            for fmt in (".jpeg", ".png")}
+        got, ref = png_pixels(outs[".png"]), png_pixels(cpu_outs[".png"])
+        check(got.shape == ref.shape == (DST, DST, dec.header().channels),
+              f"{still} .png is {got.shape}")
+        _gate(f"{still} .png pixels vs CPU", [torch.from_numpy(got)],
+              [torch.from_numpy(ref)], gate, "u8")
+        _gate(f"{still} .jpeg coefficients vs CPU",
+              [torch.from_numpy(c) for c in jpeg_coefs(outs[".jpeg"])],
+              [torch.from_numpy(c) for c in jpeg_coefs(cpu_outs[".jpeg"])],
+              (STEP_MAX_DIFF, STEP_MAX_SHARE), "coefficients")
+        t = still_times(fixture)
+        if kernel not in timed:
+            timed.add(kernel)
+            k = kernel_times(kernel, still_args(dec))
+            kernels[kernel].update(still_ms=k["kernel_ms"],
+                                   still_plain_ms=k["plain_ms"],
+                                   still_bound_ms=k["bound_ms"])
+            t.update({f"{kernel}_batch1_{n}": v for n, v in k.items()})
+        for n, v in t.items():
+            print(f"phase 5: {still} {n}={v!r} [{card}]", flush=True)
+        del dec, fb, cpu
+        torch.cuda.empty_cache()
+
+
+def phase6(card):
+    """The overlap check: in one transcode_pipelined of 4 batches on 4:2:0,
+    every _to_host of batch i-1 must return while step i's event is still
+    pending. Prints images/s and the busy share."""
+    from lilliput_tpu_torch import JpegTranscodePipeline
+    with open(os.path.join(ASSETS, PATHS["420"].fixture), "rb") as f:
+        fixture = f.read()
+    pipe = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                 device=DEVICE)
+    bufs = [fixture] * BATCH
+    pipe.transcode_pipelined([bufs] * 2)      # warm: both slots of each pool
+    fetches, pending = [], []
+    fetch0, to_host0 = pipe._fetch, pipe._to_host
+
+    def fetch(dev):
+        fetches.append(fetch0(dev))
+        return fetches[-1]
+
+    def to_host(f):
+        arrs = to_host0(f)
+        i = next(k for k, g in enumerate(fetches) if g is f)
+        if i + 1 < len(fetches):
+            pending.append(not fetches[i + 1].event.query())
+        return arrs
+    pipe._fetch, pipe._to_host = fetch, to_host
+    t0 = time.perf_counter()
+    res = pipe.transcode_pipelined([bufs] * 4)
+    ips = 4 * BATCH / (time.perf_counter() - t0)
+    del pipe._fetch, pipe._to_host
+    check_outputs("420", res)
+    print(f"phase 6: 420 transcode_pipelined 4x{BATCH}: step i still "
+          f"pending when _to_host(i-1) returned: {pending}", flush=True)
+    check(len(pending) == 3 and all(pending), "transcode_pipelined waited "
+          "for step i before returning batch i-1's outputs")
+    busy = busy_share(lambda: pipe.transcode_pipelined([bufs] * 4))
+    print(f"phase 6: 420 pipelined_ips={ips!r} device_busy_share={busy!r} "
+          f"[{card}]", flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -692,6 +982,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     check(set(kernels) == set(KERNELS), f"kernels not driven: "
           f"{set(KERNELS) - set(kernels)}")
+    phase5(card, kernels)
+    phase6(card)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -1,14 +1,19 @@
-"""ctypes loader for the port's host entropy library.
+"""ctypes loader for the port's host library.
 
 The counterpart of ``lilliput_tpu/binding.py``. It does not run the JAX
 package's ``make`` (which compiles every native shim and links libjpeg,
-libwebp and ffmpeg): the slice needs only the Huffman decoder
-(``csrc/host/jpeg_huff.cpp``, a byte-for-byte copy of the JAX package's
-``native/src/jpeg_huff.cpp``, held equal by tests/test_torch_host.py) and
-the port's baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). Neither
-needs libjpeg, so the library builds on machines without it. It is built with g++ at first
-use into ``lilliput_tpu_torch/_build/`` (see ``ops/_build.py``); a failed
-build raises.
+libwebp and ffmpeg): the port needs the Huffman decoder
+(``csrc/host/jpeg_huff.cpp``), the PNG row filters with their deflate
+helpers (``csrc/host/png_filter.cpp``), both byte-for-byte copies of the
+JAX package's ``native/src`` files held equal by tests, and the port's
+baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). None needs libjpeg,
+so the library builds on machines without it. ``png_filter.cpp`` uses
+libdeflate where ``libdeflate.h`` exists; the build then links
+``-ldeflate``, the decision of ``lilliput_tpu/native/Makefile``, and
+elsewhere ``lp_zlib_fast_available()`` is 0 and the PNG encoder deflates
+with Python's zlib. It is built with g++ at first use into
+``lilliput_tpu_torch/_build/`` (see ``ops/_build.py``); a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +27,10 @@ from .ops import _build
 HOST_SOURCES = (
     os.path.join(_build.CSRC_DIR, "host", "jpeg_huff.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "jpeg_enc.cpp"),
+    os.path.join(_build.CSRC_DIR, "host", "png_filter.cpp"),
 )
+#: the header whose presence compiles png_filter.cpp's libdeflate route
+LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
 
 _lock = threading.Lock()
 _lib = None
@@ -42,6 +50,20 @@ def _configure(lib: ctypes.CDLL) -> None:
         c.c_int32, c.c_int32, c.c_int32, i32p, i32p, c.POINTER(i16p),
         u16p, u16p, u8p, c.c_int32, u8p, c.c_size_t]
     lib.lpt_jpeg_encode_baseline.restype = c.c_long
+    lib.lp_png_filter.argtypes = [u8p, u8p, c.c_int64, c.c_int64, c.c_int32]
+    lib.lp_png_filter.restype = None
+    lib.lp_png_unfilter.argtypes = [u8p, u8p, c.c_int64, c.c_int64,
+                                    c.c_int32]
+    lib.lp_png_unfilter.restype = c.c_int
+    lib.lp_zlib_fast_available.argtypes = []
+    lib.lp_zlib_fast_available.restype = c.c_int
+    lib.lp_zlib_compress.argtypes = [u8p, c.c_int64, u8p, c.c_int64,
+                                     c.c_int32]
+    lib.lp_zlib_compress.restype = c.c_int64
+    lib.lp_zlib_compress_bound.argtypes = [c.c_int64]
+    lib.lp_zlib_compress_bound.restype = c.c_int64
+    lib.lp_zlib_decompress.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
+    lib.lp_zlib_decompress.restype = c.c_int64
 
 
 def build() -> str:
@@ -51,7 +73,14 @@ def build() -> str:
                                    "g++", "-O3", "-fPIC", "-std=c++20",
                                    "-march=native", "-shared", "-pthread",
                                    "-Wl,--no-undefined", "-o", out,
-                                   *HOST_SOURCES])
+                                   *HOST_SOURCES, *_libs()])
+
+
+def _libs() -> list:
+    """Link flags: -ldeflate where png_filter.cpp compiles libdeflate in
+    (its ``__has_include`` sees the header), as the JAX package's Makefile
+    decides."""
+    return ["-ldeflate"] if os.path.exists(LIBDEFLATE_HEADER) else []
 
 
 def load() -> ctypes.CDLL:

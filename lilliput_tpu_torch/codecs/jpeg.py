@@ -1,24 +1,48 @@
-"""JPEG host helpers of the serving slice: header parse, marker walkers,
-quantization tables.
+"""JPEG codec: host entropy stages + device dense transforms.
 
-The counterpart of the host half of ``lilliput_tpu/codecs/jpeg.py``. That
-module reads headers through libjpeg (``lp_jpeg_get_info``) and scales
-tables with ``lp_jpeg_scale_qtable``; the port runs where libjpeg may be
-absent, so ``read_info`` parses the header in Python to the same fields
-(held against ``lp_jpeg_get_info`` in tests/test_torch_host.py) and
-``scaled_qtables`` is libjpeg's ``jpeg_quality_scaling`` arithmetic. The
-full ``JpegDecoder``/``JpegEncoder`` are not ported yet (ROADMAP queue 1).
+The counterpart of ``lilliput_tpu/codecs/jpeg.py``: header parse, marker
+walkers (EXIF orientation, ICC, Adobe APP14, content length), quantization
+tables, and the single-image ``JpegDecoder``/``JpegEncoder``. That module
+reads headers through libjpeg (``lp_jpeg_get_info``) and scales tables with
+``lp_jpeg_scale_qtable``; the port runs where libjpeg may be absent, so
+``read_info`` parses the header in Python to the same fields (held against
+``lp_jpeg_get_info`` in tests/test_torch_host.py) and ``scaled_qtables`` is
+libjpeg's ``jpeg_quality_scaling`` arithmetic.
+
+``JpegDecoder`` Huffman-decodes on the host (jpeg_huff.cpp: baseline and
+progressive) and decodes the pixels on its device: the layout's CUDA decode
+kernel for colour sources (``ops/jpeg_kernels.decode_ycc_420``), the
+``dequant_idct_blocks`` kernel's u8 epilogue for grayscale
+(``decode_gray``). ``JpegEncoder`` runs the colour conversion, fDCT and
+quantization on the frame's device and the port's baseline Huffman encoder
+(``csrc/host/jpeg_enc.cpp``) on the host. Without libjpeg the port has no
+decode route for streams jpeg_huff.cpp declines, and no progressive,
+optimized or restart-interval encode: those raise NotImplementedError
+naming ROADMAP queue 1 item 2; JCS_RGB and CMYK/YCCK sources name item 5.3.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
-from ..errors import DecodingFailedError
+from ..errors import DecodingFailedError, InvalidImageError, not_ported
+from ..framebuffer import (JPEG_CHROMA_QUALITY, JPEG_LUMA_QUALITY,
+                           JPEG_OPTIMIZE, JPEG_PROGRESSIVE, JPEG_QUALITY,
+                           JPEG_RST_INTERVAL, Framebuffer, ImageHeader)
+from ..interfaces import Decoder, Encoder, check_encode_options
+from ..utils import resolve_device
+
+_JPEG_ENCODE_KEYS = frozenset({
+    JPEG_QUALITY, JPEG_PROGRESSIVE, JPEG_OPTIMIZE, JPEG_RST_INTERVAL,
+    JPEG_LUMA_QUALITY, JPEG_CHROMA_QUALITY})
+_i16p = ctypes.POINTER(ctypes.c_int16)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
 
 # Standard Annex K base quantization tables (JPEG spec Tables K.1/K.2).
 STD_LUMA_QTABLE = np.array([
@@ -386,3 +410,270 @@ def scaled_qtables(quality: int, chroma_quality: Optional[int] = None):
             _scale_qtable(STD_CHROMA_QTABLE,
                           quality if chroma_quality is None
                           else chroma_quality))
+
+
+# ---------------------------------------------------------------------------
+# byte walkers of the single-image surface
+# ---------------------------------------------------------------------------
+
+def has_adobe_marker(buf: bytes) -> bool:
+    """APP14 'Adobe' marker: CMYK/YCCK samples are stored inverted.
+
+    libjpeg (examine_app14) matches the 5 ASCII bytes "Adobe" with a
+    12-byte payload (seglen >= 14 counting the length field)."""
+    for marker, off, seglen in _iter_marker_segments(buf):
+        if marker == 0xEE and seglen >= 14 and buf[off:off + 5] == b"Adobe":
+            return True
+    return False
+
+
+def jpeg_content_length(buf: bytes) -> int:
+    """Length up to and including EOI; trailing bytes beyond are unwanted
+    (acropalypse-type leak surface, see reference opencv.go:502-557).
+
+    Walks marker segments (so EOIs inside EXIF thumbnails are skipped), then
+    scans entropy data where 0xFF is always escaped (FF 00) or a RST marker,
+    making the first unescaped FF D9 the real EOI."""
+    n = len(buf)
+    i = 2  # past SOI
+    in_scan = False
+    while i + 1 < n:
+        if not in_scan:
+            if buf[i] != 0xFF:
+                return n  # malformed; keep everything
+            while i + 2 < n and buf[i + 1] == 0xFF:  # 0xFF fill bytes
+                i += 1
+            marker = buf[i + 1]
+            if marker == 0xD9:
+                return i + 2
+            if marker == 0xDA:
+                i += 2 + int.from_bytes(buf[i + 2:i + 4], "big")
+                in_scan = True
+                continue
+            if marker in (0x01,) or 0xD0 <= marker <= 0xD8:
+                i += 2
+                continue
+            if i + 4 > n:
+                return n
+            i += 2 + int.from_bytes(buf[i + 2:i + 4], "big")
+        else:
+            idx = buf.find(b"\xff", i)
+            if idx == -1 or idx + 1 >= n:
+                return n
+            m = buf[idx + 1]
+            if m == 0xD9:
+                return idx + 2
+            if m == 0x00 or 0xD0 <= m <= 0xD7:
+                i = idx + 2  # stuffed byte or restart marker: still in scan
+            else:
+                i = idx      # next marker segment (e.g. progressive scans)
+                in_scan = False
+    return n
+
+
+def intra_decode_workers() -> int:
+    """Host threads for restart-marker-parallel Huffman decode of ONE image
+    (LILLIPUT_JPEG_INTRA_WORKERS; default 1 = serial)."""
+    try:
+        return max(int(os.environ.get("LILLIPUT_JPEG_INTRA_WORKERS", "1")), 1)
+    except ValueError:
+        return 1
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+class JpegDecoder(Decoder):
+    """One JPEG still: the header on construction, the pixels on
+    ``decode_to`` as an (H, W, 3) BGR or (H, W, 1) gray u8 tensor on
+    `device` ("cuda" unless the caller asks for the CPU)."""
+
+    def __init__(self, buf: bytes, device="cuda"):
+        if len(buf) < 3 or buf[0] != 0xFF or buf[1] != 0xD8:
+            raise InvalidImageError("not a JPEG")
+        self.device = resolve_device(device)
+        self._buf = np.frombuffer(buf, np.uint8)
+        self._raw = buf
+        from .. import binding
+        self._lib = binding.load()
+        try:
+            self._info = read_info(buf)
+        except DecodingFailedError as e:
+            raise InvalidImageError(str(e)) from e
+        self._decoded = False
+        self._header: Optional[ImageHeader] = None
+
+    def header(self) -> ImageHeader:
+        if self._header is None:
+            info = self._info
+            self._header = ImageHeader(
+                width=info.width,
+                height=info.height,
+                channels=1 if info.num_components == 1 else 3,
+                orientation=exif_orientation(self._raw),
+                num_frames=1,
+                content_length=jpeg_content_length(self._raw),
+            )
+        return self._header
+
+    def description(self) -> str:
+        return "JPEG"
+
+    def icc(self) -> bytes:
+        # jpeg_huff.cpp skips APPn payloads; the APP2 walk returns the
+        # concatenation libjpeg's reader does
+        return read_icc(self._raw) if self._info.icc_length > 0 else b""
+
+    def _decode_coefs_cached(self):
+        if hasattr(self, "_coefs"):
+            return
+        if not use_fast_huff():
+            not_ported("the libjpeg Huffman decode route", "item 2")
+        info = self._info
+        nc = info.num_components
+        coefs = [np.empty((info.comp_blocks_h[c], info.comp_blocks_w[c], 64),
+                          np.int16) for c in range(nc)]
+        qtables = np.zeros((4, 64), np.uint16)
+        rc = self._lib.lp_jpeg_decode_coefs_fast(
+            _u8ptr(self._buf), self._buf.size,
+            (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in coefs]),
+            qtables.ctypes.data_as(_u16p), intra_decode_workers())
+        if rc != 0:
+            # jpeg_huff.cpp declines (arithmetic coding, non-interleaved
+            # baseline scans, ...) where the JAX package falls back to
+            # libjpeg, which the port does not have
+            not_ported(f"decoding this JPEG stream (jpeg_huff.cpp "
+                       f"declined it, {rc}) through libjpeg", "item 2")
+        self._coefs = coefs
+        self._qtables = qtables
+
+    def _coef(self, c: int) -> torch.Tensor:
+        return torch.from_numpy(self._coefs[c]).to(self.device)
+
+    def _qtable(self, c: int) -> torch.Tensor:
+        t = self._qtables[self._info.comp_quant_tbl[c]].astype(np.float32)
+        return torch.from_numpy(t).to(self.device)
+
+    def decode_to(self, fb: Framebuffer) -> None:
+        if self._decoded:
+            raise EOFError()
+        from ..ops import jpeg_kernels as K
+        info = self._info
+        h, w = info.height, info.width
+        if info.num_components == 1:
+            self._decode_coefs_cached()
+            px = K.decode_gray(self._coef(0), self._qtable(0), h, w)[..., None]
+        elif info.num_components == 3:
+            if not supported_subsampling(info):
+                raise DecodingFailedError("unsupported chroma subsampling")
+            if info.jpeg_color_space == JCS_RGB:
+                not_ported("decoding JCS_RGB (untransformed RGB) JPEGs",
+                           "item 5.3")
+            if info.jpeg_color_space != JCS_YCBCR:
+                raise DecodingFailedError(
+                    f"unsupported 3-component JPEG colorspace "
+                    f"{info.jpeg_color_space}")
+            self._decode_coefs_cached()
+            hy, vy = info.comp_h_samp[0], info.comp_v_samp[0]
+            hc, vc = info.comp_h_samp[1], info.comp_v_samp[1]
+            tcb, tcr = info.comp_quant_tbl[1], info.comp_quant_tbl[2]
+            planes = K.decode_ycc_420(
+                self._coef(0), self._coef(1), self._coef(2),
+                self._qtable(0), self._qtable(1), h, w,
+                hy // hc == 2, vy // vc == 2,
+                qt_chroma2=None if tcr == tcb else self._qtable(2))
+            px = torch.stack(planes, dim=-1)
+        elif info.num_components == 4:
+            not_ported("decoding 4-component (CMYK/YCCK) JPEGs", "item 5.3")
+        else:
+            raise DecodingFailedError(
+                f"unsupported JPEG component count {info.num_components}")
+        fb.array = px
+        fb.duration = 0.0
+        fb.x_offset = fb.y_offset = 0
+        self._decoded = True
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+class JpegEncoder(Encoder):
+    """Single-frame baseline encoder: colour conversion, fDCT and
+    quantization on the frame's device, Huffman coding on the host."""
+
+    def __init__(self, decoded_by: Optional[Decoder] = None,
+                 icc_override: Optional[bytes] = None):
+        from .. import binding
+        self._lib = binding.load()
+        self._icc = icc_override
+        if self._icc is None and decoded_by is not None:
+            try:
+                self._icc = decoded_by.icc() or None
+            except Exception:
+                self._icc = None
+
+    def encode(self, fb: Optional[Framebuffer], opts: Dict[int, int]) -> Optional[bytes]:
+        if fb is None:
+            raise DecodingFailedError("JPEG encoder cannot flush without a frame")
+        opts = opts or {}
+        check_encode_options(opts, _JPEG_ENCODE_KEYS, "jpeg")
+        for key, what in ((JPEG_PROGRESSIVE, "progressive JPEG encode"),
+                          (JPEG_OPTIMIZE, "optimized Huffman tables"),
+                          (JPEG_RST_INTERVAL, "restart-interval encode")):
+            if int(opts.get(key, 0)) > 0:
+                not_ported(f"{what} (needs libjpeg)", "item 2")
+        quality = int(opts.get(JPEG_QUALITY, 95))
+        quality = min(max(quality, 1), 100)
+        # per-table quality: LUMA_QUALITY overrides the overall quality for
+        # the luma table; CHROMA_QUALITY defaults to LUMA_QUALITY and is
+        # ignored without it (cv2's own gate)
+        luma_q = int(opts.get(JPEG_LUMA_QUALITY, -1))
+        if luma_q >= 0:
+            luma_q = min(max(luma_q, 1), 100)
+            chroma_q = int(opts.get(JPEG_CHROMA_QUALITY, luma_q))
+            chroma_q = min(max(chroma_q, 1), 100)
+            qt_l, qt_c = scaled_qtables(luma_q, chroma_q)
+        else:
+            qt_l, qt_c = scaled_qtables(quality)
+
+        from ..ops import jpeg_kernels as K
+        arr = fb.array
+        h, w = fb.height, fb.width
+
+        def dev(qt):
+            return torch.from_numpy(qt.astype(np.float32)).to(arr.device)
+        if fb.channels == 1:
+            comps = [K.encode_gray_from_u8(arr, dev(qt_l))]
+            h_samp, v_samp = [1], [1]
+        else:
+            comps = list(K.encode_from_bgr(arr, dev(qt_l), dev(qt_c),
+                                           subsample=True))
+            h_samp, v_samp = [2, 1, 1], [2, 1, 1]
+        # crop the MCU padding to libjpeg's block geometry
+        # (width_in_blocks = ceil(w*hs/(8*max_h)), same for rows)
+        max_h, max_v = max(h_samp), max(v_samp)
+        for i in range(len(comps)):
+            exp_bw = (w * h_samp[i] + 8 * max_h - 1) // (8 * max_h)
+            exp_bh = (h * v_samp[i] + 8 * max_v - 1) // (8 * max_v)
+            comps[i] = np.ascontiguousarray(
+                comps[i][:exp_bh, :exp_bw].cpu().numpy())
+        nc = len(comps)
+        icc = self._icc or b""
+        icc_arr = np.frombuffer(icc, np.uint8) if icc else None
+        out = np.empty(w * h * 4 + len(icc) + (1 << 20), np.uint8)
+        n = self._lib.lpt_jpeg_encode_baseline(
+            w, h, nc, (ctypes.c_int32 * nc)(*h_samp),
+            (ctypes.c_int32 * nc)(*v_samp),
+            (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in comps]),
+            qt_l.ctypes.data_as(_u16p), qt_c.ctypes.data_as(_u16p),
+            icc_arr.ctypes.data_as(_u8p) if icc_arr is not None else None,
+            len(icc), _u8ptr(out), out.size)
+        if n < 0:
+            raise DecodingFailedError(f"JPEG entropy encode failed ({n})")
+        return out[:n].tobytes()
+
+
+def _u8ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(_u8p)

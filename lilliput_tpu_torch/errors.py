@@ -27,3 +27,13 @@ class SkipNotSupportedError(LilliputError):
 
 class EncodeTimeoutError(LilliputError):
     """Encode timed out."""
+
+
+def not_ported(what: str, item: str):
+    """Raise NotImplementedError for a part of the JAX package the port
+    does not have yet, naming its ROADMAP queue 1 item: never an
+    InvalidImageError, so a caller can tell "not ported" from "not an
+    image"."""
+    raise NotImplementedError(
+        f"{what} is not ported to lilliput_tpu_torch yet "
+        f"(ROADMAP queue 1, {item}); use lilliput_tpu")

@@ -484,3 +484,12 @@ def encode_from_bgr(img, qt_luma, qt_chroma, subsample: bool = True):
     arrays, 4:2:0 when subsample else 4:4:4. Alpha is ignored."""
     return _encode_ycc(*bgr_to_ycbcr(img[..., :3]), qt_luma, qt_chroma,
                        subsample)
+
+
+def encode_gray_from_u8(img, qt_luma):
+    """(..., H, W, 1) u8 -> quantized luma coefficients (the MCU padding
+    edge-replicated to multiples of 8)."""
+    y = img[..., 0].to(torch.float32)
+    h, w = y.shape[-2], y.shape[-1]
+    return fdct_quant(_pad_to(y, (h + 7) // 8 * 8, (w + 7) // 8 * 8),
+                      qt_luma)

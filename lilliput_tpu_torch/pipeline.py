@@ -1,11 +1,11 @@
 """Batched JPEG Fit transcode — the port's serving path.
 
-The JPEG-out half of ``lilliput_tpu/pipeline.py``: a batch of
+The JPEG-in half of ``lilliput_tpu/pipeline.py``: a batch of
 same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
-orientation) to Fit-cropped JPEGs at the destination size, in every mode
-the JAX pipeline has for JPEG output: AREA, LINEAR or CUBIC resize,
-chroma_mode "rgb" or "direct", dct_scale 1, 2 or 4, and the
-LILLIPUT_FUSED_EXACT tier. Five stages:
+orientation) to Fit-cropped JPEGs or PNGs at the destination size, in
+every mode the JAX pipeline has: AREA, LINEAR or CUBIC resize, chroma_mode
+"rgb" or "direct", dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT tier.
+Five stages:
 
 1. host Huffman decode (``decode_entropy``, jpeg_huff.cpp): upright
    sources into the MCU window around the Fit crop, oriented ones whole;
@@ -26,15 +26,21 @@ LILLIPUT_FUSED_EXACT tier. Five stages:
    form); the direct mode resamples each chroma plane once at its own
    resolution (general-position AREA matrices); LILLIPUT_FUSED_EXACT
    switches the AREA tails to the byte-identical sequential-tap forms;
-4. BGR->YCbCr, 2x2 chroma downsample, fDCT and quantization
+4. JPEG output: BGR->YCbCr, 2x2 chroma downsample, fDCT and quantization
    (``ops/jpeg_kernels``; the luma fDCT alone for grayscale; the fDCT of
-   the three YCbCr planes in the direct mode);
-5. host Huffman encode (``encode_entropy``, csrc/host/jpeg_enc.cpp).
+   the three YCbCr planes in the direct mode). PNG output: the resized
+   planes packed to little-endian B, G, R, 255 int32 pixels
+   (``_pack_pixels``; the direct mode colour-converts at the output size
+   first);
+5. host encode: Huffman (``encode_entropy``, csrc/host/jpeg_enc.cpp), or
+   PNG row filters and deflate (``encode_pixels``, codecs/png.py).
 
-Stages 2-4 run on the pipeline's torch device; the host threads run the
-serial entropy stages and overlap with device work through CUDA's
-asynchronous launches (``transcode_pipelined``). Everything outside the
-port (.webp/.png outputs, encode_options, optimize_coding) raises
+Stages 2-4 run on the pipeline's torch device, and the host threads run
+the serial stages. ``transcode_pipelined`` overlaps them: the end of each
+device step queues its outputs' copies into pinned host arrays and records
+a CUDA event, and the host waits on that event alone, so it encodes batch
+i-1 and decodes batch i+1 while step i runs. Everything outside the port
+(.webp output, optimize_coding, the libjpeg decode route) raises
 NotImplementedError naming its ROADMAP queue 1 item; nothing falls back.
 """
 
@@ -43,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,9 +57,11 @@ import torch
 from . import binding
 from .codecs import jpeg as J
 from .errors import DecodingFailedError
+from .errors import not_ported as _not_ported
 from .ops import jpeg_kernels as K
 from .ops import orient as O
 from .ops import resize as R
+from .utils import resolve_device
 
 _i16p = ctypes.POINTER(ctypes.c_int16)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -139,10 +147,35 @@ def _oriented_fit(src_w: int, src_h: int, dst_w: int, dst_h: int,
     return fit_rect(src_w, src_h, dst_w, dst_h)
 
 
+_ALPHA_FF = -16777216  # 0xFF000000 as int32: the alpha byte of a pixel
+
+
+def _pack_pixels(bpl, gpl, rpl) -> torch.Tensor:
+    """Three (..., H, W) channel planes (u8 values, any numeric storage;
+    rounded half to even and clipped) -> packed BGRA int32, whose
+    little-endian bytes are B, G, R, 255: the serving pixel output (the
+    JAX package's _pack_pixels)."""
+    def u8(x):
+        return torch.clamp(torch.round(x.to(torch.float32)), 0.0,
+                           255.0).to(torch.int32)
+    return u8(bpl) | (u8(gpl) << 8) | (u8(rpl) << 16) | _ALPHA_FF
+
+
+def _encode_or_pack(out, enc_qt_y, enc_qt_c, emit: str):
+    """The colour tails' last stage on the resized (b, g, r) planes:
+    4:2:0 encode coefficients (emit="coefs"), or the packed pixels as a
+    1-tuple (emit="pixels")."""
+    if emit == "pixels":
+        return (_pack_pixels(*out),)
+    return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
+                                    enc_qt_c, subsample=True)
+
+
 def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                          src_w: int, src_h: int, dst_w: int, dst_h: int,
                          window, h2: bool, v2: bool, orientation: int = 1,
-                         method: str = R.AREA, plain: bool = False):
+                         method: str = R.AREA, plain: bool = False,
+                         emit: str = "coefs"):
     """(B, bh, bw, 64) coefficient batches -> quantized encode coefficients
     (yq, cbq, crq): chroma_mode="rgb" (lilliput_tpu/pipeline.py:247-318).
 
@@ -156,7 +189,8 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
     (:304-318): the whole frame is decoded, oriented, cropped to the Fit
     rect of the upright size and resized (AREA: resize_area_mxu, or the
     exact forms under LILLIPUT_FUSED_EXACT; else the streaming kernels).
-    Either way the resized planes are re-encoded at 4:2:0; the JAX
+    Either way the resized planes are re-encoded at 4:2:0 (emit="coefs")
+    or packed to BGRA pixels (emit="pixels", a 1-tuple); the JAX
     function's interleaved (..., H, W, 3) resize is per channel, so each
     plane gives its channel's values. plain=True decodes with the plain
     PyTorch versions of the kernels (for comparisons on the card)."""
@@ -169,8 +203,7 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                                                  left:left + w]
                  for p in planes]
         out = [_resize_cropped(p, dst_w, dst_h, method) for p in crops]
-        return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
-                                        enc_qt_c, subsample=True)
+        return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
     x0, y0, rw, rh = window
     if method != R.AREA:
@@ -179,8 +212,7 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
         out = [_resize_cropped(p[..., top - y0:top - y0 + h,
                                  left - x0:left - x0 + w], dst_w, dst_h,
                                method) for p in planes]
-        return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
-                                        enc_qt_c, subsample=True)
+        return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
     if h2 and v2:
         planes = K.decode_ycc_u8_plane_blocks(yc, cb, cr, qt_y, qt_c, True,
                                               True, plain=plain)
@@ -199,8 +231,7 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
     out = [torch.clamp(torch.round(R.resize_area_plane_embedded(
         p, crop[0], w, dst_w, crop[1], h, dst_h)), 0, 255)
         for p in planes]
-    return K.encode_from_bgr_planes(out[0], out[1], out[2], enc_qt_y,
-                                    enc_qt_c, subsample=True)
+    return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
 
 
 def _resize_cropped(plane, dst_w: int, dst_h: int, method: str):
@@ -235,7 +266,8 @@ def _resize_scaled(plane, dst_w: int, dst_h: int, scale_w: float,
 
 def _fused_jpeg_fit_ycc_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                              src_w: int, src_h: int, dst_w: int, dst_h: int,
-                             window, dct_scale: int = 1):
+                             window, dct_scale: int = 1,
+                             emit: str = "coefs"):
     """chroma_mode="direct" (lilliput_tpu/pipeline.py:321-419, JPEG out):
     the planes never leave YCbCr. Luma is cropped and resized straight to
     the output grid; each chroma plane is resampled ONCE at its native half
@@ -246,7 +278,11 @@ def _fused_jpeg_fit_ycc_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
     1/2 or 1/4 scale from the top-left kxk coefficients (k = 8 //
     dct_scale), which the host may have cut to those lanes. No decode
     kernel runs: the IDCTs are torch matmuls, as the JAX package's XLA
-    dots (dequant_idct_u8, dequant_idct_scaled)."""
+    dots (dequant_idct_u8, dequant_idct_scaled). emit="pixels" upsamples
+    the resampled chroma to the output grid (the decode's triangle filter)
+    and colour-converts there, to packed BGRA (a 1-tuple), with the JAX
+    function's fused multiply-adds written out
+    (jpeg_kernels.centered_ycc_to_bgr)."""
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
     x0, y0 = window[:2]
     tx, ty = left - x0, top - y0
@@ -271,6 +307,10 @@ def _fused_jpeg_fit_ycc_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
                               tx / (2 * s), h / s / dst_h, ty / (2 * s))
 
     cbr, crr = chroma(cb), chroma(cr)
+    if emit == "pixels":
+        cbu = K.upsample_chroma(cbr, 2, 2, dst_h, dst_w) - 128.0
+        cru = K.upsample_chroma(crr, 2, 2, dst_h, dst_w) - 128.0
+        return (_pack_pixels(*K.centered_ycc_to_bgr(yr, cbu, cru)),)
     ph = (dst_h + 15) // 16 * 16
     pw = (dst_w + 15) // 16 * 16
     return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),
@@ -281,7 +321,8 @@ def _fused_jpeg_fit_ycc_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
 def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
                               dst_w: int, dst_h: int, window,
                               orientation: int = 1, method: str = R.AREA,
-                              dct_scale: int = 1, plain: bool = False):
+                              dct_scale: int = 1, plain: bool = False,
+                              emit: str = "coefs"):
     """(B, bh, bw, 64) luma coefficients -> quantized luma encode
     coefficients (yq,), 1-component JPEG in and out (the JAX function,
     lilliput_tpu/pipeline.py:422-478).
@@ -295,7 +336,9 @@ def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
     decode_gray decodes the whole frame through the dequant_idct_blocks
     kernel, then the plane is oriented, cropped to the Fit rect of the
     upright size and resized with the streaming resize of `method`.
-    plain=True decodes with the kernel's plain PyTorch version."""
+    emit="pixels" returns the resized plane as gray BGRA pixels (a
+    1-tuple). plain=True decodes with the kernel's plain PyTorch
+    version."""
     s = dct_scale
     if orientation == 1:
         left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
@@ -321,23 +364,40 @@ def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
         cropped = gray[..., top:top + h, left:left + w, None]
         yr = R.resize(cropped, dst_w, dst_h, method)[..., 0].to(
             torch.float32)
+    if emit == "pixels":
+        return (_pack_pixels(yr, yr, yr),)
     ph = (dst_h + 7) // 8 * 8
     pw = (dst_w + 7) // 8 * 8
     return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to lilliput_tpu_torch yet "
-        f"(ROADMAP queue 1, {item}); use lilliput_tpu")
+class _Fetch(NamedTuple):
+    """A device step's outputs on their way to the host: the host arrays
+    (pinned on CUDA, filled once `event` has completed; None on the CPU,
+    where they are ready)."""
+    arrays: List[np.ndarray]
+    event: Optional["torch.cuda.Event"]
 
 
 class _ServingPipelineBase:
     """Host-encode/orchestration stages of the serving pipelines.
 
     Subclasses provide `_host_decode` and `device_step` plus the attributes
-    the encode stage reads: dst_w/dst_h, ncomp, enc_qt_y_np/enc_qt_c_np,
-    _lib."""
+    the encode stages read: device, dst_w/dst_h, ncomp,
+    enc_qt_y_np/enc_qt_c_np, output_format, encode_options, _lib, and
+    `_pooled`."""
+
+    @property
+    def _emit(self) -> str:
+        """Device-step output: 'coefs' for JPEG output, else 'pixels'
+        (packed BGRA int32). The JAX package's 'yuv420' emit belongs to
+        .webp output (ROADMAP queue 1, item 4.7b)."""
+        return "coefs" if self.output_format == ".jpeg" else "pixels"
+
+    def _pixel_channels(self) -> int:
+        """Channel count the PNG encoder writes for pixel outputs: JPEG
+        sources decode to opaque BGR, gray sources stay 1-channel."""
+        return 1 if self.ncomp == 1 else 3
 
     def _host_decode(self, bufs: Sequence[bytes],
                      errors: Optional[Dict[int, Exception]] = None):
@@ -406,6 +466,48 @@ class _ServingPipelineBase:
                 list(ex.map(one, range(b)))
         return outs  # type: ignore[return-value]
 
+    def encode_pixels(self, packed: np.ndarray,
+                      iccs: Optional[Sequence[bytes]] = None,
+                      workers: Optional[int] = None) -> List[bytes]:
+        """Host still-encode stage for .png output.
+
+        packed: (B, dst_h, dst_w) int32 BGRA from device_step (little-
+        endian byte 0 = B). Threaded like encode_entropy (zlib and the row
+        filter release the GIL); _pixel_channels decides how many of the
+        bytes are written. PNG_COMPRESSION of encode_options sets the
+        level (6 by default)."""
+        from .codecs.png import encode_png_pixels
+        from .framebuffer import PNG_COMPRESSION
+        b = packed.shape[0]
+        bgra = np.ascontiguousarray(packed).view(np.uint8).reshape(
+            b, self.dst_h, self.dst_w, 4)
+        outs: List[Optional[bytes]] = [None] * b
+        ch = self._pixel_channels()
+        level = int(self.encode_options.get(PNG_COMPRESSION, 6))
+
+        def one(i: int):
+            icc = (iccs[i] if iccs is not None else b"") or None
+            outs[i] = encode_png_pixels(
+                np.ascontiguousarray(bgra[i][:, :, :ch]), level, icc)
+
+        n_workers = (workers if workers is not None
+                     else min(8, os.cpu_count() or 1))
+        if n_workers <= 1 or b <= 1:
+            for i in range(b):
+                one(i)
+        else:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(n_workers) as ex:
+                list(ex.map(one, range(b)))
+        return outs  # type: ignore[return-value]
+
+    def _encode_outputs(self, arrs: Sequence[np.ndarray],
+                        iccs: Optional[Sequence[bytes]]) -> List[bytes]:
+        """Dispatch the host encode stage by output format."""
+        if self.output_format == ".jpeg":
+            return self.encode_entropy(*arrs, iccs=iccs)
+        return self.encode_pixels(arrs[0], iccs=iccs)
+
     # -- end to end -----------------------------------------------------------
 
     @staticmethod
@@ -426,10 +528,33 @@ class _ServingPipelineBase:
             out[i] = e  # type: ignore[assignment]
         return out
 
+    def _fetch(self, dev) -> _Fetch:
+        """Queue the copies of a device step's outputs to the host.
+
+        On CUDA: non-blocking copies into pinned host arrays from a 2-slot
+        pool keyed by shape and dtype (_pooled), then an event recorded
+        after them on the stream. Slot i is rewritten by batch i+2's copy,
+        which transcode_pipelined queues only after batch i's outputs were
+        encoded. On the CPU the outputs already are host memory."""
+        if self.device.type != "cuda":
+            return _Fetch([t.numpy() for t in dev], None)
+        key = ("out",) + tuple((tuple(t.shape), t.dtype) for t in dev)
+        host = self._pooled(key, lambda: tuple(
+            torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in dev))
+        for h, t in zip(host, dev):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _Fetch([h.numpy() for h in host], event)
+
     @staticmethod
-    def _to_host(dev) -> List[np.ndarray]:
-        """Device outputs -> host arrays (waits for the device)."""
-        return [a.cpu().numpy() for a in dev]
+    def _to_host(fetch: _Fetch) -> List[np.ndarray]:
+        """The fetched outputs as host arrays: waits on the fetch's event
+        alone, never on the stream (so work queued after it runs on)."""
+        if fetch.event is not None:
+            fetch.event.synchronize()
+        return fetch.arrays
 
     def transcode(self, bufs: Sequence[bytes],
                   return_exceptions: bool = False) -> List[bytes]:
@@ -444,34 +569,35 @@ class _ServingPipelineBase:
         with StageTimer("entropy_decode"):
             args, iccs = self._host_decode(bufs, errors)
         with StageTimer("device"):
-            arrs = self._to_host(self.device_step(*args))
+            arrs = self._to_host(self._fetch(self.device_step(*args)))
         with StageTimer("encode"):
-            out = self.encode_entropy(*arrs, iccs=iccs)
+            out = self._encode_outputs(arrs, iccs)
         metrics.incr("images_transcoded", len(bufs) - len(errors))
         return self._resolve_errors(out, errors, return_exceptions)
 
     def transcode_pipelined(self, batches: Sequence[Sequence[bytes]],
                             return_exceptions: bool = False
                             ) -> List[List[bytes]]:
-        """Double-buffered: host decode for batch i+1 overlaps device batch
-        i (CUDA launches are asynchronous; the D2H copy waits). Failure
-        isolation matches transcode(): per-item within each batch."""
+        """Double-buffered: batch i's device step and its output copies are
+        queued (CUDA runs them asynchronously), then the host encodes batch
+        i-1, waiting only on batch i-1's event, and decodes batch i+1 while
+        step i runs. Failure isolation matches transcode(): per-item within
+        each batch."""
         results = []
-        pending = None  # (device tensors, ICC profiles, per-item errors)
+        pending = None  # (fetch, ICC profiles, per-item errors)
+
+        def finish(fetch, iccs, errors):
+            results.append(self._resolve_errors(self._encode_outputs(
+                self._to_host(fetch), iccs), errors, return_exceptions))
         for bufs in batches:
             errors: Dict[int, Exception] = {}
             args, iccs = self._host_decode(bufs, errors)
-            dev = self.device_step(*args)
+            fetch = self._fetch(self.device_step(*args))
             if pending is not None:
-                pdev, piccs, perr = pending
-                results.append(self._resolve_errors(self.encode_entropy(
-                    *self._to_host(pdev), iccs=piccs), perr,
-                    return_exceptions))
-            pending = (dev, iccs, errors)
+                finish(*pending)
+            pending = (fetch, iccs, errors)
         if pending is not None:
-            pdev, piccs, perr = pending
-            results.append(self._resolve_errors(self.encode_entropy(
-                *self._to_host(pdev), iccs=piccs), perr, return_exceptions))
+            finish(*pending)
         return results
 
 
@@ -487,8 +613,12 @@ class JpegTranscodePipeline(_ServingPipelineBase):
     "cubic"; chroma_mode "rgb" (default) or "direct" (YCbCr-domain: 4:2:0,
     upright, AREA, even output dims; grayscale falls back to "rgb");
     dct_scale 2 or 4 with "direct" (a reduced decode from the top-left kxk
-    coefficients, which the host alone ships). JPEG out only: .webp/.png
-    outputs, encode_options and optimize_coding raise NotImplementedError.
+    coefficients, which the host alone ships). output_format ".jpeg" (the
+    device re-encodes to quantized coefficients, the host Huffman-codes
+    them) or ".png" (the device emits packed BGRA pixels at the
+    destination size, the host filters and deflates them; encode_options
+    may set PNG_COMPRESSION). .webp output and optimize_coding raise
+    NotImplementedError.
 
     device: the torch device of the dense stages, "cuda" by default; the
     CPU runs only when asked for (device="cpu"), with the decode kernels'
@@ -515,16 +645,15 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             # AREA-matrix form (grayscale's coercion below must not slip
             # past it)
             raise ValueError("dct_scale>1 requires method=AREA")
-        if fmt != ".jpeg":
-            _not_ported(f"output_format={fmt!r}", "item 4.7")
+        if fmt == ".webp":
+            _not_ported("output_format='.webp'", "item 4.7b")
         if optimize_coding:
             _not_ported("optimize_coding (optimal Huffman tables)",
                         "item 2, host encode")
-        if encode_options:
-            _not_ported("encode_options", "item 4.7")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.encode_options = dict(encode_options or {})
         self._lib = binding.load()
-        self._coef_pool: dict = {}
+        self._pool: dict = {}
         self.dst_w, self.dst_h = dst_w, dst_h
         self.method = method
         self.optimize_coding = optimize_coding
@@ -633,18 +762,18 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 f"{self.orientation}, got {o}")
         return info
 
-    def _alloc(self, shape, zeros: bool = False,
-               pin: bool = True) -> np.ndarray:
+    def _alloc(self, shape, zeros: bool = False, pin: bool = True,
+               dtype=torch.int16) -> np.ndarray:
         """Host batch array; page-locked on CUDA (unless pin is False, for
         arrays that never leave the host) so the H2D copy of a batch is
         asynchronous and overlaps the next batch's host decode."""
-        if pin and self.device.type == "cuda":
-            make = torch.zeros if zeros else torch.empty
-            return make(shape, dtype=torch.int16, pin_memory=True).numpy()
-        return (np.zeros if zeros else np.empty)(shape, np.int16)
+        make = torch.zeros if zeros else torch.empty
+        return make(shape, dtype=dtype,
+                    pin_memory=pin and self.device.type == "cuda").numpy()
 
     def _pooled(self, key, alloc):
-        """Rotating 2-slot destination-array pool for decode_entropy.
+        """Rotating 2-slot pool of pinned host arrays: decode_entropy's
+        destination arrays and tables, and _fetch's output arrays.
 
         Steady-state serving reuses the previous-but-one batch's arrays
         (fresh arrays pay first-touch page faults, and pinned ones a
@@ -652,12 +781,15 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         H2D transfer may still be in flight while batch i+1 decodes; slot
         i is reused only at batch i+2, after iteration i+1 fetched batch
         i's OUTPUTS (which orders after its input transfer). Callers of
-        pool=True must serialize decode_entropy calls per pipeline."""
-        slots = self._coef_pool.get(key)
+        pool=True must serialize decode_entropy calls per pipeline. The
+        output arrays follow the same rule (see _fetch)."""
+        slots = self._pool.get(key)
         if slots is None:
-            if len(self._coef_pool) >= 4:  # ragged tail batches: stay bounded
-                self._coef_pool.pop(next(iter(self._coef_pool)))
-            self._coef_pool[key] = slots = [[], 0]
+            # up to four keys per batch size (arrays, lanes, tables,
+            # outputs); ragged tail batches: stay bounded
+            if len(self._pool) >= 8:
+                self._pool.pop(next(iter(self._pool)))
+            self._pool[key] = slots = [[], 0]
         arrs, idx = slots
         if len(arrs) < 2:
             arrs.append(alloc())
@@ -672,11 +804,13 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         """Huffman-decode a batch: upright sources into the MCU window
         around the Fit crop, other orientations whole.
 
-        Returns (ys, cbs, crs, qt_y, qt_c) with qt_* of shape (B, 64): each
-        image is dequantized with its OWN tables on device. Grayscale
-        pipelines return (ys, qt_y). pool=True reuses the previous-but-one
-        batch's destination arrays (see _pooled); direct callers that hold
-        returned arrays across calls must keep pool=False.
+        Returns (ys, cbs, crs, qt_y, qt_c) with qt_* of shape (B, 64), f32
+        (pinned on CUDA, as the coefficients, so their upload cannot order
+        the host behind the stream): each image is dequantized with its OWN
+        tables on device. Grayscale pipelines return (ys, qt_y). pool=True
+        reuses the previous-but-one batch's destination arrays (see
+        _pooled); direct callers that hold returned arrays across calls
+        must keep pool=False.
 
         Whole frames of vertically subsampled colour layouts carry luma
         rounded up to whole MCU rows: the pad row is zeros, nothing writes
@@ -752,8 +886,12 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                     else _alloc_lanes())
         else:
             outs = arrs
-        qty = np.empty((b, 64), np.uint16)
-        qtc = None if gray else np.empty((b, 64), np.uint16)
+        def _alloc_tables():
+            return tuple(self._alloc((b, 64), dtype=torch.float32)
+                         for _ in range(1 if gray else 2))
+        tables = (self._pooled((b, "qt"), _alloc_tables) if pool
+                  else _alloc_tables())
+        qty, qtc = tables if not gray else (tables[0], None)
         n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
         # small batches underfill the pool: split each image's scan at its
         # restart markers across the idle threads (byte-identical output)
@@ -811,35 +949,40 @@ class JpegTranscodePipeline(_ServingPipelineBase):
 
     def device_step(self, ys, cbs=None, crs=None, qty=None, qtc=None,
                     plain: bool = False):
-        """One batch through the dense stages; returns device tensors of
-        quantized coefficients, int16, asynchronously on CUDA: (yq, cbq,
-        crq), or (yq,) for grayscale. Takes decode_entropy's output: colour
-        pipelines (ys, cbs, crs, qty, qtc), grayscale (ys, qty).
+        """One batch through the dense stages; returns a tuple of device
+        tensors, asynchronously on CUDA: for JPEG output the quantized
+        coefficients, int16, (yq, cbq, crq) or (yq,) for grayscale; for PNG
+        output (packed,), the (B, dst_h, dst_w) BGRA int32 pixels. Takes
+        decode_entropy's output: colour pipelines (ys, cbs, crs, qty,
+        qtc), grayscale (ys, qty); the tables may be any numeric dtype
+        (fold_qtables converts them on the device).
         plain=True runs the plain PyTorch versions of the decode kernels
         instead of the kernels (the direct mode runs none)."""
         g = self.geom
+        emit = self._emit
         if self.ncomp == 1:
             qty = cbs  # the (ys, qty) calling convention
             return _fused_jpeg_fit_gray_impl(
-                self._to_device(ys), self._to_device(qty.astype(np.float32)),
+                self._to_device(ys), self._to_device(qty),
                 self.enc_qt_y, src_w=g.width, src_h=g.height,
                 dst_w=self.dst_w, dst_h=self.dst_h,
                 window=self.window_static, orientation=self.orientation,
-                method=self.method, dct_scale=self.dct_scale, plain=plain)
+                method=self.method, dct_scale=self.dct_scale, plain=plain,
+                emit=emit)
         args = (self._to_device(ys), self._to_device(cbs),
                 self._to_device(crs),
-                self._to_device(qty.astype(np.float32)),
-                self._to_device(qtc.astype(np.float32)),
+                self._to_device(qty), self._to_device(qtc),
                 self.enc_qt_y, self.enc_qt_c)
         if self.chroma_mode == "direct":
             return _fused_jpeg_fit_ycc_impl(
                 *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
                 dst_h=self.dst_h, window=self.window_static,
-                dct_scale=self.dct_scale)
+                dct_scale=self.dct_scale, emit=emit)
         return _fused_jpeg_fit_impl(
             *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
             dst_h=self.dst_h, window=self.window_static, h2=g.h2, v2=g.v2,
-            orientation=self.orientation, method=self.method, plain=plain)
+            orientation=self.orientation, method=self.method, plain=plain,
+            emit=emit)
 
     # -- end to end --------------------------------------------------------------
 

@@ -1,1 +1,14 @@
+import torch
+
 from .metrics import Metrics, StageTimer, metrics  # noqa: F401
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device of a decoder or pipeline: a CUDA device without a
+    card raises here, before any work (the port never falls back to the
+    CPU; callers ask for it with device="cpu")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port on the CPU")
+    return dev

@@ -133,12 +133,22 @@ def jax_packed(yc, cb, cr, qy, qc, out_h, out_w, h2, v2):
     return None if out is None else np.asarray(out)
 
 
-def jax_packed_tail(jpipe, ys, cbs, crs, qty, qtc):
+def _jax_emit(jpipe, out, emit):
+    """The JAX colour tails' last stage on the resized planes: the encode
+    coefficients, or (emit="pixels") the packed BGRA pixels, as numpy."""
+    if emit == "pixels":
+        return [np.asarray(JP._pack_pixels(out[0], out[1], out[2]))]
+    res = JK.encode_from_bgr_planes(out[0], out[1], out[2], jpipe.enc_qt_y,
+                                    jpipe.enc_qt_c, subsample=True)
+    return [np.asarray(r) for r in res]
+
+
+def jax_packed_tail(jpipe, ys, cbs, crs, qty, qtc, emit="coefs"):
     """The JAX pipeline's upright AREA packed tail
     (lilliput_tpu/pipeline.py:282-301), composed from the JAX package's own
     functions with the Pallas kernel in interpret mode (on the CPU the JAX
-    pipeline itself takes the split path): quantized (yq, cbq, crq) as
-    numpy."""
+    pipeline itself takes the split path): quantized (yq, cbq, crq), or
+    the packed pixels (emit="pixels"), as numpy."""
     g = jpipe.geom
     left, top, w, h = JP.fit_rect(g.width, g.height, jpipe.dst_w,
                                   jpipe.dst_h)
@@ -149,24 +159,22 @@ def jax_packed_tail(jpipe, ys, cbs, crs, qty, qtc):
     planes = [p.astype(jnp.uint8) for p in JK.packed_to_planes(cp)]
     out = [jnp.clip(jnp.round(JR.resize_area_plane_embedded(
         p, 0, w, jpipe.dst_w, 0, h, jpipe.dst_h)), 0, 255) for p in planes]
-    res = JK.encode_from_bgr_planes(out[0], out[1], out[2], jpipe.enc_qt_y,
-                                    jpipe.enc_qt_c, subsample=True)
-    return [np.asarray(r) for r in res]
+    return _jax_emit(jpipe, out, emit)
 
 
-def jax_tail(jpipe, *args):
+def jax_tail(jpipe, *args, emit="coefs"):
     """The JAX tail the pipeline's layout takes: the block tail for 4:2:0,
     the packed tail for the others."""
     g = jpipe.geom
     tail = jax_block_tail if (g.h2 and g.v2) else jax_packed_tail
-    return tail(jpipe, *args)
+    return tail(jpipe, *args, emit=emit)
 
 
-def jax_block_tail(jpipe, ys, cbs, crs, qty, qtc):
+def jax_block_tail(jpipe, ys, cbs, crs, qty, qtc, emit="coefs"):
     """The JAX pipeline's upright AREA 4:2:0 block tail
     (lilliput_tpu/pipeline.py:259-281), composed from the JAX package's own
     functions with the megakernel in interpret mode: quantized (yq, cbq,
-    crq) as numpy."""
+    crq), or the packed pixels (emit="pixels"), as numpy."""
     g = jpipe.geom
     left, top, w, h = JP.fit_rect(g.width, g.height, jpipe.dst_w,
                                   jpipe.dst_h)
@@ -175,6 +183,4 @@ def jax_block_tail(jpipe, ys, cbs, crs, qty, qtc):
         jnp.asarray(p), left - x0, w, jpipe.dst_w, top - y0, h,
         jpipe.dst_h)), 0, 255)
         for p in jax_planes(ys, cbs, crs, qty, qtc)]
-    res = JK.encode_from_bgr_planes(out[0], out[1], out[2], jpipe.enc_qt_y,
-                                    jpipe.enc_qt_c, subsample=True)
-    return [np.asarray(r) for r in res]
+    return _jax_emit(jpipe, out, emit)

@@ -57,8 +57,15 @@ def check_step(bufs, dst_w, dst_h, ref_step=None, bytes_too=True, **kw):
     jargs = jp.decode_entropy(bufs)
     targs = tp.decode_entropy(bufs)
     assert len(jargs) == len(targs)
-    for a, b in zip(jargs, targs):
-        assert a.dtype == b.dtype and a.shape == b.shape
+    ntab = 1 if tp.ncomp == 1 else 2   # the per-image tables come last
+    for i, (a, b) in enumerate(zip(jargs, targs)):
+        # the port's tables are f32 (pinned on CUDA, uploaded as they
+        # are), the JAX package's u16: the values must be equal
+        if i >= len(jargs) - ntab:
+            assert a.dtype == np.uint16 and b.dtype == np.float32
+        else:
+            assert a.dtype == b.dtype
+        assert a.shape == b.shape
         np.testing.assert_array_equal(a, b)
     if ref_step is None:
         ref = [np.asarray(r) for r in jp.device_step(*jargs, donate=False)]

@@ -4,8 +4,11 @@ version, and each serving path's device step (the four layouts upright,
 grayscale upright and oriented, 4:2:0 oriented; chroma_mode="direct",
 dct_scale 2 and 4, LINEAR and CUBIC, LILLIPUT_FUSED_EXACT) against the
 same step through the plain version and on the CPU; the streaming
-fixed-point LINEAR and CUBIC resize on the card equal to the CPU's. Imports
-no jax, so it runs on the card's machine:
+fixed-point LINEAR and CUBIC resize on the card equal to the CPU's; the
+.png output's pixel step likewise; transcode_pipelined equal to transcode
+per batch; the single-image decode (batch 1, whole frame) against its
+stacked plain version and the CPU. Imports no jax, so it runs on the
+card's machine:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -299,3 +302,109 @@ IDCT_COLS = (1, 15, 16, 17, 33)
 def test_idct_kernel_band_and_strip_edges(bh, bw, batch):
     _need_card()
     _check_idct_kernel(8 * bh - 1, 8 * bw - 3, batch, False)
+
+
+# -- the .png output, the overlap of transcode_pipelined, the still surface --
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub,name", [("420", "decode420"),
+                                      ("gray_o6", "dequant_idct_blocks")])
+def test_png_device_step_matches_plain_and_cpu(sub, name):
+    """The pixel emit on the card: packed BGRA within the kernel gate of
+    the plain step and the CPU step."""
+    _need_card()
+    with open(_fixture(sub), "rb") as f:
+        buf = f.read()
+    gpu = JpegTranscodePipeline(buf, 256, 256, device="cuda",
+                                output_format=".png")
+    cpu = JpegTranscodePipeline(buf, 256, 256, device="cpu",
+                                output_format=".png")
+    args = gpu.decode_entropy([buf] * 4)
+    before = dict(DK.launches)
+    (step,) = gpu.device_step(*args)
+    assert DK.launches == {k: v + (k == name) for k, v in before.items()}
+    for (ref,) in (gpu.device_step(*args, plain=True),
+                   cpu.device_step(*args)):
+        mx, nd, n = _diff([(step.cpu() >> s) & 255 for s in (0, 8, 16, 24)],
+                          [(ref.cpu() >> s) & 255 for s in (0, 8, 16, 24)])
+        assert mx <= 1 and nd <= 1e-4 * n
+
+
+def _variants(n):
+    """n distinct 4:2:0 JPEGs of one geometry (320x200), made on the CPU
+    by the port itself (the card's machine has no image library): the
+    fixture fitted, then rolled and brightened per variant."""
+    from lilliput_tpu_torch import Framebuffer, new_decoder, new_encoder
+    with open(FIXTURE, "rb") as f:
+        fb = Framebuffer()
+        new_decoder(f.read(), device="cpu").decode_to(fb)
+    small = fb.fit(320, 200).to_numpy()
+    out = []
+    for i in range(n):
+        px = np.roll(small, 17 * i, axis=1)
+        px = np.clip(px.astype(int) + 9 * i, 0, 255).astype(np.uint8)
+        out.append(new_encoder(".jpeg").encode(
+            Framebuffer.from_array(px, device="cpu"), {}))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [".jpeg", ".png"])
+def test_pipelined_equals_transcode_on_card(fmt):
+    """Five batches of distinct images, one holding a corrupt buffer:
+    transcode_pipelined (pinned output slots reused every other batch)
+    equals transcode of each batch (chip_smoke.py phase 6 checks that it
+    overlaps)."""
+    _need_card()
+    srcs = _variants(15)
+    batches = [srcs[3 * b:3 * b + 3] for b in range(5)]
+    batches[2][1] = batches[2][1][:len(batches[2][1]) // 2]
+    pipe = JpegTranscodePipeline(srcs[0], 64, 48, device="cuda",
+                                 output_format=fmt)
+    got = pipe.transcode_pipelined(batches, return_exceptions=True)
+    ref = [JpegTranscodePipeline(srcs[0], 64, 48, device="cuda",
+                                 output_format=fmt).transcode(
+                                     b, return_exceptions=True)
+           for b in batches]
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            assert (type(a) is type(b)) if isinstance(b, Exception) \
+                else a == b
+    assert len({o for b in got for o in b if isinstance(o, bytes)}) == 14
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub,name", [
+    ("420", "decode420"), ("422", "decode422"), ("440", "decode440"),
+    ("444", "decode444"), ("gray", "dequant_idct_blocks"),
+    ("o6", "decode420")])
+def test_still_decode_matches_plain_and_cpu(sub, name):
+    """JpegDecoder.decode_to on the card at batch 1 over the whole frame
+    launches the layout's kernel once and equals the plain decode (taken
+    from a 2-image stack, see _plain) and the CPU decode."""
+    _need_card()
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    with open(_fixture(sub), "rb") as f:
+        buf = f.read()
+    dec = new_decoder(buf)
+    fb = Framebuffer()
+    before = dict(DK.launches)
+    dec.decode_to(fb)
+    assert DK.launches == {k: v + (k == name) for k, v in before.items()}
+    info = dec._info
+    two = [torch.stack([dec._coef(c)] * 2)
+           for c in range(info.num_components)]
+    tabs = [torch.stack([dec._qtable(c)] * 2)
+            for c in range(min(info.num_components, 2))]
+    if info.num_components == 1:
+        plain = K.decode_gray(*two, *tabs, info.height, info.width,
+                              plain=True)[0][..., None]
+    else:
+        h2, v2 = LAYOUTS["420" if sub == "o6" else sub]
+        plain = torch.stack([p[0] for p in K.decode_ycc_420(
+            *two, *tabs, info.height, info.width, h2, v2, plain=True)], -1)
+    cpu = Framebuffer()
+    new_decoder(buf, device="cpu").decode_to(cpu)
+    for ref in (plain, cpu.array.cuda()):
+        mx, nd, n = _diff([fb.array], [ref])
+        assert mx <= 1 and nd <= 1e-4 * n

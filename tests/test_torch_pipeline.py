@@ -16,8 +16,9 @@ against the JAX package's JpegTranscodePipeline.
 * transcode's bytes equal the JAX encode_entropy of the JAX coefficients,
   3-component and grayscale.
 * Corrupt buffers fail only their own slots, in every layout, grayscale
-  and oriented; paths outside the slice (.webp/.png outputs,
-  optimize_coding, encode_options) raise NotImplementedError, and the
+  and oriented; paths outside the slice (.webp output, optimize_coding)
+  raise NotImplementedError naming their items, .png output and
+  encode_options construct, and the
   direct, dct_scale and LINEAR/CUBIC modes construct (their parity tests
   are tests/test_torch_direct.py and tests/test_torch_pipeline_modes.py).
 """
@@ -195,13 +196,20 @@ def _exif_jpeg(orientation: int) -> bytes:
 
 def test_paths_outside_the_slice_refuse():
     src = pil_jpeg(200, 150, 85, 0)
-    for kw in ({"output_format": ".webp"}, {"optimize_coding": True},
-               {"encode_options": {"lossless": True}}):
-        with pytest.raises(NotImplementedError):
+    for kw, item in (({"output_format": ".webp"}, "item 4.7b"),
+                     ({"optimize_coding": True}, "item 2")):
+        with pytest.raises(NotImplementedError, match=item):
             JpegTranscodePipeline(src, 64, 48, device="cpu", **kw)
-        with pytest.raises(NotImplementedError):       # grayscale too
+        with pytest.raises(NotImplementedError, match=item):  # grayscale
             JpegTranscodePipeline(gray_jpeg(64, 48, 85, 0), 32, 32,
                                   device="cpu", **kw)
+    # .png output and encode_options are served (tests/
+    # test_torch_pipeline_pixels.py holds them against the JAX package)
+    for kw in ({"output_format": ".png"},
+               {"output_format": ".png", "encode_options": {16: 9}},
+               {"encode_options": {16: 9}}):
+        assert JpegTranscodePipeline(src, 64, 48, device="cpu",
+                                     **kw).output_format in (".png", ".jpeg")
     from PIL import Image
     # every chroma layout, grayscale, and EXIF orientations (PIL's own
     # Exif writer here) are served, in every JPEG-out mode
