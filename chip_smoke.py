@@ -37,8 +37,8 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
   gray_o6_png         grayscale o6, output_format=".png": dequant_idct_blocks
                       (u8), gray pixels, 1-channel PNG;
 
-then the single-image surface (the still phase) and the overlap check of
-transcode_pipelined.
+then the single-image surface (the still phase), the overlap check of
+transcode_pipelined and the still formats.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -59,8 +59,8 @@ transcode_pipelined.
    path's keywords and environment). 4:2:0 runs 3 batches, one
    holding a corrupt buffer that must fail only its own slot, and checks
    that the entropy round trip is lossless; the other paths run 2 batches.
-   The .png paths' outputs must decode (zlib and the port's
-   lp_png_unfilter) to 256x256 pixels with the source's channel count, and
+   The .png paths' outputs must decode (the port's PngDecoder on the
+   CPU) to 256x256 pixels with the source's channel count, and
    their packed pixels are held to the kernel gate instead;
 4. times (CUDA events; host clock around work that ends in a sync): each
    kernel and its plain version (dequant_idct_blocks: the u8 epilogue the
@@ -83,7 +83,25 @@ transcode_pipelined.
    version and bound;
 6. the overlap check: one transcode_pipelined of 4 batches on 4:2:0, in
    which every _to_host of batch i-1 must return while step i's event is
-   still pending (event.query() False); images/s and the busy share.
+   still pending (event.query() False); images/s and the busy share;
+7. the still formats (still_inputs: the JCS_RGB and CMYK fixtures, YCCK,
+   six kinds of PNG, BMP, PNM, PAM, Sun Raster, HDR and PFM at 1080p,
+   packed from bench_1080p's pixels by tests/_torch_still_builders.py
+   and the port's encoders): each decoded with
+   device="cuda" with the launch counts 0 just before and read just after
+   (dequant_idct_blocks exactly 3 times per JCS_RGB and 4 per CMYK/YCCK
+   decode, no kernel for the others), equal to the CPU decode (0
+   differing values) and, for the JPEGs, to the plain decode from a
+   2-image stack under the kernel gate; ImageOps.transform to .jpeg, .png
+   and .thumbhash, Fit 256x256, equal to the CPU port's bytes (.jpeg:
+   coefficients under the step gate); thumbhash_batch of the RGBA PNG
+   input's 100x100 tiles on the card: grids within THUMB_GRID_ATOL of the
+   CPU's, hashes equal but where an AC sits on a rounding tie within the
+   grids' difference; one
+   in-process CLI run of the PNG input to .jpeg on the card, equal to
+   -device cpu's bytes; ms per image
+   of decode, transform and each encode, and dequant_idct_blocks' batch-1
+   time on a CMYK plane beside torch.baddbmm's.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -405,31 +423,12 @@ def phase2_idct(path, pipe, bufs, first: bool):
 
 
 def png_pixels(buf: bytes) -> np.ndarray:
-    """An 8-bit, non-interlaced gray/RGB PNG's pixels, (H, W, C) u8: the
-    chunk walk of the port's codecs/png.py, Python's zlib and the port's
-    lp_png_unfilter (the card's machine has no image library)."""
-    import struct
-    import zlib
-    from lilliput_tpu_torch import binding
-    from lilliput_tpu_torch.codecs.png import PNG_MAGIC, iter_chunks
-    check(buf.startswith(PNG_MAGIC), "not a PNG")
-    idat = []
-    for ctype, off, ln, _ in iter_chunks(buf):
-        if ctype == b"IHDR":
-            w, h, depth, ctype_, _, _, lace = struct.unpack(
-                ">IIBBBBB", buf[off:off + 13])
-        elif ctype == b"IDAT":
-            idat.append(buf[off:off + ln])
-    check(depth == 8 and lace == 0 and ctype_ in (0, 2),
-          f"unexpected PNG depth {depth} type {ctype_} interlace {lace}")
-    ch = {0: 1, 2: 3}[ctype_]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).copy()
-    out = np.empty(h * w * ch, np.uint8)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
-    rc = binding.load().lp_png_unfilter(
-        raw.ctypes.data_as(u8p), out.ctypes.data_as(u8p), h, w * ch, ch)
-    check(rc == 0, f"PNG unfilter failed ({rc})")
-    return out.reshape(h, w, ch)
+    """A PNG's pixels, (H, W, C) u8, decoded by the port on the CPU."""
+    from lilliput_tpu_torch import Framebuffer
+    from lilliput_tpu_torch.codecs.png import PngDecoder
+    fb = Framebuffer()
+    PngDecoder(buf, device="cpu").decode_to(fb)
+    return fb.to_numpy()
 
 
 def jpeg_coefs(buf: bytes):
@@ -772,18 +771,18 @@ def still_args(dec):
             + tuple(K.fold_qtables(dec._qtable(c)) for c in range(min(n, 2))))
 
 
-def _gate(what, got, ref, limits, unit):
+def _gate(what, got, ref, limits, unit, phase=5):
     mx, nd, n = diff_stats(got, ref)
-    print(f"phase 5: {what}: max_abs_diff={mx} differing={nd}/{n} "
+    print(f"phase {phase}: {what}: max_abs_diff={mx} differing={nd}/{n} "
           f"({nd / n:.3g}) {unit}", flush=True)
     check(mx <= limits[0] and nd <= limits[1] * n, f"{what} disagrees")
 
 
-def still_times(fixture, reps: int = 5):
+def still_times(fixture, reps: int = 5, fmts=(".jpeg", ".png")):
     """Host-clock ms per image of the single-image surface's stages on the
-    card, each ended by a sync: decode (header, host Huffman, H2D, the
-    kernel), transform (orientation and Fit), encode to .jpeg and to .png
-    (device stages, D2H, host entropy)."""
+    card, each ended by a sync: decode (header, host Huffman or inflate
+    and parse, H2D, the kernel), transform (orientation and Fit), encode
+    to each of `fmts` (device stages, D2H, host entropy)."""
     import torch
     from lilliput_tpu_torch import Framebuffer, new_decoder, new_encoder
     t = {}
@@ -801,7 +800,7 @@ def still_times(fixture, reps: int = 5):
         out = x.fit(DST, DST)
         torch.cuda.synchronize()
     t["transform_ms"] = 1e3 * (time.perf_counter() - t0) / reps
-    for fmt in (".jpeg", ".png"):
+    for fmt in fmts:
         enc = new_encoder(fmt, dec)
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -924,6 +923,256 @@ def phase6(card):
           f"[{card}]", flush=True)
 
 
+#: the thumbhash grids' bound between the card and the CPU: twice the
+#: worst-case error of either side's f32 sums (two products of 100-term
+#: sums over a 100x100 plane of values within [-1, 1], scaled by 1/10^4:
+#: 2 * 100 * 100 * 100 * 2^-24 / 10^4 each)
+THUMB_GRID_ATOL = 2.4e-5
+#: phase 7's JPEG inputs: committed fixture, the Adobe transform byte to
+#: set (None: as committed), launches of dequant_idct_blocks per decode
+STILL_JPEGS = {"jpeg_rgb": ("bench_1080p_rgb.jpg", None, 3),
+               "jpeg_cmyk": ("bench_1080p_cmyk.jpg", None, 4),
+               "jpeg_ycck": ("bench_1080p_cmyk.jpg", 2, 4)}
+
+
+def still_inputs():
+    """Phase 7's inputs at 1080p, name -> (bytes, launches of
+    dequant_idct_blocks per decode): the JCS_RGB and CMYK fixtures, YCCK
+    (the CMYK stream with the Adobe transform byte set to 2), PNG (RGB8,
+    RGBA8, gray8, palette8 of a fixed 3-3-2 quantization, RGB16, Adam7;
+    filter type 0), and BMP, PNM, PAM, Sun Raster, HDR and PFM from the
+    port's encoders, with buffers packed by tests/_torch_still_builders.py
+    for what they do not write (BMP 565 bitfields and RLE8, 16-bit PPM, a
+    Sun Raster colormap). The
+    pixels are bench_1080p.jpg's and bench_1080p_gray.jpg's, decoded by
+    the port on the CPU."""
+    from lilliput_tpu_torch import Framebuffer, new_decoder, new_encoder
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_still_builders import (bmp_bytes, bmp_rle8, bmp_rows,
+                                       png_bytes, pnm16, sunras_bytes)
+    out = {}
+    for name, (fixture, transform, n) in STILL_JPEGS.items():
+        with open(os.path.join(ASSETS, fixture), "rb") as f:
+            buf = f.read()
+        if transform is not None:
+            b = bytearray(buf)
+            b[buf.index(b"\xff\xee\x00\x0eAdobe") + 15] = transform
+            buf = bytes(b)
+        out[name] = (buf, n)
+
+    def pixels(fixture):
+        fb = Framebuffer()
+        with open(os.path.join(ASSETS, fixture), "rb") as f:
+            new_decoder(f.read(), device="cpu").decode_to(fb)
+        return fb.to_numpy()
+    bgr, gray = pixels("bench_1080p.jpg"), pixels("bench_1080p_gray.jpg")
+    h, w = bgr.shape[:2]
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    alpha = np.broadcast_to(
+        (np.arange(w) * 255 // (w - 1)).astype(np.uint8)[None, :, None],
+        (h, w, 1))
+    i = np.arange(256)
+    pal = np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7,
+                    (i & 3) * 255 // 3], axis=1)          # RGB
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    idx = ((r >> 5) << 5 | (g >> 5) << 2 | (b >> 6)).astype(np.uint8)
+    word = (r >> 3) << 11 | (g >> 2) << 5 | (b >> 3)
+    out.update({
+        "png_rgb8": png_bytes(rgb, 2),
+        "png_rgba8": png_bytes(np.concatenate([rgb, alpha], axis=-1), 6),
+        "png_gray8": png_bytes(gray, 0),
+        "png_palette8": png_bytes(idx[..., None], 3, palette=pal),
+        "png_rgb16": png_bytes(rgb.astype(np.uint16) * 257, 2, 16),
+        "png_adam7": png_bytes(rgb, 2, interlace=1),
+        "bmp_565": bmp_bytes(w, h, 16, bmp_rows(np.stack(
+            [word & 255, word >> 8], axis=-1).reshape(h, -1).astype(
+                np.uint8)), compression=3, masks=(0xF800, 0x07E0, 0x001F)),
+        "bmp_rle8": bmp_bytes(w, h, 8, bmp_rle8(idx), pal[:, ::-1],
+                              compression=1),
+        "ppm16": pnm16(rgb.astype(np.uint16) * 257),
+        "ras_palette": sunras_bytes(w, h, 8, idx.tobytes(), 1, pal),
+    })
+    for name, ext, px in (("bmp_24", ".bmp", bgr),
+                          ("bmp_32", ".bmp", np.concatenate([bgr, alpha],
+                                                            axis=-1)),
+                          ("ppm", ".ppm", bgr), ("pgm", ".pgm", gray),
+                          ("pam", ".pam", bgr), ("ras_24", ".ras", bgr),
+                          ("hdr", ".hdr", bgr), ("pfm", ".pfm", bgr)):
+        out[name] = new_encoder(ext).encode(
+            Framebuffer.from_array(px, device="cpu"), {})
+    return {k: v if isinstance(v, tuple) else (v, 0) for k, v in out.items()}
+
+
+PHASE7_FMTS = (".jpeg", ".png", ".thumbhash")
+
+
+def _still_output(buf, device, fmt):
+    """ImageOps.transform of `buf` on `device` to `fmt`, Fit 256x256."""
+    from lilliput_tpu_torch import (ImageOps, ImageOptions, ResizeMethod,
+                                    new_decoder)
+    return ImageOps(8192).transform(
+        new_decoder(buf, device=device), ImageOptions(
+            file_type=fmt, width=DST, height=DST,
+            resize_method=ResizeMethod.FIT))
+
+
+def _plain_frame(dec):
+    """A JpegDecoder's frame from the plain versions, taken from a stack
+    of two copies of its coefficients and tables (queue 3 entry 7)."""
+    import torch
+
+    def two(get):
+        return lambda c: torch.stack([get(c), get(c)])
+    return dec.frame(two(dec._coef), two(dec._qtable), plain=True)[0]
+
+
+def phase7(card, kernels):
+    """The still formats: for each of still_inputs(), decode on the card
+    and on the CPU (0 differing values), ImageOps.transform to .jpeg,
+    .png and .thumbhash on both (.png and .thumbhash bytes equal, .jpeg
+    coefficients under the step gate), with the launch counts 0 just
+    before each decode and read just after: dequant_idct_blocks exactly
+    3 (JCS_RGB) or 4 (CMYK, YCCK) times per decode, no kernel for the
+    other formats; a JPEG's frame equals its plain version (2-image stack)
+    under the kernel gate. Then thumbhash_batch of tiles on the card
+    (phase7_thumbhash_batch), one CLI run of the PNG input to .jpeg on
+    the card, whose bytes must equal -device cpu's, and the times."""
+    import torch
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    from lilliput_tpu_torch.ops import jpeg_kernels as K
+    t0 = time.perf_counter()
+    inputs = still_inputs()
+    print(f"phase 7: {len(inputs)} inputs built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gate = (KERNEL_MAX_DIFF, KERNEL_MAX_SHARE)
+    launched = 0
+    for name, (buf, n) in inputs.items():
+        want = {k: n if k == IDCT else 0 for k in DK.launches}
+        dec = new_decoder(buf, device=DEVICE)
+        fb = Framebuffer()
+        DK.reset_launches()
+        dec.decode_to(fb)
+        got = dict(DK.launches)
+        check(got == want, f"{name}: launches {got}, want {want}")
+        cpu = Framebuffer()
+        new_decoder(buf, device="cpu").decode_to(cpu)
+        mx, nd, nv = diff_stats([fb.array], [cpu.array.to(DEVICE)])
+        print(f"phase 7: {name} {fb.width}x{fb.height}x{fb.channels} "
+              f"launches={got} decode vs CPU: max_abs_diff={mx} "
+              f"differing={nd}/{nv}", flush=True)
+        check(fb.array.shape == cpu.array.shape and nd == 0,
+              f"{name}: the card's decode differs from the CPU's")
+        if n:
+            ref = _plain_frame(dec)
+            _gate(f"{name} planes vs plain decode (2-image stack)",
+                  [fb.array[..., c] for c in range(3)],
+                  [ref[..., c] for c in range(3)], gate, "u8", 7)
+        outs = {}
+        for fmt in PHASE7_FMTS:
+            before = dict(DK.launches)
+            outs[fmt] = _still_output(buf, DEVICE, fmt)
+            delta = {k: DK.launches[k] - before[k] for k in before}
+            check(delta == want, f"{name} {fmt}: launches {delta}")
+        launched += DK.launches[IDCT]
+        ref = {fmt: _still_output(buf, "cpu", fmt) for fmt in PHASE7_FMTS}
+        for fmt in (".png", ".thumbhash"):
+            check(outs[fmt] == ref[fmt], f"{name} {fmt} bytes differ from "
+                  f"the CPU port's")
+        _gate(f"{name} .jpeg coefficients vs CPU",
+              [torch.from_numpy(c) for c in jpeg_coefs(outs[".jpeg"])],
+              [torch.from_numpy(c) for c in jpeg_coefs(ref[".jpeg"])],
+              (STEP_MAX_DIFF, STEP_MAX_SHARE), "coefficients", 7)
+        print(f"phase 7: {name} .png and .thumbhash bytes equal the CPU "
+              f"port's; .jpeg bytes equal: {outs['.jpeg'] == ref['.jpeg']}",
+              flush=True)
+        t = still_times(buf, fmts=PHASE7_FMTS)
+        if name == "jpeg_cmyk":
+            k = kernel_times(IDCT, (dec._coef(0)[None],
+                                    K.fold_qtables(dec._qtable(0))))
+            kernels[IDCT].update(cmyk_batch1_f32_ms=k["f32_ms"],
+                                 cmyk_batch1_library_ms=k["library_ms"],
+                                 cmyk_batch1_f32_bound_ms=k["f32_bound_ms"])
+            t.update({f"{IDCT}_cmyk_plane_batch1_{m}": v
+                      for m, v in k.items()})
+        for m, v in t.items():
+            print(f"phase 7: {name} {m}={v!r} [{card}]", flush=True)
+        del dec, fb, cpu
+        torch.cuda.empty_cache()
+    kernels[IDCT]["launches"] += launched
+    kernels[IDCT]["still_formats_launches"] = launched
+    phase7_thumbhash_batch(card, inputs["png_rgba8"][0])
+    phase7_cli(inputs["png_rgb8"][0])
+
+
+def phase7_thumbhash_batch(card, png: bytes, tile: int = 100):
+    """thumbhash_batch of the RGBA PNG input cut into 100x100 BGRA tiles
+    (its alpha ramp, then the same tiles opaque), as a spritesheet's, on
+    the card against the CPU: the coefficient grids within
+    THUMB_GRID_ATOL, and equal hashes for every tile whose hash the
+    grids' measured difference cannot change (thumbhash.order_dependent:
+    an AC zero in exact arithmetic sits on a rounding tie); ms per batch
+    (mean of 5)."""
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    from lilliput_tpu_torch.codecs import thumbhash as TH
+    fb = Framebuffer()
+    new_decoder(png, device="cpu").decode_to(fb)
+    px = fb.to_numpy()
+    ty, tx = px.shape[0] // tile, px.shape[1] // tile
+    tiles = px[:ty * tile, :tx * tile].reshape(
+        ty, tile, tx, tile, 4).swapaxes(1, 2).reshape(-1, tile, tile, 4)
+    opaque = tiles.copy()
+    opaque[..., 3] = 255
+    tiles = np.concatenate([tiles, opaque])
+    grids, _ = TH.batch_grids(tiles, device=DEVICE)
+    ref_grids, sums = TH.batch_grids(tiles, device="cpu")
+    err = max(float(np.abs(g - r).max()) for g, r in zip(grids, ref_grids))
+    got = TH.thumbhash_batch(tiles, device=DEVICE)
+    ref = TH.thumbhash_batch(tiles, device="cpu")
+    ties = [TH.order_dependent(TH.hash_fields(ref_grids, sums, i, tile,
+                                              tile), err)
+            for i in range(len(tiles))]
+    nd = sum(a != b for a, b in zip(got, ref))
+    bad = sum(a != b and not t for a, b, t in zip(got, ref, ties))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        TH.thumbhash_batch(tiles, device=DEVICE)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"phase 7: thumbhash_batch of {len(tiles)} {tile}x{tile} tiles on "
+          f"{DEVICE}: grids max_abs_diff={err!r} vs the CPU's; {nd} of "
+          f"{len(got)} hashes differ, {bad} of them on a tile without a "
+          f"tie ({sum(ties)} tiles with one); ms per batch={ms!r} [{card}]",
+          flush=True)
+    check(err <= THUMB_GRID_ATOL, "thumbhash_batch grids on the card are "
+          "not within THUMB_GRID_ATOL of the CPU's")
+    check(bad == 0, "thumbhash_batch on the card differs from the CPU's on "
+          "a tile without a rounding tie")
+
+
+def phase7_cli(png: bytes):
+    """python -m lilliput_tpu_torch of the PNG input to a 256x256 .jpeg,
+    in this process, on the card and with -device cpu: equal bytes."""
+    import tempfile
+    from lilliput_tpu_torch import cli
+    outs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase7_") as d:
+        src = os.path.join(d, "in.png")
+        with open(src, "wb") as f:
+            f.write(png)
+        for dev in (DEVICE, "cpu"):
+            dst = os.path.join(d, f"out_{dev}.jpg")
+            rc = cli.main(["-input", src, "-output", dst, "-width",
+                           str(DST), "-height", str(DST), "-device", dev])
+            check(rc == 0, f"the CLI on {dev} exited {rc}")
+            with open(dst, "rb") as f:
+                outs[dev] = f.read()
+    print(f"phase 7: CLI png -> jpeg on {DEVICE} and cpu: "
+          f"{len(outs[DEVICE])} and {len(outs['cpu'])} bytes, equal: "
+          f"{outs[DEVICE] == outs['cpu']}", flush=True)
+    check(outs[DEVICE] == outs["cpu"], "the CLI's .jpeg on the card differs "
+          "from -device cpu's")
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -984,6 +1233,7 @@ def main() -> int:
           f"{set(KERNELS) - set(kernels)}")
     phase5(card, kernels)
     phase6(card)
+    phase7(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -9,14 +9,18 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
   or PNG output, in every mode: AREA, LINEAR or CUBIC resize, chroma_mode
   "rgb" or "direct", dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT
   tier);
-* the single-image surface for JPEG in, JPEG or PNG out::
+* the single-image surface for the still formats: JPEG (YCbCr, gray,
+  JCS_RGB, CMYK/YCCK), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR
+  and PFM in; those (not APNG) and thumbhash out::
 
       from lilliput_tpu_torch import (ImageOps, ImageOptions,
                                       ResizeMethod, new_decoder)
-      d = new_decoder(open("in.jpg", "rb").read())      # device="cuda"
+      d = new_decoder(open("in.png", "rb").read())      # device="cuda"
       out = ImageOps(8192).transform(d, ImageOptions(
-          file_type=".png", width=256, height=256,
+          file_type=".jpeg", width=256, height=256,
           resize_method=ResizeMethod.FIT))
+
+* the command line, ``python -m lilliput_tpu_torch`` (``cli.py``).
 
 The decode kernels are CUDA (``csrc/*.cu``); the host entropy stages are
 C++ built at first use (``binding.py``). Every entry point runs on "cuda"

@@ -1,17 +1,23 @@
 """Public API: format sniffing and decoder/encoder construction.
 
 The counterpart of ``lilliput_tpu/api.py`` (lilliput.go:100-202): magic-byte
-dispatch and extension-based encoder selection. The port decodes JPEG and
-encodes JPEG and PNG so far. Every other format raises NotImplementedError
-naming its ROADMAP queue 1 item, never InvalidImageError, so a caller can
-tell "not ported" from "not an image"; bytes no decoder of the JAX package
-would recognize raise InvalidImageError as there.
+dispatch and extension-based encoder selection. The port decodes JPEG,
+PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR and PFM, and encodes
+those formats and thumbhash (not APNG). GIF, WebP, AVIF, JPEG 2000 and
+video raise NotImplementedError naming their ROADMAP queue 1 item, never
+InvalidImageError, so a caller can tell "not ported" from "not an image";
+bytes no decoder of the JAX package would recognize raise
+InvalidImageError as there.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+from .codecs.hdr import is_hdr
+from .codecs.pfm import is_pfm
+from .codecs.pnm import is_pam, is_pnm
+from .codecs.sunras import is_sunras
 from .errors import InvalidImageError, not_ported
 from .interfaces import Decoder, Encoder
 
@@ -50,29 +56,6 @@ def is_jpeg2000(buf: bytes) -> bool:
     return buf.startswith(_JP2_SIG) or buf.startswith(_J2K_SOC)
 
 
-def _is_pnm(buf: bytes) -> bool:
-    return (len(buf) >= 3 and buf[0] == 0x50  # 'P'
-            and buf[1] in b"123456" and buf[2] in b" \t\r\n#")
-
-
-def _is_pam(buf: bytes) -> bool:
-    return (len(buf) >= 3 and buf[0] == 0x50  # 'P'
-            and buf[1] == 0x37 and buf[2] in b" \t\r\n#")
-
-
-def _is_sunras(buf: bytes) -> bool:
-    return len(buf) >= 32 and buf[:4] == b"\x59\xa6\x6a\x95"
-
-
-def _is_hdr(buf: bytes) -> bool:
-    return buf.startswith(b"#?RADIANCE") or buf.startswith(b"#?RGBE")
-
-
-def _is_pfm(buf: bytes) -> bool:
-    return (len(buf) >= 3 and buf[0] == 0x50  # 'P'
-            and buf[1] in b"Ff" and buf[2] in b" \t\r\n")
-
-
 def _is_video(buf: bytes) -> bool:
     """Containers the JAX package's ffmpeg probe opens: ISO BMFF (MP4/MOV)
     and Matroska/WebM."""
@@ -81,21 +64,47 @@ def _is_video(buf: bytes) -> bool:
 
 
 #: (sniffer, what, ROADMAP queue 1 item) of each decoder not ported yet,
-#: in the JAX package's dispatch order (JPEG's magic matches none of them)
-_NOT_PORTED = (
+#: at its place in the JAX package's dispatch order
+_NOT_PORTED_FIRST = (
     (is_gif, "the GIF decoder", "item 6.1"),
     (is_webp, "the WebP decoder", "item 6.2"),
     (is_avif, "the AVIF decoder", "item 6.5"),
-    (is_png, "the PNG decoder", "item 6.1"),
-    (lambda b: b[:2] == b"BM", "the BMP decoder", "item 6.3"),
-    (_is_pnm, "the PNM decoder", "item 6.3"),
-    (_is_pam, "the PAM decoder", "item 6.3"),
-    (_is_sunras, "the Sun Raster decoder", "item 6.3"),
-    (_is_hdr, "the Radiance HDR decoder", "item 6.3"),
-    (_is_pfm, "the PFM decoder", "item 6.3"),
+)
+_NOT_PORTED_LAST = (
     (is_jpeg2000, "the JPEG 2000 decoder", "item 6.4"),
     (_is_video, "the video first-frame decoder", "item 6.6"),
 )
+
+
+def _still_decoder(buf: bytes):
+    """The decoder class of a still format the port reads, in the JAX
+    package's order after GIF/WebP/AVIF (lilliput_tpu/api.py:46-105), or
+    None."""
+    if is_jpeg(buf):
+        from .codecs.jpeg import JpegDecoder
+        return JpegDecoder
+    if is_png(buf):
+        from .codecs.png import PngDecoder
+        return PngDecoder
+    if buf[:2] == b"BM":
+        from .codecs.bmp import BmpDecoder
+        return BmpDecoder
+    if is_pnm(buf):
+        from .codecs.pnm import PnmDecoder
+        return PnmDecoder
+    if is_pam(buf):
+        from .codecs.pnm import PamDecoder
+        return PamDecoder
+    if is_sunras(buf):
+        from .codecs.sunras import SunRasDecoder
+        return SunRasDecoder
+    if is_hdr(buf):
+        from .codecs.hdr import HdrDecoder
+        return HdrDecoder
+    if is_pfm(buf):
+        from .codecs.pfm import PfmDecoder
+        return PfmDecoder
+    return None
 
 
 def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
@@ -106,10 +115,13 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
     del tone_mapping_enabled  # read by the AVIF decoder (item 6.5)
     if len(buf) == 0:
         raise InvalidImageError("empty buffer")
-    if is_jpeg(buf):
-        from .codecs.jpeg import JpegDecoder
-        return JpegDecoder(buf, device=device)
-    for sniff, what, item in _NOT_PORTED:
+    for sniff, what, item in _NOT_PORTED_FIRST:
+        if sniff(buf):
+            not_ported(what, item)
+    cls = _still_decoder(buf)
+    if cls is not None:
+        return cls(buf, device=device)
+    for sniff, what, item in _NOT_PORTED_LAST:
         if sniff(buf):
             not_ported(what, item)
     raise InvalidImageError("unrecognized image format")
@@ -120,19 +132,8 @@ _ENCODERS_NOT_PORTED = {
     ".gif": ("the GIF encoder", "item 6.1"),
     ".webp": ("the WebP encoder", "item 4.7b"),
     ".avif": ("the AVIF encoder", "item 6.5"),
-    ".thumbhash": ("the thumbhash encoder", "item 5.3"),
-    ".bmp": ("the BMP encoder", "item 6.3"),
-    ".pbm": ("the PNM encoder", "item 6.3"),
-    ".pgm": ("the PNM encoder", "item 6.3"),
-    ".ppm": ("the PNM encoder", "item 6.3"),
-    ".pnm": ("the PNM encoder", "item 6.3"),
-    ".pam": ("the PAM encoder", "item 6.3"),
     ".jp2": ("the JPEG 2000 encoder", "item 6.4"),
     ".j2k": ("the JPEG 2000 encoder", "item 6.4"),
-    ".sr": ("the Sun Raster encoder", "item 6.3"),
-    ".ras": ("the Sun Raster encoder", "item 6.3"),
-    ".hdr": ("the Radiance HDR encoder", "item 6.3"),
-    ".pfm": ("the PFM encoder", "item 6.3"),
 }
 
 
@@ -140,14 +141,35 @@ def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,
                 icc_override: Optional[bytes] = None) -> Encoder:
     """Extension-based encoder dispatch (lilliput.go:180-202)."""
     e = ext.lower()
+    if e in _ENCODERS_NOT_PORTED:
+        not_ported(*_ENCODERS_NOT_PORTED[e])
     if e in (".mp4", ".webm"):
         raise InvalidImageError("Encoder cannot encode into video types")
+    if e == ".thumbhash":
+        from .codecs.thumbhash import ThumbhashEncoder
+        return ThumbhashEncoder(decoded_by)
     if e in (".jpg", ".jpeg"):
         from .codecs.jpeg import JpegEncoder
         return JpegEncoder(decoded_by, icc_override=icc_override)
     if e == ".png":
         from .codecs.png import PngEncoder
         return PngEncoder(decoded_by, icc_override=icc_override)
-    if e in _ENCODERS_NOT_PORTED:
-        not_ported(*_ENCODERS_NOT_PORTED[e])
+    if e == ".bmp":
+        from .codecs.bmp import BmpEncoder
+        return BmpEncoder(decoded_by, icc_override=icc_override)
+    if e in (".pbm", ".pgm", ".ppm", ".pnm"):
+        from .codecs.pnm import PnmEncoder
+        return PnmEncoder(decoded_by, icc_override=icc_override, subtype=e)
+    if e == ".pam":
+        from .codecs.pnm import PamEncoder
+        return PamEncoder(decoded_by, icc_override=icc_override)
+    if e in (".sr", ".ras"):
+        from .codecs.sunras import SunRasEncoder
+        return SunRasEncoder(decoded_by, icc_override=icc_override)
+    if e == ".hdr":
+        from .codecs.hdr import HdrEncoder
+        return HdrEncoder(decoded_by, icc_override=icc_override)
+    if e == ".pfm":
+        from .codecs.pfm import PfmEncoder
+        return PfmEncoder(decoded_by, icc_override=icc_override)
     raise InvalidImageError(f"unsupported output type {ext!r}")

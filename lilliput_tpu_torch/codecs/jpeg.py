@@ -11,14 +11,15 @@ libjpeg's ``jpeg_quality_scaling`` arithmetic.
 
 ``JpegDecoder`` Huffman-decodes on the host (jpeg_huff.cpp: baseline and
 progressive) and decodes the pixels on its device: the layout's CUDA decode
-kernel for colour sources (``ops/jpeg_kernels.decode_ycc_420``), the
+kernel for YCbCr sources (``ops/jpeg_kernels.decode_ycc_420``), the
 ``dequant_idct_blocks`` kernel's u8 epilogue for grayscale
-(``decode_gray``). ``JpegEncoder`` runs the colour conversion, fDCT and
-quantization on the frame's device and the port's baseline Huffman encoder
-(``csrc/host/jpeg_enc.cpp``) on the host. Without libjpeg the port has no
-decode route for streams jpeg_huff.cpp declines, and no progressive,
-optimized or restart-interval encode: those raise NotImplementedError
-naming ROADMAP queue 1 item 2; JCS_RGB and CMYK/YCCK sources name item 5.3.
+(``decode_gray``), and its f32 epilogue once per plane for JCS_RGB and
+CMYK/YCCK sources (``decode_rgb``, ``decode_cmyk``). ``JpegEncoder`` runs
+the colour conversion, fDCT and quantization on the frame's device and the
+port's baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``) on the host.
+Without libjpeg the port has no decode route for streams jpeg_huff.cpp
+declines, and no progressive, optimized or restart-interval encode: those
+raise NotImplementedError naming ROADMAP queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -558,41 +559,57 @@ class JpegDecoder(Decoder):
     def decode_to(self, fb: Framebuffer) -> None:
         if self._decoded:
             raise EOFError()
+        fb.array = self.frame(self._coef, self._qtable)
+        fb.duration = 0.0
+        fb.x_offset = fb.y_offset = 0
+        self._decoded = True
+
+    def frame(self, coef, qtable, plain: bool = False) -> torch.Tensor:
+        """The pixels, (..., H, W, 3) BGR or (..., H, W, 1) gray u8, from
+        `coef(c)` and `qtable(c)`, component c's coefficients and f32
+        quant table (self._coef and self._qtable, or stacks of them);
+        plain=True takes the kernels' plain versions. Each colour space
+        runs its kernels once: the layout's decode kernel for YCbCr,
+        dequant_idct_blocks once per component for gray (u8 epilogue),
+        JCS_RGB and CMYK/YCCK (f32 epilogues)."""
         from ..ops import jpeg_kernels as K
         info = self._info
-        h, w = info.height, info.width
-        if info.num_components == 1:
+        h, w, nc = info.height, info.width, info.num_components
+        if nc == 1:
             self._decode_coefs_cached()
-            px = K.decode_gray(self._coef(0), self._qtable(0), h, w)[..., None]
-        elif info.num_components == 3:
+            return K.decode_gray(coef(0), qtable(0), h, w, plain)[..., None]
+        if nc == 3:
             if not supported_subsampling(info):
                 raise DecodingFailedError("unsupported chroma subsampling")
-            if info.jpeg_color_space == JCS_RGB:
-                not_ported("decoding JCS_RGB (untransformed RGB) JPEGs",
-                           "item 5.3")
-            if info.jpeg_color_space != JCS_YCBCR:
+            if info.jpeg_color_space not in (JCS_RGB, JCS_YCBCR):
                 raise DecodingFailedError(
                     f"unsupported 3-component JPEG colorspace "
                     f"{info.jpeg_color_space}")
             self._decode_coefs_cached()
-            hy, vy = info.comp_h_samp[0], info.comp_v_samp[0]
-            hc, vc = info.comp_h_samp[1], info.comp_v_samp[1]
+            h2 = info.comp_h_samp[0] // info.comp_h_samp[1] == 2
+            v2 = info.comp_v_samp[0] // info.comp_v_samp[1] == 2
+            if info.jpeg_color_space == JCS_RGB:
+                return K.decode_rgb(*(coef(c) for c in range(3)),
+                                    *(qtable(c) for c in range(3)),
+                                    h, w, h2, v2, plain)
             tcb, tcr = info.comp_quant_tbl[1], info.comp_quant_tbl[2]
             planes = K.decode_ycc_420(
-                self._coef(0), self._coef(1), self._coef(2),
-                self._qtable(0), self._qtable(1), h, w,
-                hy // hc == 2, vy // vc == 2,
-                qt_chroma2=None if tcr == tcb else self._qtable(2))
-            px = torch.stack(planes, dim=-1)
-        elif info.num_components == 4:
-            not_ported("decoding 4-component (CMYK/YCCK) JPEGs", "item 5.3")
-        else:
-            raise DecodingFailedError(
-                f"unsupported JPEG component count {info.num_components}")
-        fb.array = px
-        fb.duration = 0.0
-        fb.x_offset = fb.y_offset = 0
-        self._decoded = True
+                coef(0), coef(1), coef(2), qtable(0), qtable(1), h, w,
+                h2, v2, qt_chroma2=None if tcr == tcb else qtable(2),
+                plain=plain)
+            return torch.stack(planes, dim=-1)
+        if nc == 4:
+            # CMYK (JCS_CMYK) / YCCK (JCS_YCCK): uniform sampling only
+            if len({(info.comp_h_samp[i], info.comp_v_samp[i])
+                    for i in range(4)}) != 1:
+                raise DecodingFailedError("subsampled CMYK JPEG unsupported")
+            self._decode_coefs_cached()
+            return K.decode_cmyk(*(coef(c) for c in range(4)),
+                                 *(qtable(c) for c in range(4)), h, w,
+                                 info.jpeg_color_space == JCS_YCCK,
+                                 has_adobe_marker(self._raw), plain)
+        raise DecodingFailedError(
+            f"unsupported JPEG component count {nc}")
 
 
 # ---------------------------------------------------------------------------

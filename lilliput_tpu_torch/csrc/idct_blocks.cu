@@ -14,10 +14,12 @@
 // raster order, (B, 8*bh, 8*bw), which is the relayout dequant_idct does
 // after the TPU kernel (jpeg_kernels.py:213-215). Wq is (B, 64, 64), or one
 // (64, 64) matrix shared by every image (wq_batched=0, the 1-D qtable branch
-// of dequant_idct). Two epilogues: f32 p (lpt_dequant_idct_blocks, what the
-// TPU kernel computes) and u8 clip(rint(p), 0, 255)
+// of dequant_idct). Three epilogues: f32 p (lpt_dequant_idct_blocks, what
+// the TPU kernel computes), u8 clip(rint(p), 0, 255)
 // (lpt_dequant_idct_blocks_u8, decode_gray's round, clamp and cast, which
-// the serving path would otherwise run as three passes over the f32 plane).
+// the serving path would otherwise run as three passes over the f32 plane),
+// and f32 p without the +128 (lpt_dequant_idct_blocks_centered, a YCCK
+// decode's chroma).
 //
 // Not carried over from the TPU kernel: the pairing of two blocks into one
 // 128-lane row against block_diag(wq, wq), and the pad of N to whole grid
@@ -108,9 +110,11 @@ __device__ __forceinline__ int cf_index(int k, int blk) {
 
 // IDCT of 4 blocks (group g of the staged job) at pixel row rho: acc[j][x]
 // is pixel (rho, x) of block 4g+j, summed in k order with fmaf from 0, then
-// +128. W is staged with the halves of rows 4..7 swapped (stage_w), so the
-// warp's two float4 W loads each cover all 32 banks once; the coefficient
-// load is one float4 of 4 consecutive groups: 3 wavefronts per 32 FMAs.
+// +128 when kShift. W is staged with the halves of rows 4..7 swapped
+// (stage_w), so the warp's two float4 W loads each cover all 32 banks once;
+// the coefficient load is one float4 of 4 consecutive groups: 3 wavefronts
+// per 32 FMAs.
+template <bool kShift>
 __device__ __forceinline__ void idct_rows(const float* __restrict__ cf,
                                           const float* __restrict__ w, int g,
                                           int rho, float acc[4][8]) {
@@ -139,6 +143,7 @@ __device__ __forceinline__ void idct_rows(const float* __restrict__ cf,
                     acc[j][x] = fmaf(c[j], wr[x], acc[j][x]);
         }
     }
+    if (!kShift) return;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -269,8 +274,8 @@ __device__ __forceinline__ void store_u8(uint8_t* __restrict__ dst,
 }
 
 // coefs (B, bh*bw, 64) int16, wq (B or 1, 64, 64) f32, out (B, 8*bh, 8*bw)
-// f32, or u8 when kU8
-template <bool kU8>
+// f32, or u8 when kU8; without the +128 level shift unless kShift
+template <bool kU8, bool kShift>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 idct_kernel(const int16_t* __restrict__ coefs, const float* __restrict__ wq,
             void* __restrict__ out, int bh, int bw, int wq_batched) {
@@ -309,7 +314,7 @@ idct_kernel(const int16_t* __restrict__ coefs, const float* __restrict__ wq,
         const bool more = s + 1 < steps;
         __syncthreads();                         // job s staged, s-1 done
         if (more) ld.issue(raw, coefs, row0 + kJobRows, tid);
-        if (live) idct_rows(cf + 4096 * (s & 1), w, g, rho, acc);
+        if (live) idct_rows<kShift>(cf + 4096 * (s & 1), w, g, rho, acc);
         if (more) store_job(raw, cf + 4096 * ((s + 1) & 1), tid);
         const size_t o = (size_t(b) * oh + 8 * size_t(row0 + jr)) * ow;
         if (kU8) {
@@ -328,7 +333,7 @@ idct_kernel(const int16_t* __restrict__ coefs, const float* __restrict__ wq,
     }
 }
 
-template <bool kU8>
+template <bool kU8, bool kShift = true>
 int launch(const void* coefs, const void* wq, void* out, int batch, int bh,
            int bw, int wq_batched, void* stream) {
     if (batch <= 0 || bh <= 0 || bw <= 0 || batch > 65535)
@@ -338,10 +343,10 @@ int launch(const void* coefs, const void* wq, void* out, int batch, int bh,
     if (grid_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     // above 48 KB, dynamic shared memory must be asked for per kernel
     cudaError_t e = cudaFuncSetAttribute(
-        idct_kernel<kU8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(kSmemBytes));
+        idct_kernel<kU8, kShift>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    idct_kernel<kU8><<<dim3(grid_x, grid_y, batch),
+    idct_kernel<kU8, kShift><<<dim3(grid_x, grid_y, batch),
                        kThreads, kSmemBytes,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int16_t*>(coefs), static_cast<const float*>(wq),
@@ -369,6 +374,16 @@ int lpt_dequant_idct_blocks_u8(const void* coefs, const void* wq, void* out,
                                int batch, int bh, int bw, int wq_batched,
                                void* stream) {
     return launch<true>(coefs, wq, out, batch, bh, bw, wq_batched, stream);
+}
+
+// lpt_dequant_idct_blocks without the +128: coef . W_q alone, in f32, the
+// chroma of a YCCK decode (XLA folds the JAX package's (x + 128) - 128 to
+// x there, as for 4:4:4 chroma).
+int lpt_dequant_idct_blocks_centered(const void* coefs, const void* wq,
+                                     void* out, int batch, int bh, int bw,
+                                     int wq_batched, void* stream) {
+    return launch<false, false>(coefs, wq, out, batch, bh, bw, wq_batched,
+                                stream);
 }
 
 const char* lpt_cuda_error_string(int err) {

@@ -2,13 +2,18 @@
 
 import torch
 
+#: products with fewer rows of `a` than this run padded with zero rows
+_MIN_ROWS = 8
+
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.matmul, except that a product with ONE row of `a` runs as a
-    two-row product: torch computes a single row as a matrix-vector product
-    whose sum order differs from XLA's dot on the CPU (the JAX package's
-    reference), while the matrix path matches it bit for bit."""
-    if a.shape[-2] != 1:
+    """torch.matmul, except that a product with fewer than 8 rows of `a`
+    runs padded to 8: torch computes one or two rows by paths whose sum
+    order differs from XLA's dot on the CPU (the JAX package's reference:
+    each output a k-order chain of fused multiply-adds), while the matrix
+    path matches it bit for bit (tests/test_torch_ops.py)."""
+    rows = a.shape[-2]
+    if rows >= _MIN_ROWS:
         return torch.matmul(a, b)
-    a2 = torch.cat([a, torch.zeros_like(a)], dim=-2)
-    return torch.matmul(a2, b)[..., :1, :]
+    pad = a.new_zeros(a.shape[:-2] + (_MIN_ROWS - rows, a.shape[-1]))
+    return torch.matmul(torch.cat([a, pad], dim=-2), b)[..., :rows, :]

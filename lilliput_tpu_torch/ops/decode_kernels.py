@@ -20,9 +20,10 @@ replicated at the window's chroma plane edge), YCbCr->BGR, round half to
 even and a clip to u8. It writes three raster u8 planes (the serving path)
 or packed BGRA int32 (what the TPU kernels compute). ``dequant_idct_blocks``
 is the dequant + IDCT alone, to an f32 raster plane: the split decode's
-first stage, which the grayscale path and the off-spec colour fallback run.
-Its u8 epilogue rounds and clips as it stores, the grayscale decode's
-plane.
+first stage, which the grayscale path, the off-spec colour fallback and
+the JCS_RGB and CMYK/YCCK decodes run. Its u8 epilogue rounds and clips
+as it stores, the grayscale decode's plane; its centered epilogue leaves
+out the + 128, YCCK's chroma.
 
 * A CUDA tensor launches the kernel (built with nvcc for sm_90a at first
   use, see ``_build.py``) or the call raises.
@@ -99,7 +100,8 @@ def _load(name: str) -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
             if name == _IDCT_LIB:
                 for fn in (lib.lpt_dequant_idct_blocks,
-                           lib.lpt_dequant_idct_blocks_u8):
+                           lib.lpt_dequant_idct_blocks_u8,
+                           lib.lpt_dequant_idct_blocks_centered):
                     fn.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_int, vp]
                     fn.restype = ctypes.c_int
@@ -265,9 +267,13 @@ def decode_ycc_reference(yc: torch.Tensor, cb: torch.Tensor,
     return bb | (gg << 8) | (rr << 16) | _ALPHA_FF
 
 
+#: dequant_idct_blocks' epilogue -> its entry point's suffix
+_IDCT_ENTRIES = {"f32": "", "u8": "_u8", "centered": "_centered"}
+
+
 def _check_idct(coefs: torch.Tensor, wq: torch.Tensor, out: str) -> None:
-    if out not in ("f32", "u8"):
-        raise ValueError("out must be 'f32' or 'u8'")
+    if out not in _IDCT_ENTRIES:
+        raise ValueError("out must be 'f32', 'u8' or 'centered'")
     if coefs.dtype != torch.int16:
         raise TypeError(f"coefs must be torch.int16, got {coefs.dtype}")
     if wq.dtype != torch.float32:
@@ -289,7 +295,8 @@ def dequant_idct_blocks(coefs: torch.Tensor, wq: torch.Tensor,
     8·bw) raster plane of coef·W_q + 128 per 8x8 block: out="f32"
     unrounded (what the TPU kernel computes); out="u8" rounded half to even
     and clipped to 0..255 (decode_gray's round, clamp and cast, done as the
-    kernel stores)."""
+    kernel stores); out="centered" coef·W_q without the + 128 (a YCCK
+    decode's chroma, where XLA folds the JAX package's (x + 128) - 128)."""
     _check_idct(coefs, wq, out)
     if coefs.device.type == "cpu":
         return dequant_idct_blocks_reference(coefs, wq, out)
@@ -307,7 +314,7 @@ def dequant_idct_blocks(coefs: torch.Tensor, wq: torch.Tensor,
                       dtype=torch.uint8 if out == "u8" else torch.float32)
     _launch(lib, "dequant_idct_blocks", coefs.device, coefs.data_ptr(),
             wq.data_ptr(), res.data_ptr(), b, bh, bw, int(wq.shape[0] != 1),
-            entry="_u8" if out == "u8" else "")
+            entry=_IDCT_ENTRIES[out])
     return res
 
 
@@ -317,5 +324,5 @@ def dequant_idct_blocks_reference(coefs: torch.Tensor, wq: torch.Tensor,
     result), on any device: one batched f32 matmul, + 128, relayout; for
     out="u8" then round and clip the fresh plane in place, and cast."""
     _check_idct(coefs, wq, out)
-    p = K.idct_folded(coefs, wq)
+    p = K.idct_folded(coefs, wq, level_shift=out != "centered")
     return p.round_().clamp_(0.0, 255.0).to(torch.uint8) if out == "u8" else p

@@ -74,11 +74,13 @@ def fold_qtables(qt: torch.Tensor) -> torch.Tensor:
     return idct_kron(q.device)[None] * q[:, :, None]
 
 
-def _fma(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 a*x + c rounded ONCE (a fused multiply-add). The f32 product is
-    exact in f64, so the f64 sum rounded to f32 is the fused result except
-    when the sum lands within 2^-29 ulp of an f32 tie (vanishingly rare)."""
-    return (x.double() * float(np.float32(a)) + c.double()).float()
+def _fma(a, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a*x + c rounded ONCE (a fused multiply-add); `a` is a Python
+    float (taken as f32) or an f32 tensor. The f32 product is exact in
+    f64, so the f64 sum rounded to f32 is the fused result except when the
+    sum lands within 2^-29 ulp of an f32 tie (vanishingly rare)."""
+    a = a.double() if isinstance(a, torch.Tensor) else float(np.float32(a))
+    return (x.double() * a + c.double()).float()
 
 
 def _blocks_to_plane(p: torch.Tensor, lead, bh: int, bw: int) -> torch.Tensor:
@@ -115,7 +117,8 @@ def _lead_batch(coefs: torch.Tensor, qtable: torch.Tensor):
 def dequant_idct(coefs: torch.Tensor, qtable: torch.Tensor,
                  plain: bool = False, out: str = "f32") -> torch.Tensor:
     """(..., bh, bw, 64) int16 + (64,) or (B, 64) -> (..., bh*8, bw*8) f32
-    (out="u8": rounded half to even and clipped, as u8).
+    (out="u8": rounded half to even and clipped, as u8; out="centered":
+    without the + 128 level shift).
 
     Dequantization folds into the IDCT matrix rows (W_q = diag(q) @ W). A
     2-D qtable carries per-image tables for a (B, bh, bw, 64) stack; each
@@ -419,6 +422,63 @@ def decode_ycc_420(y_coefs, cb_coefs, cr_coefs, qt_luma, qt_chroma,
     hf, vf = 1 + h2, 1 + v2
     return ycbcr_to_bgr(y, upsample_chroma(cb, hf, vf, out_h, out_w),
                         upsample_chroma(cr, hf, vf, out_h, out_w))
+
+
+def _round_u8(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> u8: round half to even, clip to 0..255."""
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+def decode_rgb(r_coefs, g_coefs, b_coefs, qt_r, qt_g, qt_b,
+               out_h: int, out_w: int, h2: bool, v2: bool,
+               plain: bool = False) -> torch.Tensor:
+    """3-component JCS_RGB decode (libjpeg's null_convert: no colour
+    matrix) to (..., out_h, out_w, 3) BGR u8. Each plane goes through
+    dequant_idct's f32 epilogue, so on the card dequant_idct_blocks runs
+    three times; G and B upsample like chroma when subsampled."""
+    r = dequant_idct(r_coefs, qt_r, plain)[..., :out_h, :out_w]
+    g = dequant_idct(g_coefs, qt_g, plain)
+    b = dequant_idct(b_coefs, qt_b, plain)
+    hf, vf = 1 + h2, 1 + v2
+    g = upsample_chroma(g, hf, vf, out_h, out_w)
+    b = upsample_chroma(b, hf, vf, out_h, out_w)
+    return _round_u8(torch.stack([b, g, r], dim=-1))
+
+
+def decode_cmyk(c0, c1, c2, c3, qt0, qt1, qt2, qt3, out_h: int, out_w: int,
+                ycck: bool, inverted: bool,
+                plain: bool = False) -> torch.Tensor:
+    """4-component (CMYK / YCCK) decode to (..., out_h, out_w, 3) BGR u8
+    (four launches of dequant_idct_blocks on the card).
+
+    Adobe-marked files store inverted ink values, so R = C*K/255 on the
+    decoded samples; YCCK first undoes the YCbCr transform on the CMY
+    channels (libjpeg's ycck_cmyk_convert), with XLA's CPU fusions
+    written out as in centered_ycc_to_bgr."""
+    # YCCK chroma skips the level shift: the JAX package adds 128 in its
+    # IDCT and subtracts it here, and XLA folds (x + 128) - 128 to x (as
+    # for 4:4:4 chroma, decode_ycc_reference); the centered epilogue
+    # leaves it out
+    p = [dequant_idct(c, q, plain,
+                      "centered" if ycck and i in (1, 2) else "f32")
+         [..., :out_h, :out_w]
+         for i, (c, q) in enumerate(((c0, qt0), (c1, qt1), (c2, qt2),
+                                     (c3, qt3)))]
+    if ycck:
+        cbc, crc = p[1], p[2]
+        vc = _fma(1.402, crc, p[0])
+        vm = _fma(-0.714136286, crc, _fma(-0.344136286, cbc, p[0]))
+        vy = _fma(1.772, cbc, p[0])
+    else:
+        vc, vm, vy = p[0], p[1], p[2]
+    vk = p[3]
+    if not inverted:  # no Adobe marker: samples are true ink coverage
+        vc, vm, vy, vk = 255.0 - vc, 255.0 - vm, 255.0 - vy, 255.0 - vk
+    inv255 = float(np.float32(1.0 / 255.0))
+    vc, vm, vy, vk = (torch.clamp(v, 0.0, 255.0) for v in (vc, vm, vy, vk))
+    out = torch.stack([vy * vk * inv255, vm * vk * inv255, vc * vk * inv255],
+                      dim=-1)
+    return _round_u8(out)
 
 
 def packed_to_planes(packed: torch.Tensor):

@@ -21,7 +21,16 @@ step then allows max 1 on at most 1e-3 of the quantized coefficients
 (a moved pixel shifts the resized value by a fraction, which can flip a
 coefficient rounding). dequant_idct_blocks is held to the same u8 bound
 after decode_gray's round and clip, and its u8 epilogue must equal its f32
-output rounded and clipped (0 differing values)."""
+output rounded and clipped (0 differing values), its centered epilogue
+plus 128 its f32 output (bit for bit).
+
+The still formats (JCS_RGB, CMYK and YCCK JPEG, PNG, BMP, PNM, PAM, Sun
+Raster, HDR, PFM: chip_smoke.still_inputs, 1080p) decode on the card to
+the CPU's pixels with 0 differing values, dequant_idct_blocks launched 3
+or 4 times per JPEG decode and not at all for the others, and a JPEG's
+frame is within the kernel bound of its plain route (2-image stack)."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -264,7 +273,10 @@ def _check_idct_kernel(h, w, batch, shared):
     before = DK.launches["dequant_idct_blocks"]
     got = DK.dequant_idct_blocks(yc, wq)
     got8 = DK.dequant_idct_blocks(yc, wq, out="u8")
-    assert DK.launches["dequant_idct_blocks"] == before + 2
+    gotc = DK.dequant_idct_blocks(yc, wq, out="centered")
+    assert DK.launches["dequant_idct_blocks"] == before + 3
+    # the f32 epilogue adds 128 to the same sums with one rounding
+    assert torch.equal(gotc + 128.0, got)
     args = (yc, wq) if batch > 1 else (torch.cat([yc, yc]),
                                        torch.cat([wq, wq]))
     ref = DK.dequant_idct_blocks_reference(*args)[:batch]
@@ -408,3 +420,53 @@ def test_still_decode_matches_plain_and_cpu(sub, name):
     for ref in (plain, cpu.array.cuda()):
         mx, nd, n = _diff([fb.array], [ref])
         assert mx <= 1 and nd <= 1e-4 * n
+
+
+@functools.lru_cache(maxsize=1)
+def _still_inputs():
+    import chip_smoke
+    return chip_smoke.still_inputs()
+
+
+_STILL_NAMES = ["jpeg_rgb", "jpeg_cmyk", "jpeg_ycck", "png_rgb8",
+                "png_rgba8", "png_gray8", "png_palette8", "png_rgb16",
+                "png_adam7", "bmp_565", "bmp_rle8", "bmp_24", "bmp_32",
+                "ppm", "pgm", "ppm16", "pam", "ras_24", "ras_palette", "hdr",
+                "pfm"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _STILL_NAMES)
+def test_still_format_decode_on_card_equals_cpu(name):
+    _need_card()
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    buf, n = _still_inputs()[name]
+    dec = new_decoder(buf)
+    fb = Framebuffer()
+    before = dict(DK.launches)
+    dec.decode_to(fb)
+    assert DK.launches == {k: v + (n if k == "dequant_idct_blocks" else 0)
+                           for k, v in before.items()}
+    assert fb.device.type == "cuda"
+    cpu = Framebuffer()
+    new_decoder(buf, device="cpu").decode_to(cpu)
+    assert torch.equal(fb.array.cpu(), cpu.array)
+    if n:   # decode_rgb / decode_cmyk: the kernel route vs the plain one
+        def two(get):
+            return lambda c: torch.stack([get(c), get(c)])
+        plain = dec.frame(two(dec._coef), two(dec._qtable), plain=True)[0]
+        mx, nd, count = _diff([fb.array], [plain])
+        assert mx <= 1 and nd <= 1e-4 * count
+
+
+@pytest.mark.gpu
+def test_thumbhash_batch_on_card_equals_cpu():
+    """thumbhash_batch of numpy BGRA tiles (opaque and with alpha,
+    landscape and portrait) on the card: the same hashes as on the CPU."""
+    _need_card()
+    from lilliput_tpu_torch.codecs.thumbhash import thumbhash_batch
+    rng = np.random.default_rng(12)
+    for h, w in ((64, 96), (100, 37)):
+        tiles = rng.integers(0, 256, (24, h, w, 4), dtype=np.uint8)
+        tiles[:12, ..., 3] = 255
+        assert thumbhash_batch(tiles) == thumbhash_batch(tiles, device="cpu")

@@ -187,3 +187,21 @@ def test_encode_from_bgr(h, w, c):
     ref = jax.jit(JK.bgr_to_ycbcr)(jnp.asarray(img[..., :3]))
     for g, r in zip(K.bgr_to_ycbcr(torch.from_numpy(img[..., :3])), ref):
         _eq(g, r)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 7, 8, 9, 72])
+def test_matmul_few_rows_matches_xla_dot(rows):
+    """ops/_matmul.matmul against jnp.dot (XLA:CPU sums each output as a
+    k-order chain of fused multiply-adds) for few and many rows, with the
+    fDCT's matrix: a 7x13 gray frame is two blocks, two rows."""
+    from lilliput_tpu_torch.ops._matmul import matmul
+    rng = np.random.default_rng(rows)
+    a = (rng.integers(0, 2, (rows, 64)) * 255 - 128).astype(np.float32)
+    w = (JK.idct_kron_matrix().T / np.float32(3.0)).astype(np.float32)
+    got = matmul(torch.from_numpy(a), torch.from_numpy(w))
+    _eq(got, jnp.dot(jnp.asarray(a), jnp.asarray(w),
+                     preferred_element_type=jnp.float32))
+    # batched, as idct_folded calls it
+    got = matmul(torch.from_numpy(a)[None], torch.from_numpy(w)[None])[0]
+    _eq(got, jnp.dot(jnp.asarray(a), jnp.asarray(w),
+                     preferred_element_type=jnp.float32))

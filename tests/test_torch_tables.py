@@ -105,18 +105,29 @@ def test_window_geometry_matches_jax():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, lilliput_tpu_torch, lilliput_tpu_torch.pipeline, "
-            "lilliput_tpu_torch.ops.decode_kernels; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'lilliput_tpu' or "
-            "m.startswith('lilliput_tpu.')]; "
-            "assert not bad, bad; print('ok')")
+    """Importing every module of the port (but __main__, which runs the
+    command line) pulls in neither jax nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys, lilliput_tpu_torch as P; "
+        "names = sorted(m.name for m in pkgutil.walk_packages("
+        "P.__path__, 'lilliput_tpu_torch.') "
+        "if not m.name.endswith('__main__')); "
+        "[importlib.import_module(n) for n in names]; "
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'lilliput_tpu' or "
+        "m.startswith('lilliput_tpu.')]; "
+        "assert not bad, bad; print(' '.join(names))")
     root = os.path.dirname(PKG)
     env = dict(os.environ, PYTHONPATH=root)
     out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    names = set(out.stdout.split())
+    for mod in ("api", "cli", "pipeline", "imageops", "framebuffer",
+                "ops.decode_kernels", "codecs.jpeg", "codecs.png",
+                "codecs.bmp", "codecs.pnm", "codecs.sunras", "codecs.hdr",
+                "codecs.pfm", "codecs.thumbhash"):
+        assert "lilliput_tpu_torch." + mod in names, mod
 
 
 def test_no_jax_import_in_source():

@@ -10,7 +10,8 @@ out, with device="cpu" (the decode kernels' plain versions).
   the animated composite helpers of ImageOps, the decoder's header.
 * Errors: new_decoder and new_encoder raise NotImplementedError naming
   the ROADMAP queue 1 item of each format not ported (never
-  InvalidImageError), InvalidImageError for what is no image; the
+  InvalidImageError), and the ported still formats fail as in the JAX
+  package on a bad header, InvalidImageError for what is no image; the
   max_size, zero-dimension and force_sdr paths behave as in the JAX
   package.
 * The five .icc profiles are byte-for-byte copies of the JAX package's.
@@ -156,10 +157,9 @@ def test_decoder_frame_and_header_equal_jax(kind):
         td.decode_to(tf)
 
 
-def test_decoder_refuses_rgb_and_cmyk_sources():
-    """JCS_RGB and 4-component sources are item 5.3; the header still
-    parses (new_decoder is not the place they fail, as in the JAX
-    package)."""
+def _rgb_and_cmyk_sources():
+    """A small JCS_RGB source (a 4:4:4 stream behind an Adobe marker with
+    transform 0) and a PIL CMYK one."""
     buf = _source("444", 32, 24)
     app0 = int.from_bytes(buf[4:6], "big")
     adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"  # transform 0
@@ -169,11 +169,36 @@ def test_decoder_refuses_rgb_and_cmyk_sources():
     Image.new("CMYK", (32, 24), (10, 20, 30, 40)).save(bio, "JPEG")
     assert TJ.has_adobe_marker(bio.getvalue())
     assert not TJ.has_adobe_marker(buf)
-    for b in (rgb, bio.getvalue()):
+    return rgb, bio.getvalue()
+
+
+def test_rgb_and_cmyk_sources_decode_as_jax():
+    """JCS_RGB and 4-component sources decode as in the JAX package
+    (tests/test_torch_still_codecs.py holds every variant)."""
+    for b in _rgb_and_cmyk_sources():
         assert TJ.has_adobe_marker(b) == JJ.has_adobe_marker(b)
-        d = T.new_decoder(b, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 5.3"):
-            d.decode_to(Framebuffer())
+        jf, tf = L.Framebuffer(), Framebuffer()
+        L.new_decoder(b).decode_to(jf)
+        T.new_decoder(b, device="cpu").decode_to(tf)
+        np.testing.assert_array_equal(tf.to_numpy(), np.asarray(jf.array))
+
+
+def test_decoder_refuses_rgb_and_cmyk_sources():
+    """The 4-component sources both packages refuse: CMYK and YCCK (Adobe
+    transform 0 and 2) with a subsampled component. The header still
+    parses (new_decoder is not the place they fail, as in the JAX
+    package)."""
+    for transform in (0, 2):
+        cmyk = bytearray(_rgb_and_cmyk_sources()[1])
+        cmyk[cmyk.index(b"Adobe") + 11] = transform
+        cmyk[cmyk.index(b"\xff\xc0") + 11] = 0x22  # component 1 at 2x2
+        for dec, fb, err in (
+                (L.new_decoder(bytes(cmyk)), L.Framebuffer(),
+                 L.DecodingFailedError),
+                (T.new_decoder(bytes(cmyk), device="cpu"), Framebuffer(),
+                 DecodingFailedError)):
+            with pytest.raises(err, match="subsampled CMYK"):
+                dec.decode_to(fb)
 
 
 def test_content_length_equal_jax():
@@ -199,18 +224,22 @@ NOT_PORTED_DECODERS = {
     "gif": (b"GIF89a" + bytes(20), "item 6.1"),
     "webp": (b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8), "item 6.2"),
     "avif": (_ISO_BMFF + b"avif" + bytes(8), "item 6.5"),
-    "png": (b"\x89PNG\r\n\x1a\n" + bytes(16), "item 6.1"),
-    "bmp": (b"BM" + bytes(40), "item 6.3"),
-    "pnm": (b"P6\n2 2\n255\n" + bytes(12), "item 6.3"),
-    "pam": (b"P7\nWIDTH 1\n", "item 6.3"),
-    "sunras": (b"\x59\xa6\x6a\x95" + bytes(40), "item 6.3"),
-    "hdr": (b"#?RADIANCE\n", "item 6.3"),
-    "pfm": (b"PF\n1 1\n-1\n" + bytes(12), "item 6.3"),
     "jp2": (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8), "item 6.4"),
     "j2k": (b"\xff\x4f\xff\x51" + bytes(8), "item 6.4"),
     "mp4": (_ISO_BMFF + b"isom" + bytes(8), "item 6.6"),
     "mov": (_ISO_BMFF + b"qt  " + bytes(8), "item 6.6"),
     "webm": (b"\x1a\x45\xdf\xa3" + bytes(12), "item 6.6"),
+}
+#: headers of the still formats ported in item 5.3/6.1/6.3 that no decoder
+#: reads: each raises what the JAX package raises
+PORTED_BAD_HEADERS = {
+    "png": b"\x89PNG\r\n\x1a\n" + bytes(16),
+    "bmp": b"BM" + bytes(40),
+    "pnm": b"P6\n2 2\n255\n" + bytes(12),
+    "pam": b"P7\nWIDTH 1\n",
+    "sunras": b"\x59\xa6\x6a\x95" + bytes(40),
+    "hdr": b"#?RADIANCE\n",
+    "pfm": b"PF\n1 1\n-1\n" + bytes(12),
 }
 
 
@@ -219,6 +248,23 @@ def test_new_decoder_names_the_item(name):
     buf, item = NOT_PORTED_DECODERS[name]
     with pytest.raises(NotImplementedError, match=item):
         T.new_decoder(buf, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(PORTED_BAD_HEADERS))
+def test_new_decoder_of_a_ported_format_fails_as_jax(name):
+    buf = PORTED_BAD_HEADERS[name]
+    errs = []
+    for new, fb in ((L.new_decoder, L.Framebuffer),
+                    (lambda b: T.new_decoder(b, device="cpu"), Framebuffer)):
+        try:
+            new(buf).decode_to(fb())
+            errs.append(None)
+        except NotImplementedError:
+            errs.append("NotImplementedError")
+        except Exception as e:
+            errs.append(type(e).__name__)
+    assert errs[1] != "NotImplementedError"
+    assert errs[0] == errs[1], errs
 
 
 @pytest.mark.parametrize("buf", [b"", b"not an image at all", bytes(64),
@@ -231,9 +277,7 @@ def test_new_decoder_refuses_what_is_no_image(buf):
 
 @pytest.mark.parametrize("ext,item", [
     (".gif", "item 6.1"), (".webp", "item 4.7b"), (".avif", "item 6.5"),
-    (".thumbhash", "item 5.3"), (".bmp", "item 6.3"), (".ppm", "item 6.3"),
-    (".pam", "item 6.3"), (".jp2", "item 6.4"), (".ras", "item 6.3"),
-    (".hdr", "item 6.3"), (".pfm", "item 6.3")])
+    (".jp2", "item 6.4"), (".j2k", "item 6.4")])
 def test_new_encoder_names_the_item(ext, item):
     with pytest.raises(NotImplementedError, match=item):
         T.new_encoder(ext)
@@ -242,6 +286,17 @@ def test_new_encoder_names_the_item(ext, item):
             T.new_decoder(_source("420"), device="cpu"),
             T.ImageOptions(file_type=ext, width=8, height=8,
                            resize_method=FIT))
+
+
+@pytest.mark.parametrize("ext", [".thumbhash", ".bmp", ".ppm", ".pam",
+                                 ".ras", ".hdr", ".pfm"])
+def test_new_encoder_of_a_ported_format_equal_jax(ext):
+    """The encoders ported in item 5.3/6.3: the transform's bytes equal
+    the JAX package's (tests/test_torch_still_codecs.py holds them on
+    every channel count)."""
+    a, b = _both(_source("420"), file_type=ext, width=8, height=8,
+                 resize_method=FIT)
+    assert a == b
 
 
 def test_new_encoder_dispatch():
