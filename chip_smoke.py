@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; builds the host library (g++: Huffman decode and
-encode, PNG row filters) and the kernels (nvcc, sm_90a; one nvcc per
+encode, PNG row filters, the GIF container and LZW) and the kernels (nvcc, sm_90a; one nvcc per
 source, all at once) from the sources in this checkout, then drives
 fourteen serving paths, each JpegTranscodePipeline(fixture -> 256x256 Fit
 JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
@@ -38,7 +38,7 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
                       (u8), gray pixels, 1-channel PNG;
 
 then the single-image surface (the still phase), the overlap check of
-transcode_pipelined and the still formats.
+transcode_pipelined, the still formats and GIF.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -101,7 +101,21 @@ transcode_pipelined and the still formats.
    in-process CLI run of the PNG input to .jpeg on the card, equal to
    -device cpu's bytes; ms per image
    of decode, transform and each encode, and dequant_idct_blocks' batch-1
-   time on a CMYK plane beside torch.baddbmm's.
+   time on a CMYK plane beside torch.baddbmm's;
+8. GIF (no kernel: the palette ops are torch ops): the avatar resize,
+   AnimatedTranscodePipeline(128, 128, ".gif").transcode of 32 480x480
+   animations (gif_inputs: pans across bench_1080p's pixels written by
+   tests/_torch_gif_builders.py, 28 of 32 frames and 4 of 20, so two
+   groups), with every launch count 0 just before the phase and read just
+   after (no kernel may launch): outputs equal per-animation
+   transcode_gif on the card, the CPU port's bytes for four of them, the
+   streaming ImageOps transform for one, and decode to 128x128 with the
+   sources' frame counts; a corrupt GIF fails only its own slot; a
+   1920x1080 GIF of 4 frames through ImageOps.transform to .jpeg, .png and
+   .thumbhash (Fit 256x256) equal to the CPU port's (.jpeg: coefficients
+   under the step gate); times of each group's stages (host LZW decode,
+   stacking, H2D, composite, crop + resize, quantize, D2H, host LZW
+   encode), output frames/s, peak device memory and busy share.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -1173,6 +1187,214 @@ def phase7_cli(png: bytes):
           "from -device cpu's")
 
 
+#: phase 8's serving shape: GIF_ANIMS animations on GIF_SIZE^2 canvases,
+#: of GIF_FRAMES frames (bucket 32) but every eighth of GIF_SHORT (bucket
+#: 24), to GIF_DST^2 .gif (the avatar resize); GIF_CPU of them also on the
+#: CPU port (among them two short ones)
+GIF_ANIMS, GIF_SIZE, GIF_FRAMES, GIF_SHORT, GIF_DST = 32, 480, 32, 20, 128
+GIF_CPU = (0, 7, 13, 31)
+
+
+def gif_inputs():
+    """Phase 8's inputs: GIF_ANIMS GIF89a animations panning across
+    bench_1080p.jpg's pixels (decoded by the port on the CPU) and one
+    1920x1080 GIF of 4 frames, written by
+    tests/_torch_gif_builders.pan_gif: a 3-3-2 global palette and every
+    fourth frame on a local 6x6x6 one, partial rects (one running off the
+    canvas), a transparent index on every third frame, disposals 1, 2, 3,
+    0 in turn, an interlaced frame, loop and comment extensions; the LZW
+    streams are literal-only (one code per pixel)."""
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_gif_builders import pan_gif
+    fb = Framebuffer()
+    with open(os.path.join(ASSETS, "bench_1080p.jpg"), "rb") as f:
+        new_decoder(f.read(), device="cpu").decode_to(fb)
+    rgb = np.ascontiguousarray(fb.to_numpy()[..., ::-1])
+    anims = [pan_gif(rgb, GIF_SIZE, GIF_SIZE,
+                     GIF_SHORT if k % 8 == 7 else GIF_FRAMES, start=11 * k)
+             for k in range(GIF_ANIMS)]
+    return anims, pan_gif(rgb, rgb.shape[1], rgb.shape[0], 4)
+
+
+def gif_stage_times(anims, card, reps: int = 3):
+    """transcode_gif_batch's stages, group by group as it runs them:
+    the host LZW decode and scatter (animation_inputs on its thread pool)
+    and the stacking, host clock; H2D (host clock, synced); composite,
+    crop + resize and quantize, ms per group (CUDA events, mean of
+    `reps`); D2H of the indices and the host LZW encode, host clock.
+    The emitted bytes are returned for the caller to check."""
+    import torch
+    from lilliput_tpu_torch import pipeline as TP
+    from lilliput_tpu_torch.codecs.gif import GifDecoder
+    from lilliput_tpu_torch.ops import palette as P
+    workers = min(4, os.cpu_count() or 1)
+
+    def prep(buf):
+        dec = GifDecoder(buf, device=DEVICE)
+        inp, metas = dec.animation_inputs(pad_frames=-1)
+        return dec, inp, metas
+    t0 = time.perf_counter()
+    prepped = TP._tmap(prep, anims, workers)
+    print(f"phase 8: host LZW decode + scatter (animation_inputs) of "
+          f"{len(anims)} animations: {1e3 * (time.perf_counter() - t0)!r} "
+          f"ms [{card}]", flush=True)
+    groups = TP._anim_batch_groups(
+        prepped, lambda it: (it[0]._w, it[0]._hgt, it[1]["idxs"].shape[0]))
+    out = [None] * len(anims)
+    for (cw, ch, nb), members in groups.items():
+        t = {}
+        bb = P.frame_bucket(len(members))
+        t0 = time.perf_counter()
+        stack = TP._stack_group(prepped, members, TP._GIF_INPUTS, bb)
+        t["stack_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dev = [torch.from_numpy(stack[k]).to(DEVICE) for k in TP._GIF_INPUTS]
+        torch.cuda.synchronize()
+        t["h2d_ms"] = 1e3 * (time.perf_counter() - t0)
+        t["h2d_mb"] = sum(a.nbytes for a in stack.values()) / 1e6
+        t["composite_ms"] = cuda_ms(lambda: P.composite_animation(*dev), reps)
+        comp = P.composite_animation(*dev)
+        crop = TP.fit_rect(cw, ch, GIF_DST, GIF_DST)
+        t["resize_ms"] = cuda_ms(lambda: TP._anim_crop_resize(
+            comp, crop, GIF_DST, GIF_DST), reps)
+        resized = TP._anim_crop_resize(comp, crop, GIF_DST, GIF_DST)
+        encs, plans, stacked = TP._gif_group_plans(prepped, members, nb, bb)
+        args = [torch.from_numpy(stacked[k]).to(DEVICE)
+                for k in TP._PLAN_KEYS]
+        t["quantize_ms"] = cuda_ms(lambda: P.quantize_animation(
+            resized, *args), reps)
+        idxs = P.quantize_animation(resized, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_np = idxs[:len(members)].cpu().numpy()
+        t["d2h_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res = TP._tmap(lambda k: TP._gif_emit_frames(
+            encs[k], prepped[members[k]][2], plans[k], idx_np[k], GIF_DST,
+            GIF_DST), range(len(members)), workers)
+        t["host_lzw_encode_ms"] = 1e3 * (time.perf_counter() - t0)
+        for k, i in enumerate(members):
+            out[i] = res[k]
+        print(f"phase 8: group {cw}x{ch}, frame bucket {nb}, "
+              f"{len(members)} animations in {bb} lanes: "
+              + " ".join(f"{k}={v!r}" for k, v in t.items())
+              + f" [{card}]", flush=True)
+        del dev, comp, resized, idxs, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase8(card):
+    """GIF: AnimatedTranscodePipeline(128, 128, ".gif").transcode of
+    GIF_ANIMS 480x480 animations on the card, with every launch count 0
+    just before the phase and read just after (the GIF path launches none
+    of the five kernels). Its outputs must equal per-animation
+    transcode_gif on the card byte for byte, the CPU port's bytes for
+    GIF_CPU, decode (the port's GifDecoder on the CPU) to 128x128 frames
+    of the source's frame count, and for animation 0 equal the streaming
+    ImageOps(8192).transform(new_decoder(buf), RESIZE 128x128 ".gif"); a
+    corrupt GIF in a batch fails only its own slot. The 1920x1080 GIF
+    through ImageOps.transform to .jpeg, .png and .thumbhash at Fit
+    256x256 on the card: the CPU port's bytes (.jpeg: coefficients under
+    the step gate). Times: the stages of each group (gif_stage_times),
+    output frames/s of the whole transcode, peak device memory, the
+    device's busy share, the single-image stages of the 1080p GIF."""
+    import torch
+    from lilliput_tpu_torch import (AnimatedTranscodePipeline, Framebuffer,
+                                    ImageOps, ImageOptions, ResizeMethod,
+                                    new_decoder)
+    from lilliput_tpu_torch import pipeline as TP
+    from lilliput_tpu_torch.codecs.gif import GifDecoder
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    t0 = time.perf_counter()
+    anims, still = gif_inputs()
+    counts = [GifDecoder(b, device="cpu").frame_count() for b in anims]
+    print(f"phase 8: {len(anims)} {GIF_SIZE}x{GIF_SIZE} GIFs of "
+          f"{sum(counts)} frames ({sum(map(len, anims))} bytes) and a "
+          f"1920x1080 GIF of 4 frames built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    pipe = AnimatedTranscodePipeline(GIF_DST, GIF_DST, ".gif",
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    DK.reset_launches()
+    t0 = time.perf_counter()
+    outs = pipe.transcode(anims)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = pipe.transcode(anims)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(again == outs, "two runs of the batch differ")
+    for k, (buf, o) in enumerate(zip(anims, outs)):
+        check(isinstance(o, bytes), f"animation {k} failed: {o!r}")
+        check(o == TP.transcode_gif(buf, GIF_DST, GIF_DST, fit=True,
+                                    device=DEVICE),
+              f"animation {k}: the batch differs from transcode_gif")
+    print(f"phase 8: {len(outs)} outputs equal per-animation transcode_gif "
+          f"on {DEVICE}", flush=True)
+    for k in GIF_CPU:
+        check(outs[k] == TP.transcode_gif(anims[k], GIF_DST, GIF_DST,
+                                          fit=True, device="cpu"),
+              f"animation {k}: the card's bytes differ from the CPU port's")
+    print(f"phase 8: animations {GIF_CPU} equal the CPU port's bytes",
+          flush=True)
+    for k, o in enumerate(outs):
+        d, n = GifDecoder(o, device="cpu"), 0
+        while True:
+            fb = Framebuffer()
+            try:
+                d.decode_to(fb)
+            except EOFError:
+                break
+            check(fb.array.shape == (GIF_DST, GIF_DST, 4),
+                  f"output {k} frame {n} is {tuple(fb.array.shape)}")
+            n += 1
+        check(n == counts[k], f"output {k} has {n} frames, not {counts[k]}")
+    stream = ImageOps(8192).transform(
+        new_decoder(anims[0], device=DEVICE), ImageOptions(
+            file_type=".gif", width=GIF_DST, height=GIF_DST,
+            resize_method=ResizeMethod.RESIZE, encode_timeout=600.0))
+    check(stream == outs[0], "the streaming transform differs from the "
+          "batch on animation 0")
+    res = pipe.transcode([anims[0], anims[1][:len(anims[1]) // 3],
+                          anims[2]], return_exceptions=True)
+    check(res[0] == outs[0] and res[2] == outs[2]
+          and isinstance(res[1], Exception), "a corrupt GIF in the batch "
+          "did not fail only its own slot")
+    print(f"phase 8: outputs decode to {GIF_DST}x{GIF_DST} with the "
+          f"sources' frame counts; streaming == batch on animation 0; the "
+          f"corrupt GIF failed alone ({type(res[1]).__name__})", flush=True)
+    outs_still = {fmt: _still_output(still, DEVICE, fmt)
+                  for fmt in PHASE7_FMTS}
+    ref = {fmt: _still_output(still, "cpu", fmt) for fmt in PHASE7_FMTS}
+    for fmt in (".png", ".thumbhash"):
+        check(outs_still[fmt] == ref[fmt], f"1080p GIF {fmt} bytes differ "
+              f"from the CPU port's")
+    _gate("1080p GIF .jpeg coefficients vs CPU",
+          [torch.from_numpy(c) for c in jpeg_coefs(outs_still[".jpeg"])],
+          [torch.from_numpy(c) for c in jpeg_coefs(ref[".jpeg"])],
+          (STEP_MAX_DIFF, STEP_MAX_SHARE), "coefficients", 8)
+    print(f"phase 8: peak device memory of the batch "
+          f"{peak / 2**20!r} MiB; first transcode {first_s!r} s; "
+          f"transcode of {sum(counts)} frames {wall!r} s, "
+          f"{sum(counts) / wall!r} output frames/s [{card}]", flush=True)
+    share = busy_share(lambda: pipe.transcode(anims))
+    print(f"phase 8: device busy share of the transcode {share!r} "
+          f"[{card}]", flush=True)
+    check(gif_stage_times(anims, card) == outs, "the staged batch differs "
+          "from the pipeline's")
+    for m, v in still_times(still, fmts=PHASE7_FMTS).items():
+        print(f"phase 8: 1080p GIF {m}={v!r} [{card}]", flush=True)
+    launched = dict(DK.launches)
+    print(f"phase 8: launches over the phase {launched}", flush=True)
+    check(not any(launched.values()), "the GIF path launched a kernel")
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -1234,6 +1456,7 @@ def main() -> int:
     phase5(card, kernels)
     phase6(card)
     phase7(card, kernels)
+    phase8(card)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

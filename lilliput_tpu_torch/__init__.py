@@ -9,8 +9,8 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
   or PNG output, in every mode: AREA, LINEAR or CUBIC resize, chroma_mode
   "rgb" or "direct", dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT
   tier);
-* the single-image surface for the still formats: JPEG (YCbCr, gray,
-  JCS_RGB, CMYK/YCCK), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR
+* the single-image surface: JPEG (YCbCr, gray, JCS_RGB, CMYK/YCCK),
+  GIF (animated too), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR
   and PFM in; those (not APNG) and thumbhash out::
 
       from lilliput_tpu_torch import (ImageOps, ImageOptions,
@@ -20,6 +20,9 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
           file_type=".jpeg", width=256, height=256,
           resize_method=ResizeMethod.FIT))
 
+* the animated GIF -> GIF serving path (``AnimatedTranscodePipeline``,
+  ``pipeline.transcode_gif`` and ``transcode_gif_batch``), with the
+  palette ops of ``ops/palette.py``;
 * the command line, ``python -m lilliput_tpu_torch`` (``cli.py``).
 
 The decode kernels are CUDA (``csrc/*.cu``); the host entropy stages are
@@ -45,6 +48,8 @@ from .framebuffer import (JPEG_PROGRESSIVE, JPEG_QUALITY,  # noqa: E402,F401
                           Framebuffer, ImageHeader, ImageOrientation)
 from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401
-from .pipeline import JpegTranscodePipeline  # noqa: E402,F401
+from .pipeline import (AnimatedTranscodePipeline,  # noqa: E402,F401
+                       JpegTranscodePipeline, transcode_gif,
+                       transcode_gif_batch)
 
 __version__ = "0.1.0"

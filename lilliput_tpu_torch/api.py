@@ -1,9 +1,9 @@
 """Public API: format sniffing and decoder/encoder construction.
 
 The counterpart of ``lilliput_tpu/api.py`` (lilliput.go:100-202): magic-byte
-dispatch and extension-based encoder selection. The port decodes JPEG,
-PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR and PFM, and encodes
-those formats and thumbhash (not APNG). GIF, WebP, AVIF, JPEG 2000 and
+dispatch and extension-based encoder selection. The port decodes GIF,
+JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR and PFM, and
+encodes those formats and thumbhash (not APNG). WebP, AVIF, JPEG 2000 and
 video raise NotImplementedError naming their ROADMAP queue 1 item, never
 InvalidImageError, so a caller can tell "not ported" from "not an image";
 bytes no decoder of the JAX package would recognize raise
@@ -66,7 +66,6 @@ def _is_video(buf: bytes) -> bool:
 #: (sniffer, what, ROADMAP queue 1 item) of each decoder not ported yet,
 #: at its place in the JAX package's dispatch order
 _NOT_PORTED_FIRST = (
-    (is_gif, "the GIF decoder", "item 6.1"),
     (is_webp, "the WebP decoder", "item 6.2"),
     (is_avif, "the AVIF decoder", "item 6.5"),
 )
@@ -78,7 +77,7 @@ _NOT_PORTED_LAST = (
 
 def _still_decoder(buf: bytes):
     """The decoder class of a still format the port reads, in the JAX
-    package's order after GIF/WebP/AVIF (lilliput_tpu/api.py:46-105), or
+    package's order after GIF, WebP and AVIF (lilliput_tpu/api.py:46-105), or
     None."""
     if is_jpeg(buf):
         from .codecs.jpeg import JpegDecoder
@@ -115,6 +114,9 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
     del tone_mapping_enabled  # read by the AVIF decoder (item 6.5)
     if len(buf) == 0:
         raise InvalidImageError("empty buffer")
+    if is_gif(buf):
+        from .codecs.gif import GifDecoder
+        return GifDecoder(buf, device=device)
     for sniff, what, item in _NOT_PORTED_FIRST:
         if sniff(buf):
             not_ported(what, item)
@@ -129,7 +131,6 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
 
 #: output extension -> (what, ROADMAP queue 1 item) of encoders not ported
 _ENCODERS_NOT_PORTED = {
-    ".gif": ("the GIF encoder", "item 6.1"),
     ".webp": ("the WebP encoder", "item 4.7b"),
     ".avif": ("the AVIF encoder", "item 6.5"),
     ".jp2": ("the JPEG 2000 encoder", "item 6.4"),
@@ -141,6 +142,9 @@ def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,
                 icc_override: Optional[bytes] = None) -> Encoder:
     """Extension-based encoder dispatch (lilliput.go:180-202)."""
     e = ext.lower()
+    if e == ".gif":
+        from .codecs.gif import GifEncoder
+        return GifEncoder(decoded_by, icc_override=icc_override)
     if e in _ENCODERS_NOT_PORTED:
         not_ported(*_ENCODERS_NOT_PORTED[e])
     if e in (".mp4", ".webm"):

@@ -4,8 +4,9 @@ The counterpart of ``lilliput_tpu/binding.py``. It does not run the JAX
 package's ``make`` (which compiles every native shim and links libjpeg,
 libwebp and ffmpeg): the port needs the Huffman decoder
 (``csrc/host/jpeg_huff.cpp``), the PNG row filters with their deflate
-helpers (``csrc/host/png_filter.cpp``), both byte-for-byte copies of the
-JAX package's ``native/src`` files held equal by tests, and the port's
+helpers (``csrc/host/png_filter.cpp``) and the GIF container and LZW
+codec (``csrc/host/gif_codec.cpp``), byte-for-byte copies of the JAX
+package's ``native/src`` files held equal by tests, and the port's
 baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). None needs libjpeg,
 so the library builds on machines without it. ``png_filter.cpp`` uses
 libdeflate where ``libdeflate.h`` exists; the build then links
@@ -28,6 +29,7 @@ HOST_SOURCES = (
     os.path.join(_build.CSRC_DIR, "host", "jpeg_huff.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "jpeg_enc.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "png_filter.cpp"),
+    os.path.join(_build.CSRC_DIR, "host", "gif_codec.cpp"),
 )
 #: the header whose presence compiles png_filter.cpp's libdeflate route
 LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
@@ -64,6 +66,40 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.lp_zlib_compress_bound.restype = c.c_int64
     lib.lp_zlib_decompress.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
     lib.lp_zlib_decompress.restype = c.c_int64
+    _configure_gif(lib, u8p, i32p)
+
+
+def _configure_gif(lib: ctypes.CDLL, u8p, i32p) -> None:
+    """The lp_gif_* entry points of gif_codec.cpp (its C ABI), as the JAX
+    package's codecs/gif.py registers them."""
+    c = ctypes
+    sigs = {
+        "lp_gif_open": ([u8p, c.c_size_t, i32p], c.c_void_p),
+        "lp_gif_free": ([c.c_void_p], None),
+        "lp_gif_global_palette": ([c.c_void_p, u8p], c.c_int),
+        "lp_gif_next_frame": ([c.c_void_p, i32p], c.c_int),
+        "lp_gif_frame_palette": ([c.c_void_p, u8p], c.c_int),
+        "lp_gif_frame_ext": ([c.c_void_p, u8p, c.c_int32], c.c_int),
+        "lp_gif_frame_indices": ([c.c_void_p, u8p], c.c_int),
+        "lp_gif_skip_frame": ([c.c_void_p], c.c_int),
+        "lp_gif_scan": ([c.c_void_p], c.c_int),
+        "lp_gif_scanned_meta": ([c.c_void_p, c.c_int32, i32p], c.c_int),
+        "lp_gif_scanned_palette": ([c.c_void_p, c.c_int32, u8p], c.c_int),
+        "lp_gif_scanned_ext": ([c.c_void_p, c.c_int32, u8p, c.c_int32],
+                               c.c_int),
+        "lp_gif_decode_scanned": ([c.c_void_p, c.c_int32, u8p], c.c_int),
+        "lp_gif_anim_info": ([u8p, c.c_size_t, i32p], c.c_int),
+        "lp_gif_enc_new": ([c.c_int32] * 5 + [u8p, c.c_int32], c.c_void_p),
+        "lp_gif_enc_frame": ([c.c_void_p, u8p, c.c_int32, i32p, u8p,
+                              c.c_int32, u8p], c.c_int),
+        "lp_gif_enc_size": ([c.c_void_p], c.c_long),
+        "lp_gif_enc_finish": ([c.c_void_p, u8p, c.c_size_t], c.c_long),
+        "lp_gif_enc_free": ([c.c_void_p], None),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
 
 
 def build() -> str:

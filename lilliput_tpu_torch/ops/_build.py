@@ -3,7 +3,7 @@
 Both libraries have a plain C interface and are loaded with ctypes:
 
 * the host entropy library (``binding.py``): g++ over the port's
-  ``csrc/host/jpeg_huff.cpp`` and ``csrc/host/jpeg_enc.cpp``;
+  ``csrc/host/*.cpp`` (``binding.HOST_SOURCES``);
 * the CUDA kernels (``decode_kernels.py``): nvcc over ``csrc/*.cu`` for
   ``sm_90a``.
 

@@ -1,4 +1,5 @@
-"""Batched JPEG Fit transcode — the port's serving path.
+"""Batched JPEG Fit transcode — the port's serving path — and the
+animated GIF -> GIF serving path.
 
 The JPEG-in half of ``lilliput_tpu/pipeline.py``: a batch of
 same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
@@ -42,6 +43,14 @@ a CUDA event, and the host waits on that event alone, so it encodes batch
 i-1 and decodes batch i+1 while step i runs. Everything outside the port
 (.webp output, optimize_coding, the libjpeg decode route) raises
 NotImplementedError naming its ROADMAP queue 1 item; nothing falls back.
+
+GIF (``transcode_gif``, ``transcode_gif_batch``,
+``AnimatedTranscodePipeline``): host LZW decode and index scattering
+(codecs/gif.py, gif_codec.cpp), then on the device the composite of every
+frame (``ops.palette.composite_animation``), the Fit crop and exact AREA
+resize and the whole-animation quantizer (``quantize_animation``), over a
+leading animation axis for a batch of same-canvas animations, then the
+host LZW encode; the bytes equal the streaming ImageOps transform's.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from .errors import DecodingFailedError
 from .errors import not_ported as _not_ported
 from .ops import jpeg_kernels as K
 from .ops import orient as O
+from .ops import palette as P
 from .ops import resize as R
 from .utils import resolve_device
 
@@ -996,3 +1006,343 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 else J.read_icc(buf) for i, buf in enumerate(bufs)]
         return coefs, iccs
 
+
+
+# ---------------------------------------------------------------------------
+# animated GIF -> GIF: transcode_gif, transcode_gif_batch and
+# AnimatedTranscodePipeline
+# ---------------------------------------------------------------------------
+
+
+def _anim_crop_resize(frames: torch.Tensor, crop, dst_w: int, dst_h: int):
+    """Fit crop + exact AREA resize of (..., N, H, W, 4) animation frames."""
+    if crop is not None:
+        left, top, w, h = crop
+        frames = frames[..., top:top + h, left:left + w, :]
+    return R.resize(frames, dst_w, dst_h, R.AREA)
+
+
+#: quantize_animation's per-frame inputs in a plan, in argument order
+_PLAN_KEYS = ("palettes", "counts", "trans", "clear", "use_prev")
+
+#: what GIF -> .webp needs (JAX: _gif_emit_webp) and its ROADMAP item
+_GIF_TO_WEBP = ("GIF -> .webp (the WebP encoder, _gif_emit_webp)",
+                "item 4.7b")
+
+
+def transcode_gif(buf: bytes, dst_w: int, dst_h: int, fit: bool = False,
+                  file_type: str = ".gif", device="cuda") -> bytes:
+    """Whole-animation transcode of one GIF: host LZW decode, the
+    composite of every frame on `device` (frame axis padded to a bucket),
+    one batched crop + AREA resize, the whole-animation quantizer
+    (ops.palette.quantize_animation, bit-identical to the sequential
+    per-frame cache emulation), then the host LZW encode. Its bytes equal
+    the streaming ImageOps.transform's, which visits the device once per
+    frame."""
+    from .codecs.gif import GifDecoder, GifEncoder
+
+    if file_type == ".webp":
+        _not_ported(*_GIF_TO_WEBP)
+    dec = GifDecoder(buf, device=device)
+    frames, metas = dec.decode_animation(pad_frames=-1)
+    if not metas:
+        raise DecodingFailedError("gif has no frames")
+    n = len(metas)
+    crop = fit_rect(dec._w, dec._hgt, dst_w, dst_h) if fit else None
+    resized = _anim_crop_resize(frames, crop, dst_w, dst_h)
+    enc = GifEncoder(dec)
+    plan = _gif_quantize_plan(enc, metas, resized.shape[0])
+    idxs = P.quantize_animation(resized, *(
+        torch.from_numpy(plan[k]).to(dec.device) for k in _PLAN_KEYS))
+    idx_np = idxs[:n].cpu().numpy()  # one D2H for all frames
+    return _gif_emit_frames(enc, metas, plan["plans"], idx_np, dst_w, dst_h)
+
+
+
+def _gif_quantize_plan(enc, metas, nb: int) -> dict:
+    """Host-side per-frame quantization plans (the encoder's sequential
+    trans/cache state) stacked to the padded frame count nb, as
+    quantize_animation inputs, plus the (trans, use_local) pairs the
+    emitter needs."""
+    palettes = np.zeros((nb, 256, 3), np.int32)
+    counts = np.ones((nb,), np.int32)  # inert pad rows: 1 entry, no trans
+    trans_arr = np.full((nb,), -1, np.int32)
+    clear_arr = np.zeros((nb,), bool)
+    use_prev_arr = np.zeros((nb,), bool)
+    plans = []
+    for i, m in enumerate(metas):
+        trans, use_local, clear, use_prev = enc._plan_frame(m)
+        palettes[i, :m.pal_count] = m.palette[:m.pal_count]
+        counts[i] = max(m.pal_count, 1)
+        trans_arr[i] = trans
+        clear_arr[i] = clear
+        use_prev_arr[i] = use_prev
+        plans.append((trans, use_local))
+    return dict(palettes=palettes, counts=counts, trans=trans_arr,
+                clear=clear_arr, use_prev=use_prev_arr, plans=plans)
+
+
+def _gif_group_plans(prepped, members, nb: int, bb: int):
+    """A group's per-animation encoders and (trans, use_local) plans, and
+    quantize_animation's inputs stacked over bb lanes (the lanes past the
+    members inert: 1-entry palettes, no transparency)."""
+    from .codecs.gif import GifEncoder
+    encs, plans, stacked = [], [], {k: [] for k in _PLAN_KEYS}
+    for i in members:
+        dec, _, metas = prepped[i]
+        enc = GifEncoder(dec)
+        plan = _gif_quantize_plan(enc, metas, nb)
+        encs.append(enc)
+        plans.append(plan["plans"])
+        for k in _PLAN_KEYS:
+            stacked[k].append(plan[k])
+    inert = _gif_quantize_plan(None, [], nb)
+    return encs, plans, {k: np.stack(v + [inert[k]] * (bb - len(members)))
+                         for k, v in stacked.items()}
+
+
+def _gif_emit_frames(enc, metas, plans, idx_np: np.ndarray,
+                     dst_w: int, dst_h: int) -> bytes:
+    for i, m in enumerate(metas):
+        trans, use_local = plans[i]
+        enc._emit_frame(m, np.ascontiguousarray(idx_np[i]), dst_w, dst_h,
+                        trans, use_local)
+    return enc.encode(None, {})
+
+
+def _gif_batch_to_pixels(idxs, drawn, luts, counts, trans, pdisp, prects,
+                         bgs, crop, dst_w: int, dst_h: int):
+    """Composite + crop + exact AREA resize of a batch of animations
+    (leading axis = animation); each animation's result equals its
+    unbatched chain's bit for bit."""
+    comp = P.composite_animation(idxs, drawn, luts, counts, trans, pdisp,
+                                 prects, bgs)
+    return _anim_crop_resize(comp, crop, dst_w, dst_h)
+
+
+def _tmap(fn, items, n_workers: int) -> list:
+    """Thread-pooled map (the host codecs release the GIL)."""
+    if n_workers > 1 and len(items) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(n_workers) as ex:
+            return list(ex.map(fn, items))
+    return [fn(x) for x in items]
+
+
+def _anim_batch_groups(prepped, sig_fn) -> Dict[tuple, List[int]]:
+    """Group prepped animations by device signature, preserving first-seen
+    order: signature -> member indices."""
+    groups: Dict[tuple, List[int]] = {}
+    for i, item in enumerate(prepped):
+        groups.setdefault(sig_fn(item), []).append(i)
+    return groups
+
+
+def _stack_group(prepped, members, names, pad_to: int) -> dict:
+    """Stack each named per-animation input over a leading animation axis,
+    padding the animation count to pad_to with zeroed (inert) lanes."""
+    from .utils import metrics
+    metrics.incr("serving.anim_groups")
+    metrics.incr("serving.anim_lanes", len(members))
+    metrics.incr("serving.anim_pad_lanes", pad_to - len(members))
+    stack = {}
+    for name in names:
+        arrs = [prepped[i][1][name] for i in members]
+        arrs.extend([np.zeros_like(arrs[0])] * (pad_to - len(members)))
+        stack[name] = np.stack(arrs)
+    return stack
+
+
+#: cross-animation batch lane cap: a group's device footprint grows with
+#: its animation count (the composited frames alone are ~30 MB per
+#: animation at a 480x480 canvas x bucket 32), so larger groups split
+#: into chunks of at most this many animations
+_MAX_ANIM_LANES = 32
+
+_GIF_INPUTS = ("idxs", "drawn", "luts", "counts", "trans", "pdisp",
+               "prects", "bg_bgra")
+
+
+def _chunk_members(members) -> List[List[int]]:
+    """A group's members in chunks of at most _MAX_ANIM_LANES."""
+    cap = _MAX_ANIM_LANES
+    return [members[i:i + cap] for i in range(0, len(members), cap)]
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None:
+        _not_ported("the sharded animation batch (mesh, _dp_put)", "item 9")
+
+
+def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
+                        fit: bool = False, file_type: str = ".gif",
+                        workers: Optional[int] = None, mesh=None,
+                        device="cuda") -> List[bytes]:
+    """Whole-animation transcode of MANY GIFs with shared device work, the
+    cross-animation form of transcode_gif for avatar-resize serving (many
+    small animations).
+
+    Animations are grouped by (canvas, frame bucket); each group (in
+    chunks of at most _MAX_ANIM_LANES) pads its animation count to
+    ops.palette.frame_bucket and runs one composite + resize + quantize
+    over a (B, N, H, W, ...) stack on `device`. Outputs equal
+    per-animation transcode_gif's bytes: the batched ops apply the same
+    exact ops per animation, and the host LZW encode is per animation.
+    Host LZW decode/encode and the input assembly run on a thread pool
+    (the C++ codec releases the GIL)."""
+    from .codecs.gif import GifDecoder
+
+    if file_type not in (".gif", ".webp"):
+        raise DecodingFailedError(
+            f"GIF batch transcode encodes to .gif/.webp, not {file_type}")
+    if file_type == ".webp":
+        _not_ported(*_GIF_TO_WEBP)
+    _check_mesh(mesh)
+    dev = resolve_device(device)
+    n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
+
+    def prep(buf: bytes):
+        dec = GifDecoder(buf, device=dev)
+        inp, metas = dec.animation_inputs(pad_frames=-1)
+        if not metas:
+            raise DecodingFailedError("gif has no frames")
+        return dec, inp, metas
+
+    prepped = _tmap(prep, bufs, n_workers)
+    groups = _anim_batch_groups(
+        prepped, lambda it: (it[0]._w, it[0]._hgt, it[1]["idxs"].shape[0]))
+
+    out: List[Optional[bytes]] = [None] * len(bufs)
+    for (cw, ch, nb), members in [(k, c) for k, g in groups.items()
+                                  for c in _chunk_members(g)]:
+        bb = P.frame_bucket(len(members))  # animation-count bucket
+        stack = _stack_group(prepped, members, _GIF_INPUTS, bb)
+        crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
+        resized = _gif_batch_to_pixels(
+            *(torch.from_numpy(stack[k]).to(dev) for k in _GIF_INPUTS),
+            crop, dst_w, dst_h)
+
+        encs, plans_list, stacked = _gif_group_plans(prepped, members, nb,
+                                                     bb)
+        idxs = P.quantize_animation(resized, *(
+            torch.from_numpy(stacked[k]).to(dev) for k in _PLAN_KEYS))
+        idx_np = idxs[:len(members)].cpu().numpy()
+
+        def emit_gif(k: int) -> bytes:
+            _, _, metas = prepped[members[k]]
+            return _gif_emit_frames(encs[k], metas, plans_list[k],
+                                    idx_np[k], dst_w, dst_h)
+
+        results = _tmap(emit_gif, range(len(members)), n_workers)
+        for k, i in enumerate(members):
+            out[i] = results[k]
+    return out  # type: ignore[return-value]
+
+
+class AnimatedTranscodePipeline:
+    """Serving front for ANIMATED sources whose output keeps the animation,
+    what the reference's Transform does for animated input with .gif or
+    .webp output (ops.go:302-374 loops every frame through the encoder).
+
+    GIF sources with .gif output ride the cross-animation batch
+    (transcode_gif_batch): same-signature animations share one device
+    composite, resize and quantize, byte-identical to per-animation
+    transcode_gif and to the streaming ImageOps path. A failed group falls
+    back to per-item transcode, so a malformed animation fails only its
+    own slot.
+
+    output_format: ".gif" (GIF sources; the GIF encoder reuses the source
+    palette), ".webp" or ".avif", as in the JAX package. Not ported yet:
+    .webp output of GIF sources (item 4.7b), WebP sources (item 6.2), AVIF
+    sources (item 6.5) and a mesh (item 9); each raises
+    NotImplementedError naming its item (per item for the first three).
+    """
+
+    _FORMATS = (".gif", ".webp", ".avif")
+
+    def __init__(self, dst_w: int, dst_h: int, output_format: str = ".webp",
+                 fit: bool = True, workers: Optional[int] = None,
+                 encode_options: Optional[dict] = None, mesh=None,
+                 device="cuda"):
+        if output_format not in self._FORMATS:
+            raise ValueError(
+                f"animated output_format must be one of {self._FORMATS}")
+        _check_mesh(mesh)
+        self.dst_w, self.dst_h = dst_w, dst_h
+        self.output_format = output_format
+        self.fit = fit
+        self.workers = workers
+        self.encode_options = dict(encode_options or {})
+        self.mesh = mesh
+        self.device = resolve_device(device)
+
+    def transcode_one(self, buf: bytes) -> bytes:
+        from . import api as A
+        fmt = self.output_format
+        if A.is_gif(buf):
+            if fmt not in (".gif", ".webp"):
+                raise DecodingFailedError(
+                    f"GIF sources encode to .gif/.webp, not {fmt}")
+            return transcode_gif(buf, self.dst_w, self.dst_h, fit=self.fit,
+                                 file_type=fmt, device=self.device)
+        if A.is_webp(buf):
+            if fmt != ".webp":
+                raise DecodingFailedError(
+                    ".gif output requires a GIF source (the GIF encoder "
+                    "reuses the source palette)" if fmt == ".gif" else
+                    f"WebP sources encode to .webp, not {fmt}")
+            _not_ported("the animated WebP transcode (transcode_webp)",
+                        "item 6.2")
+        if A.is_avif(buf):
+            if fmt not in (".webp", ".avif"):
+                raise DecodingFailedError(
+                    ".gif output requires a GIF source (the GIF encoder "
+                    "reuses the source palette)")
+            _not_ported("the animated AVIF transcode (transcode_avif)",
+                        "item 6.5")
+        raise DecodingFailedError(
+            "animated transcode supports GIF/WebP/AVIF sources")
+
+    def transcode(self, bufs: Sequence[bytes],
+                  return_exceptions: bool = False) -> List[bytes]:
+        """Transcode a mixed batch. Per-item failures are isolated: a
+        malformed animation grouped into a cross-animation batch cannot
+        fail its healthy co-batched requests, since a failed group falls
+        back to per-item transcode, where errors attach to their own
+        index. With return_exceptions=True the failing items' slots hold
+        the exception objects; with the default False the first failure
+        re-raises after the healthy items finish."""
+        from . import api as A
+        out: List[Optional[bytes]] = [None] * len(bufs)
+        errors: Dict[int, Exception] = {}
+        rest = list(range(len(bufs)))
+        if self.output_format == ".gif":
+            members = [i for i in rest if A.is_gif(bufs[i])]
+            if len(members) > 1:
+                try:
+                    res = transcode_gif_batch(
+                        [bufs[i] for i in members], self.dst_w, self.dst_h,
+                        fit=self.fit, file_type=self.output_format,
+                        workers=self.workers, device=self.device)
+                except Exception:
+                    # one hostile member poisoned the group: the per-item
+                    # path below isolates the failure to its own index
+                    res = None
+                if res is not None:
+                    for i, r in zip(members, res):
+                        out[i] = r
+                    rest = [i for i in rest if out[i] is None]
+        n_workers = (self.workers if self.workers is not None
+                     else min(4, os.cpu_count() or 1))
+
+        def one(i):
+            try:
+                return self.transcode_one(bufs[i])
+            except Exception as e:  # noqa: BLE001 -- isolate per item
+                errors[i] = e
+                return None
+
+        for i, r in zip(rest, _tmap(one, rest, n_workers)):
+            out[i] = r
+        return _ServingPipelineBase._resolve_errors(out, errors,
+                                                    return_exceptions)

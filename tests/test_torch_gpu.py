@@ -28,7 +28,14 @@ The still formats (JCS_RGB, CMYK and YCCK JPEG, PNG, BMP, PNM, PAM, Sun
 Raster, HDR, PFM: chip_smoke.still_inputs, 1080p) decode on the card to
 the CPU's pixels with 0 differing values, dequant_idct_blocks launched 3
 or 4 times per JPEG decode and not at all for the others, and a JPEG's
-frame is within the kernel bound of its plain route (2-image stack)."""
+frame is within the kernel bound of its plain route (2-image stack).
+
+The GIF path (no kernel: torch ops) on the card equals the CPU port: the
+quantizer's indices and cache tables across a palette change (argmin
+ties included), the whole-animation quantizer and composite over an
+animation axis, the streaming and batched decodes, transcode_gif_batch
+(also equal to per-animation transcode_gif) and ImageOps.transform's
+.gif, .png and .thumbhash bytes."""
 
 import functools
 
@@ -470,3 +477,159 @@ def test_thumbhash_batch_on_card_equals_cpu():
         tiles = rng.integers(0, 256, (24, h, w, 4), dtype=np.uint8)
         tiles[:12, ..., 3] = 255
         assert thumbhash_batch(tiles) == thumbhash_batch(tiles, device="cpu")
+
+
+def _gif_frames(rng, n, h, w):
+    """BGRA frames with crushed-key collisions, extremes and transparency."""
+    f = rng.integers(0, 256, (n, h, w, 4), np.uint8)
+    f[:, :9, :9, :3] = rng.integers(0, 16, (n, 9, 9, 3))
+    f[:, 9:14, :9, :3] = rng.integers(241, 256, (n, 5, 9, 3))
+    f[:, 20:] = f[:, 20:21]
+    f[..., 3] = np.where(f[..., 3] < 60, 10, 255)
+    return f
+
+
+def _gif_palettes(rng):
+    pa = rng.integers(0, 256, (64, 3), np.uint8)
+    pa[32:] = pa[:32]                      # every colour twice: ties
+    pb = np.zeros((256, 3), np.uint8)      # few colours, black padding
+    pb[:9] = rng.integers(0, 256, (9, 3))
+    return pa, pb
+
+
+@pytest.mark.gpu
+def test_gif_quantizer_on_card_equals_cpu():
+    """quantize_to_palette frame by frame with the carried cache tables
+    (indices, seen keys and cache after each frame, across a palette
+    change), and quantize_animation over 3 animations of 5 frames, on the
+    card against the CPU; each lane also equals its sequential calls."""
+    _need_card()
+    from lilliput_tpu_torch.ops import palette as P
+    rng = np.random.default_rng(31)
+    frames = _gif_frames(rng, 5, 48, 40)
+    pa, pb = _gif_palettes(rng)
+    pals = [pa, pa, pa, pb, pb]
+    trans = [5, 70, -1, 3, 3]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        seen = cache = None
+        res = []
+        for k, (img, pal, tr) in enumerate(zip(frames, pals, trans)):
+            if k in (0, 3):
+                seen = torch.zeros(P.CACHE_SIZE, dtype=torch.bool,
+                                   device=dev)
+                cache = torch.zeros(P.CACHE_SIZE, dtype=torch.uint8,
+                                    device=dev)
+            use_prev = k > 0 and tr >= 0
+            prev = torch.from_numpy(frames[k - 1] if use_prev
+                                    else np.zeros_like(img)).to(dev)
+            idx, seen, cache = P.quantize_to_palette(
+                torch.from_numpy(img).to(dev),
+                torch.from_numpy(pal.astype(np.int32)).to(dev), prev, seen,
+                cache, tr, tr >= 0, use_prev)
+            res.append((idx.cpu(), seen.cpu(), cache.cpu()))
+        outs[dev] = res
+    for (gi, gs, gc), (ci, cs, cc) in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(gi, ci) and torch.equal(gs, cs)
+        assert torch.equal(gc, cc)
+    pal256 = np.zeros((5, 256, 3), np.int32)
+    for k, p in enumerate(pals):
+        pal256[k, :len(p)] = p
+    lane = [frames, pal256, np.array([len(p) for p in pals], np.int32),
+            np.array(trans, np.int32),
+            np.array([True, False, False, True, False]),
+            np.array([k > 0 and t >= 0 for k, t in enumerate(trans)])]
+    other = [_gif_frames(rng, 5, 48, 40)] + lane[1:]
+    batch = [np.stack([a, b, np.zeros_like(a)]) for a, b in zip(lane, other)]
+    got = {dev: P.quantize_animation(
+        *(torch.from_numpy(a).to(dev) for a in batch)).cpu()
+        for dev in ("cuda", "cpu")}
+    assert torch.equal(got["cuda"], got["cpu"])
+    for k in range(5):
+        assert torch.equal(got["cuda"][0, k], outs["cpu"][k][0])
+
+
+@pytest.mark.gpu
+def test_gif_argmin_ties_on_card():
+    """torch.min over the palette axis returns the first lowest index on
+    the card, as giflib's search does."""
+    _need_card()
+    d = torch.full((3, 1000, 256), 500, dtype=torch.int16, device="cuda")
+    d[0, :, 17] = 3
+    d[0, :, 200] = 3
+    d[1, :, ::2] = 7
+    d[2] = 9
+    _, i = torch.min(d, dim=-1)
+    assert (i[0] == 17).all() and (i[1] == 0).all() and (i[2] == 0).all()
+
+
+def _gif_inputs():
+    import _torch_gif_builders as G
+    rng = np.random.default_rng(9)
+    rgb = rng.integers(0, 256, (200, 260, 3), np.uint8)
+    rgb = np.repeat(np.repeat(rgb[::4, ::4], 4, 0), 4, 1)
+    return [G.pan_gif(rgb, 96, 80, n, start=s)
+            for n, s in ((9, 0), (9, 4), (5, 2), (12, 1))]
+
+
+@pytest.mark.gpu
+def test_gif_decode_on_card_equals_cpu():
+    """decode_to frame by frame and decode_animation (the device
+    composite) on the card: the CPU port's frames."""
+    _need_card()
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    from lilliput_tpu_torch.codecs.gif import GifDecoder
+    buf = _gif_inputs()[0]
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        d = new_decoder(buf, device=dev)
+        got = []
+        while True:
+            fb = Framebuffer()
+            try:
+                d.decode_to(fb)
+            except EOFError:
+                break
+            assert fb.device.type == dev
+            got.append(fb.array.cpu())
+        frames[dev] = got
+        anim, _ = GifDecoder(buf, device=dev).decode_animation(pad_frames=-1)
+        frames[dev + "_batch"] = anim.cpu()
+    assert len(frames["cuda"]) == 9
+    for a, b in zip(frames["cuda"], frames["cpu"]):
+        assert torch.equal(a, b)
+    assert torch.equal(frames["cuda_batch"], frames["cpu_batch"])
+    for k, a in enumerate(frames["cuda"]):
+        assert torch.equal(frames["cuda_batch"][k], a)
+
+
+@pytest.mark.gpu
+def test_gif_batch_on_card_equals_per_animation_and_cpu():
+    _need_card()
+    from lilliput_tpu_torch import AnimatedTranscodePipeline
+    from lilliput_tpu_torch import pipeline as TP
+    bufs = _gif_inputs()
+    got = TP.transcode_gif_batch(bufs, 32, 24, fit=True)
+    assert got == TP.transcode_gif_batch(bufs, 32, 24, fit=True,
+                                         device="cpu")
+    for buf, b in zip(bufs, got):
+        assert TP.transcode_gif(buf, 32, 24, fit=True) == b
+    pipe = AnimatedTranscodePipeline(32, 24, ".gif")
+    res = pipe.transcode(bufs + [bufs[0][:300]], return_exceptions=True)
+    assert res[:4] == got and isinstance(res[4], Exception)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [".gif", ".png", ".thumbhash"])
+def test_gif_transform_on_card_equals_cpu(fmt):
+    _need_card()
+    from lilliput_tpu_torch import (ImageOps, ImageOptions, ResizeMethod,
+                                    new_decoder)
+    buf = _gif_inputs()[2]
+    outs = [ImageOps(8192).transform(new_decoder(buf, device=dev),
+                                     ImageOptions(file_type=fmt, width=40,
+                                                  height=40,
+                                                  resize_method=ResizeMethod.FIT,
+                                                  encode_timeout=300.0))
+            for dev in ("cuda", "cpu")]
+    assert outs[0] == outs[1]

@@ -126,7 +126,8 @@ def test_import_pulls_in_no_jax():
     for mod in ("api", "cli", "pipeline", "imageops", "framebuffer",
                 "ops.decode_kernels", "codecs.jpeg", "codecs.png",
                 "codecs.bmp", "codecs.pnm", "codecs.sunras", "codecs.hdr",
-                "codecs.pfm", "codecs.thumbhash"):
+                "codecs.pfm", "codecs.thumbhash", "codecs.gif",
+                "ops.palette"):
         assert "lilliput_tpu_torch." + mod in names, mod
 
 

@@ -221,7 +221,6 @@ def test_decoder_without_a_card_raises():
 
 _ISO_BMFF = b"\x00\x00\x00\x18ftyp"
 NOT_PORTED_DECODERS = {
-    "gif": (b"GIF89a" + bytes(20), "item 6.1"),
     "webp": (b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8), "item 6.2"),
     "avif": (_ISO_BMFF + b"avif" + bytes(8), "item 6.5"),
     "jp2": (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8), "item 6.4"),
@@ -230,9 +229,10 @@ NOT_PORTED_DECODERS = {
     "mov": (_ISO_BMFF + b"qt  " + bytes(8), "item 6.6"),
     "webm": (b"\x1a\x45\xdf\xa3" + bytes(12), "item 6.6"),
 }
-#: headers of the still formats ported in item 5.3/6.1/6.3 that no decoder
-#: reads: each raises what the JAX package raises
+#: headers of the formats ported in items 5.3, 6.1 and 6.3 that no
+#: decoder reads: each raises what the JAX package raises
 PORTED_BAD_HEADERS = {
+    "gif": b"GIF89a" + bytes(20),
     "png": b"\x89PNG\r\n\x1a\n" + bytes(16),
     "bmp": b"BM" + bytes(40),
     "pnm": b"P6\n2 2\n255\n" + bytes(12),
@@ -276,7 +276,7 @@ def test_new_decoder_refuses_what_is_no_image(buf):
 
 
 @pytest.mark.parametrize("ext,item", [
-    (".gif", "item 6.1"), (".webp", "item 4.7b"), (".avif", "item 6.5"),
+    (".webp", "item 4.7b"), (".avif", "item 6.5"),
     (".jp2", "item 6.4"), (".j2k", "item 6.4")])
 def test_new_encoder_names_the_item(ext, item):
     with pytest.raises(NotImplementedError, match=item):
