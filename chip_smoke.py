@@ -104,18 +104,21 @@ transcode_pipelined, the still formats and GIF.
    time on a CMYK plane beside torch.baddbmm's;
 8. GIF (no kernel: the palette ops are torch ops): the avatar resize,
    AnimatedTranscodePipeline(128, 128, ".gif").transcode of 32 480x480
-   animations (gif_inputs: pans across bench_1080p's pixels written by
-   tests/_torch_gif_builders.py, 28 of 32 frames and 4 of 20, so two
-   groups), with every launch count 0 just before the phase and read just
-   after (no kernel may launch): outputs equal per-animation
-   transcode_gif on the card, the CPU port's bytes for four of them, the
+   animations (gif_inputs: pans across bench_1080p's pixels written with
+   dictionary LZW by tests/_torch_gif_builders.py, 28 of 32 frames and 4
+   of 20, so two groups), with every launch count 0 just before the
+   phase and read just after (no kernel may launch); every timed
+   transcode must run as those two batch groups: outputs equal
+   per-animation transcode_gif on the card and transcode_gif_batch
+   called directly, the CPU port's bytes for four of them, the
    streaming ImageOps transform for one, and decode to 128x128 with the
    sources' frame counts; a corrupt GIF fails only its own slot; a
    1920x1080 GIF of 4 frames through ImageOps.transform to .jpeg, .png and
    .thumbhash (Fit 256x256) equal to the CPU port's (.jpeg: coefficients
-   under the step gate); times of each group's stages (host LZW decode,
-   stacking, H2D, composite, crop + resize, quantize, D2H, host LZW
-   encode), output frames/s, peak device memory and busy share.
+   under the step gate); times of each group's stages from
+   transcode_gif_batch's stage_times (host LZW decode, stacking, H2D,
+   composite, crop + resize, plan, quantize, D2H, host LZW encode),
+   output frames/s, peak device memory and busy share.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -124,6 +127,7 @@ exit code is non-zero and the last line is not printed. Imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -1203,7 +1207,8 @@ def gif_inputs():
     fourth frame on a local 6x6x6 one, partial rects (one running off the
     canvas), a transparent index on every third frame, disposals 1, 2, 3,
     0 in turn, an interlaced frame, loop and comment extensions; the LZW
-    streams are literal-only (one code per pixel)."""
+    streams are dictionary LZW, written by the port's C++ GIF encoder
+    (codec=True), as a real GIF's are."""
     from lilliput_tpu_torch import Framebuffer, new_decoder
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_gif_builders import pan_gif
@@ -1212,76 +1217,28 @@ def gif_inputs():
         new_decoder(f.read(), device="cpu").decode_to(fb)
     rgb = np.ascontiguousarray(fb.to_numpy()[..., ::-1])
     anims = [pan_gif(rgb, GIF_SIZE, GIF_SIZE,
-                     GIF_SHORT if k % 8 == 7 else GIF_FRAMES, start=11 * k)
+                     GIF_SHORT if k % 8 == 7 else GIF_FRAMES, start=11 * k,
+                     codec=True)
              for k in range(GIF_ANIMS)]
-    return anims, pan_gif(rgb, rgb.shape[1], rgb.shape[0], 4)
+    return anims, pan_gif(rgb, rgb.shape[1], rgb.shape[0], 4, codec=True)
 
 
 def gif_stage_times(anims, card, reps: int = 3):
-    """transcode_gif_batch's stages, group by group as it runs them:
-    the host LZW decode and scatter (animation_inputs on its thread pool)
-    and the stacking, host clock; H2D (host clock, synced); composite,
-    crop + resize and quantize, ms per group (CUDA events, mean of
-    `reps`); D2H of the indices and the host LZW encode, host clock.
-    The emitted bytes are returned for the caller to check."""
-    import torch
+    """transcode_gif_batch of `anims` called directly `reps` times with
+    its stage clock on (stage_times): each stage's ms per group, the mean
+    over the reps (CUDA events around device stages, the host clock
+    around host ones; see pipeline._StageClock). Returns the bytes of the
+    last call for the caller to check."""
     from lilliput_tpu_torch import pipeline as TP
-    from lilliput_tpu_torch.codecs.gif import GifDecoder
-    from lilliput_tpu_torch.ops import palette as P
-    workers = min(4, os.cpu_count() or 1)
-
-    def prep(buf):
-        dec = GifDecoder(buf, device=DEVICE)
-        inp, metas = dec.animation_inputs(pad_frames=-1)
-        return dec, inp, metas
-    t0 = time.perf_counter()
-    prepped = TP._tmap(prep, anims, workers)
-    print(f"phase 8: host LZW decode + scatter (animation_inputs) of "
-          f"{len(anims)} animations: {1e3 * (time.perf_counter() - t0)!r} "
-          f"ms [{card}]", flush=True)
-    groups = TP._anim_batch_groups(
-        prepped, lambda it: (it[0]._w, it[0]._hgt, it[1]["idxs"].shape[0]))
-    out = [None] * len(anims)
-    for (cw, ch, nb), members in groups.items():
-        t = {}
-        bb = P.frame_bucket(len(members))
-        t0 = time.perf_counter()
-        stack = TP._stack_group(prepped, members, TP._GIF_INPUTS, bb)
-        t["stack_ms"] = 1e3 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        dev = [torch.from_numpy(stack[k]).to(DEVICE) for k in TP._GIF_INPUTS]
-        torch.cuda.synchronize()
-        t["h2d_ms"] = 1e3 * (time.perf_counter() - t0)
-        t["h2d_mb"] = sum(a.nbytes for a in stack.values()) / 1e6
-        t["composite_ms"] = cuda_ms(lambda: P.composite_animation(*dev), reps)
-        comp = P.composite_animation(*dev)
-        crop = TP.fit_rect(cw, ch, GIF_DST, GIF_DST)
-        t["resize_ms"] = cuda_ms(lambda: TP._anim_crop_resize(
-            comp, crop, GIF_DST, GIF_DST), reps)
-        resized = TP._anim_crop_resize(comp, crop, GIF_DST, GIF_DST)
-        encs, plans, stacked = TP._gif_group_plans(prepped, members, nb, bb)
-        args = [torch.from_numpy(stacked[k]).to(DEVICE)
-                for k in TP._PLAN_KEYS]
-        t["quantize_ms"] = cuda_ms(lambda: P.quantize_animation(
-            resized, *args), reps)
-        idxs = P.quantize_animation(resized, *args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        idx_np = idxs[:len(members)].cpu().numpy()
-        t["d2h_ms"] = 1e3 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        res = TP._tmap(lambda k: TP._gif_emit_frames(
-            encs[k], prepped[members[k]][2], plans[k], idx_np[k], GIF_DST,
-            GIF_DST), range(len(members)), workers)
-        t["host_lzw_encode_ms"] = 1e3 * (time.perf_counter() - t0)
-        for k, i in enumerate(members):
-            out[i] = res[k]
-        print(f"phase 8: group {cw}x{ch}, frame bucket {nb}, "
-              f"{len(members)} animations in {bb} lanes: "
-              + " ".join(f"{k}={v!r}" for k, v in t.items())
-              + f" [{card}]", flush=True)
-        del dev, comp, resized, idxs, args
-        torch.cuda.empty_cache()
+    times = {}
+    for _ in range(reps):
+        out = TP.transcode_gif_batch(anims, GIF_DST, GIF_DST, fit=True,
+                                     device=DEVICE, stage_times=times)
+    for name, ms in times.items():
+        per = len(ms) // reps
+        means = [sum(ms[g::per]) / reps for g in range(per)]
+        print(f"phase 8: transcode_gif_batch stage {name}: ms per group "
+              f"{means!r} (mean of {reps}) [{card}]", flush=True)
     return out
 
 
@@ -1297,9 +1254,12 @@ def phase8(card):
     corrupt GIF in a batch fails only its own slot. The 1920x1080 GIF
     through ImageOps.transform to .jpeg, .png and .thumbhash at Fit
     256x256 on the card: the CPU port's bytes (.jpeg: coefficients under
-    the step gate). Times: the stages of each group (gif_stage_times),
-    output frames/s of the whole transcode, peak device memory, the
-    device's busy share, the single-image stages of the 1080p GIF."""
+    the step gate). Every timed transcode must run as the batch's groups
+    (serving.anim_groups), and transcode_gif_batch called directly must
+    give the pipeline's bytes. Times: the stages of each group
+    (gif_stage_times), output frames/s of the whole transcode, peak
+    device memory, the device's busy share, the single-image stages of
+    the 1080p GIF."""
     import torch
     from lilliput_tpu_torch import (AnimatedTranscodePipeline, Framebuffer,
                                     ImageOps, ImageOptions, ResizeMethod,
@@ -1307,6 +1267,8 @@ def phase8(card):
     from lilliput_tpu_torch import pipeline as TP
     from lilliput_tpu_torch.codecs.gif import GifDecoder
     from lilliput_tpu_torch.ops import decode_kernels as DK
+    from lilliput_tpu_torch.ops import palette as P
+    from lilliput_tpu_torch.utils import metrics
     t0 = time.perf_counter()
     anims, still = gif_inputs()
     counts = [GifDecoder(b, device="cpu").frame_count() for b in anims]
@@ -1316,17 +1278,31 @@ def phase8(card):
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     pipe = AnimatedTranscodePipeline(GIF_DST, GIF_DST, ".gif",
                                      device=DEVICE)
+    buckets = collections.Counter(P.frame_bucket(c) for c in counts)
+    n_groups = sum(-(-n // TP._MAX_ANIM_LANES) for n in buckets.values())
+
+    def batched():
+        """pipe.transcode(anims) with a check that it ran as n_groups
+        batch groups (the per-item path, where the batch failed, would
+        run one group per animation)."""
+        before = metrics.snapshot()["counters"].get("serving.anim_groups", 0)
+        res = pipe.transcode(anims)
+        ran = metrics.snapshot()["counters"].get("serving.anim_groups",
+                                                  0) - before
+        check(ran == n_groups, f"the transcode ran {ran} groups, not the "
+              f"batch's {n_groups}")
+        return res
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     DK.reset_launches()
     t0 = time.perf_counter()
-    outs = pipe.transcode(anims)
+    outs = batched()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    again = pipe.transcode(anims)
+    again = batched()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(again == outs, "two runs of the batch differ")
@@ -1383,11 +1359,11 @@ def phase8(card):
           f"{peak / 2**20!r} MiB; first transcode {first_s!r} s; "
           f"transcode of {sum(counts)} frames {wall!r} s, "
           f"{sum(counts) / wall!r} output frames/s [{card}]", flush=True)
-    share = busy_share(lambda: pipe.transcode(anims))
+    share = busy_share(batched)
     print(f"phase 8: device busy share of the transcode {share!r} "
           f"[{card}]", flush=True)
-    check(gif_stage_times(anims, card) == outs, "the staged batch differs "
-          "from the pipeline's")
+    check(gif_stage_times(anims, card) == outs, "transcode_gif_batch "
+          "called directly differs from the pipeline's bytes")
     for m, v in still_times(still, fmts=PHASE7_FMTS).items():
         print(f"phase 8: 1080p GIF {m}={v!r} [{card}]", flush=True)
     launched = dict(DK.launches)

@@ -193,8 +193,8 @@ class GifDecoder(Decoder):
 
     def _decode_raw_raster(self, m: _FrameMeta) -> np.ndarray:
         """Max-dimension guard + the pending frame's raster decode -> (h, w)
-        palette indices; one copy shared by the streaming composite and the
-        first-frame fast path."""
+        palette indices; one copy shared by the first frame and the frames
+        after it."""
         maxd = _gif_max_frame_dimension
         if m.width > maxd or m.height > maxd:
             raise InvalidImageError("gif frame exceeds max dimension")
@@ -245,43 +245,33 @@ class GifDecoder(Decoder):
         if m.pal_count <= 0:
             raise DecodingFailedError("gif frame has no color map")
         bg_bgra = self._bg_bgra()
-
-        if not self._have_first and os.environ.get(
-                "LILLIPUT_GIF_FASTFIRST", "1") not in ("0", "false", "off"):
-            # first-frame fast path: the background folds into a 256-row
-            # packed LUT, so frame 1 is one u8 -> u32 table gather
-            # (byte-identical to the generic path)
-            self._decode_first_frame_fast(m, bg_bgra)
+        if not self._have_first:
+            self._decode_first_frame(m, bg_bgra)
             self._hand_out(fb, m)
             return
 
         raw = self._decode_raw_raster(m)
-        full_idx, drawn, lut256, rect = self._scatter(m, raw)
+        full_idx, _, lut256, rect = self._scatter(m, raw)
         fl, ft, fw, fh = rect
-        cw, ch = self._w, self._hgt
         # copy-on-write: each frame composes a fresh canvas
-        canvas = (np.zeros((ch, cw, 4), np.uint8) if self._canvas is None
-                  else self._canvas.copy())
+        canvas = self._canvas.copy()
 
         # apply the PREVIOUS frame's disposal (giflib.cpp:400-489)
-        if self._have_first:
-            pl, pt, pw, ph = self._clip_rect(*self._prev_rect)
-            if pw > 0 and ph > 0:
-                if self._prev_disposal == _GIF_DISPOSE_BACKGROUND:
-                    canvas[pt:pt + ph, pl:pl + pw] = bg_bgra
-                elif self._prev_disposal == _GIF_DISPOSE_PREVIOUS:
-                    # giflib's prev_frame_bgra is zero-initialized and only
-                    # saved from the second frame on (giflib.cpp:491-494)
-                    canvas[pt:pt + ph, pl:pl + pw] = (
-                        0 if self._prev_canvas is None else
-                        self._prev_canvas[pt:pt + ph, pl:pl + pw])
-            # saved after disposal, before drawing (giflib.cpp:491-494)
-            self._prev_canvas = canvas.copy()
+        pl, pt, pw, ph = self._clip_rect(*self._prev_rect)
+        if pw > 0 and ph > 0:
+            if self._prev_disposal == _GIF_DISPOSE_BACKGROUND:
+                canvas[pt:pt + ph, pl:pl + pw] = bg_bgra
+            elif self._prev_disposal == _GIF_DISPOSE_PREVIOUS:
+                # giflib's prev_frame_bgra is zero-initialized and only
+                # saved from the second frame on (giflib.cpp:491-494)
+                canvas[pt:pt + ph, pl:pl + pw] = (
+                    0 if self._prev_canvas is None else
+                    self._prev_canvas[pt:pt + ph, pl:pl + pw])
+        # saved after disposal, before drawing (giflib.cpp:491-494)
+        self._prev_canvas = canvas.copy()
 
         # bounds-check via the LUT's row count (giflib.cpp:530-533)
-        lut = lut256[:max(m.pal_count, 1)]
-        if not self._have_first:
-            canvas[:] = bg_bgra  # the first frame starts from the background
+        lut = lut256[:m.pal_count]
         if fw > 0 and fh > 0:
             sl = np.s_[ft:ft + fh, fl:fl + fw]
             idx_r = full_idx[sl].astype(np.int32)
@@ -294,11 +284,11 @@ class GifDecoder(Decoder):
         self._end_frame(m, rect)
         self._hand_out(fb, m)
 
-    def _decode_first_frame_fast(self, m: _FrameMeta,
-                                 bg_bgra: np.ndarray) -> None:
-        """First-frame composite as one packed-u32 LUT gather, with the same
-        raster decode, clip, palette, transparency and disposal state as
-        the generic path."""
+    def _decode_first_frame(self, m: _FrameMeta, bg_bgra: np.ndarray) -> None:
+        """The first frame over the background (giflib.cpp:590-631): the
+        background folds into a 256-row packed-u32 LUT, which out-of-palette
+        and transparent indices read, so the composite is one table
+        gather."""
         raw = self._decode_raw_raster(m)
         cw, ch = self._w, self._hgt
         fl, ft, fw, fh = self._clip_rect(m.left, m.top, m.width, m.height)

@@ -317,26 +317,6 @@ def quantize_animation(frames: torch.Tensor, palettes: torch.Tensor,
     return best.to(torch.uint8).reshape(lead + (nf, h, w))
 
 
-def composite_indexed_frame(canvas: torch.Tensor, indices_full: torch.Tensor,
-                            drawn_mask: torch.Tensor, lut_bgra: torch.Tensor,
-                            trans_idx: int, have_trans: bool,
-                            bg_bgra: torch.Tensor,
-                            first_frame: bool) -> torch.Tensor:
-    """Draw a palette-indexed frame onto the BGRA canvas.
-
-    indices_full/drawn_mask are canvas-sized (the host pre-scattered the
-    frame rect). Transparent and out-of-palette indices keep the canvas
-    pixel (giflib.cpp:522-538)."""
-    if first_frame:
-        canvas = bg_bgra.to(torch.uint8).expand(canvas.shape)
-    idx = indices_full.to(torch.int64)
-    color = lut_select(lut_bgra, idx)
-    valid = drawn_mask & (idx < lut_bgra.shape[0])
-    if have_trans:
-        valid = valid & (idx != trans_idx)
-    return torch.where(valid[..., None], color, canvas)
-
-
 def _packed(u8x4: torch.Tensor) -> torch.Tensor:
     """(..., 4) u8 -> (...) int32 holding the four bytes (B in the low
     byte on a little-endian host, as the pixels lie in memory)."""

@@ -55,9 +55,11 @@ host LZW encode; the bytes equal the streaming ImageOps transform's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import os
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -1032,31 +1034,14 @@ _GIF_TO_WEBP = ("GIF -> .webp (the WebP encoder, _gif_emit_webp)",
 
 def transcode_gif(buf: bytes, dst_w: int, dst_h: int, fit: bool = False,
                   file_type: str = ".gif", device="cuda") -> bytes:
-    """Whole-animation transcode of one GIF: host LZW decode, the
+    """Whole-animation transcode of one GIF: transcode_gif_batch of the
+    one animation (one lane, so no pad lanes): host LZW decode, the
     composite of every frame on `device` (frame axis padded to a bucket),
-    one batched crop + AREA resize, the whole-animation quantizer
-    (ops.palette.quantize_animation, bit-identical to the sequential
-    per-frame cache emulation), then the host LZW encode. Its bytes equal
-    the streaming ImageOps.transform's, which visits the device once per
-    frame."""
-    from .codecs.gif import GifDecoder, GifEncoder
-
-    if file_type == ".webp":
-        _not_ported(*_GIF_TO_WEBP)
-    dec = GifDecoder(buf, device=device)
-    frames, metas = dec.decode_animation(pad_frames=-1)
-    if not metas:
-        raise DecodingFailedError("gif has no frames")
-    n = len(metas)
-    crop = fit_rect(dec._w, dec._hgt, dst_w, dst_h) if fit else None
-    resized = _anim_crop_resize(frames, crop, dst_w, dst_h)
-    enc = GifEncoder(dec)
-    plan = _gif_quantize_plan(enc, metas, resized.shape[0])
-    idxs = P.quantize_animation(resized, *(
-        torch.from_numpy(plan[k]).to(dec.device) for k in _PLAN_KEYS))
-    idx_np = idxs[:n].cpu().numpy()  # one D2H for all frames
-    return _gif_emit_frames(enc, metas, plan["plans"], idx_np, dst_w, dst_h)
-
+    one crop + AREA resize, the whole-animation quantizer, then the host
+    LZW encode. Its bytes equal the streaming ImageOps.transform's, which
+    visits the device once per frame."""
+    return transcode_gif_batch([buf], dst_w, dst_h, fit=fit,
+                               file_type=file_type, device=device)[0]
 
 
 def _gif_quantize_plan(enc, metas, nb: int) -> dict:
@@ -1110,14 +1095,34 @@ def _gif_emit_frames(enc, metas, plans, idx_np: np.ndarray,
     return enc.encode(None, {})
 
 
-def _gif_batch_to_pixels(idxs, drawn, luts, counts, trans, pdisp, prects,
-                         bgs, crop, dst_w: int, dst_h: int):
-    """Composite + crop + exact AREA resize of a batch of animations
-    (leading axis = animation); each animation's result equals its
-    unbatched chain's bit for bit."""
-    comp = P.composite_animation(idxs, drawn, luts, counts, trans, pdisp,
-                                 prects, bgs)
-    return _anim_crop_resize(comp, crop, dst_w, dst_h)
+class _StageClock:
+    """Per-stage times of transcode_gif_batch: `with clock(name)` appends
+    the block's ms to times[name]. Device stages (device=True) on a CUDA
+    device are timed with CUDA events and waited for, host stages with
+    the host clock. With times=None nothing is timed and nothing waits."""
+
+    def __init__(self, times: Optional[Dict[str, List[float]]], dev):
+        self.times = times
+        self.cuda = dev.type == "cuda"
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, device: bool = False):
+        if self.times is None:
+            yield
+            return
+        if device and self.cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            yield
+            ms = 1e3 * (time.perf_counter() - t0)
+        self.times.setdefault(name, []).append(ms)
 
 
 def _tmap(fn, items, n_workers: int) -> list:
@@ -1177,19 +1182,26 @@ def _check_mesh(mesh) -> None:
 def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
                         fit: bool = False, file_type: str = ".gif",
                         workers: Optional[int] = None, mesh=None,
-                        device="cuda") -> List[bytes]:
-    """Whole-animation transcode of MANY GIFs with shared device work, the
-    cross-animation form of transcode_gif for avatar-resize serving (many
-    small animations).
+                        device="cuda",
+                        stage_times: Optional[Dict[str, List[float]]] = None
+                        ) -> List[bytes]:
+    """Whole-animation transcode of MANY GIFs with shared device work, for
+    avatar-resize serving (many small animations); transcode_gif is its
+    one-animation call.
 
     Animations are grouped by (canvas, frame bucket); each group (in
     chunks of at most _MAX_ANIM_LANES) pads its animation count to
     ops.palette.frame_bucket and runs one composite + resize + quantize
-    over a (B, N, H, W, ...) stack on `device`. Outputs equal
-    per-animation transcode_gif's bytes: the batched ops apply the same
-    exact ops per animation, and the host LZW encode is per animation.
-    Host LZW decode/encode and the input assembly run on a thread pool
-    (the C++ codec releases the GIL)."""
+    over a (B, N, H, W, ...) stack on `device`. Each animation's bytes
+    equal its own call's: the batched ops apply the same exact ops per
+    animation, and the host LZW encode is per animation. Host LZW
+    decode/encode and the input assembly run on a thread pool (the C++
+    codec releases the GIL).
+
+    stage_times, when a dict, gets the ms of each stage appended under
+    its name: "lzw_decode" (host LZW and scatter, once per call), then
+    per group "stack", "h2d", "composite", "resize", "plan", "quantize",
+    "d2h" and "lzw_encode" (see _StageClock)."""
     from .codecs.gif import GifDecoder
 
     if file_type not in (".gif", ".webp"):
@@ -1208,7 +1220,9 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
             raise DecodingFailedError("gif has no frames")
         return dec, inp, metas
 
-    prepped = _tmap(prep, bufs, n_workers)
+    clock = _StageClock(stage_times, dev)
+    with clock("lzw_decode"):
+        prepped = _tmap(prep, bufs, n_workers)
     groups = _anim_batch_groups(
         prepped, lambda it: (it[0]._w, it[0]._hgt, it[1]["idxs"].shape[0]))
 
@@ -1216,24 +1230,33 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     for (cw, ch, nb), members in [(k, c) for k, g in groups.items()
                                   for c in _chunk_members(g)]:
         bb = P.frame_bucket(len(members))  # animation-count bucket
-        stack = _stack_group(prepped, members, _GIF_INPUTS, bb)
+        with clock("stack"):
+            stack = _stack_group(prepped, members, _GIF_INPUTS, bb)
+        with clock("h2d", device=True):
+            inputs = [torch.from_numpy(stack[k]).to(dev)
+                      for k in _GIF_INPUTS]
+        with clock("composite", device=True):
+            comp = P.composite_animation(*inputs)
         crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
-        resized = _gif_batch_to_pixels(
-            *(torch.from_numpy(stack[k]).to(dev) for k in _GIF_INPUTS),
-            crop, dst_w, dst_h)
-
-        encs, plans_list, stacked = _gif_group_plans(prepped, members, nb,
-                                                     bb)
-        idxs = P.quantize_animation(resized, *(
-            torch.from_numpy(stacked[k]).to(dev) for k in _PLAN_KEYS))
-        idx_np = idxs[:len(members)].cpu().numpy()
+        with clock("resize", device=True):
+            resized = _anim_crop_resize(comp, crop, dst_w, dst_h)
+        del inputs, comp  # the quantizer's transient gets their memory
+        with clock("plan"):
+            encs, plans_list, stacked = _gif_group_plans(prepped, members,
+                                                         nb, bb)
+        with clock("quantize", device=True):
+            idxs = P.quantize_animation(resized, *(
+                torch.from_numpy(stacked[k]).to(dev) for k in _PLAN_KEYS))
+        with clock("d2h"):
+            idx_np = idxs[:len(members)].cpu().numpy()
 
         def emit_gif(k: int) -> bytes:
             _, _, metas = prepped[members[k]]
             return _gif_emit_frames(encs[k], metas, plans_list[k],
                                     idx_np[k], dst_w, dst_h)
 
-        results = _tmap(emit_gif, range(len(members)), n_workers)
+        with clock("lzw_encode"):
+            results = _tmap(emit_gif, range(len(members)), n_workers)
         for k, i in enumerate(members):
             out[i] = results[k]
     return out  # type: ignore[return-value]

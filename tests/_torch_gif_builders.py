@@ -6,14 +6,18 @@ GCE, partial frame rects (also ones that run off the canvas), interlaced
 frames, NETSCAPE2.0 loop and comment extensions, and a raster cut short by
 an early end-of-information code.
 
-The LZW stream is literal-only: every pixel is one code, and a clear code
-comes before the dictionary would widen the codes (after 2^mcs - 2
-literals), so every code has mcs + 1 bits and the whole stream packs with
-numpy. Any GIF decoder reads it.
+``gif_bytes`` writes a literal-only LZW stream: every pixel is one code,
+and a clear code comes before the dictionary would widen the codes (after
+2^mcs - 2 literals), so every code has mcs + 1 bits and the whole stream
+packs with numpy. Any GIF decoder reads it, but no GIF encoder in use
+writes it: it is about as large as the raster. ``codec_gif_bytes`` writes
+the same frames through the port's C++ GIF encoder (``lp_gif_enc_*``,
+the dictionary LZW that a real encoder writes), for inputs whose decode
+cost should be that of a real file.
 
 The parity tests (tests/test_torch_gif.py, tests/test_torch_palette.py)
 build their inputs with these, and chip_smoke.py its 480x480 animations
-and 1080p GIF (``pan_gif``).
+and 1080p GIF (``pan_gif(..., codec=True)``).
 """
 
 from __future__ import annotations
@@ -154,6 +158,59 @@ def gif_bytes(width: int, height: int, frames: Sequence[Frame],
     return b"".join(out)
 
 
+def codec_gif_bytes(width: int, height: int, frames: Sequence[Frame],
+                    global_palette: np.ndarray, bg_index: int = 0,
+                    loop: Optional[int] = None) -> bytes:
+    """gif_bytes's GIF89a with dictionary LZW, through the port's C++ GIF
+    encoder: the same header, palettes, extensions and frames, decoding to
+    the same pictures. Every frame has a GCE and runs to its end (no
+    ``gce=False``, no ``stop_after``)."""
+    import ctypes
+    from lilliput_tpu_torch import binding
+    lib = binding.load()
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+
+    def ptr(a: np.ndarray):
+        return a.ctypes.data_as(u8p)
+
+    gpal = np.ascontiguousarray(global_palette, np.uint8).reshape(-1, 3)
+    h = lib.lp_gif_enc_new(width, height, 8, 0, bg_index, ptr(gpal),
+                           len(gpal))
+    try:
+        for k, f in enumerate(frames):
+            if not f.gce or f.stop_after is not None:
+                raise ValueError("codec_gif_bytes writes whole frames with "
+                                 "a GCE only")
+            ext = b""
+            if k == 0 and loop is not None:
+                ext += netscape_loop(loop)[1:]
+            if f.comment is not None:
+                ext += comment(f.comment)[1:]
+            fh, fw = f.indices.shape
+            mcs = max(2, _table_bits(len(gpal)) + 1)
+            desc = np.array([f.left, f.top, fw, fh, int(f.interlace),
+                             -1 if f.trans is None else f.trans, f.delay_cs,
+                             f.disposal, mcs], np.int32)
+            extb = np.frombuffer(ext, np.uint8)
+            local = (None if f.palette is None else
+                     np.ascontiguousarray(f.palette, np.uint8).reshape(-1, 3))
+            idx = np.ascontiguousarray(f.indices, np.uint8)
+            rc = lib.lp_gif_enc_frame(
+                h, ptr(extb) if extb.size else None, extb.size,
+                desc.ctypes.data_as(i32p),
+                None if local is None else ptr(local),
+                0 if local is None else len(local), ptr(idx))
+            if rc != 0:
+                raise ValueError(f"frame {k} did not encode")
+        out = np.empty(lib.lp_gif_enc_size(h), np.uint8)
+        n = lib.lp_gif_enc_finish(h, ptr(out), out.size)
+        if n < 0:
+            raise ValueError("the GIF did not finish")
+        return out[:n].tobytes()
+    finally:
+        lib.lp_gif_enc_free(h)
+
+
 # -- palettes and quantization of RGB pictures --------------------------------
 
 
@@ -220,11 +277,13 @@ def pan_frames(rgb: np.ndarray, width: int, height: int, nframes: int,
 
 
 def pan_gif(rgb: np.ndarray, width: int, height: int, nframes: int,
-            start: int = 0, loop: int = 0) -> bytes:
+            start: int = 0, loop: int = 0, codec: bool = False) -> bytes:
     """A width x height GIF89a of pan_frames(...) with the NETSCAPE loop
-    extension and a comment before frame 1."""
+    extension and a comment before frame 1; codec=True writes it through
+    codec_gif_bytes (dictionary LZW), else through gif_bytes."""
     frames = pan_frames(rgb, width, height, nframes, start)
     if nframes > 1:
         frames[1].comment = b"lilliput pan"
-    return gif_bytes(width, height, frames, global_palette=palette_332(),
-                     bg_index=3, loop=loop)
+    write = codec_gif_bytes if codec else gif_bytes
+    return write(width, height, frames, global_palette=palette_332(),
+                 bg_index=3, loop=loop)

@@ -1,15 +1,14 @@
 """The port's GIF path on the CPU against the JAX package's, at atol 0 on
 GIFs written by tests/_torch_gif_builders.py (numpy, no PIL): the
-streaming decoder's frames and metadata (with and without the first-frame
-fast path), the batched decode (animation_inputs, decode_animation), the
-GifEncoder's bytes, ImageOps.transform to .gif, .jpeg, .png and
-.thumbhash, transcode_gif and transcode_gif_batch (Fit crop, group
-chunking, inert frame and lane padding), AnimatedTranscodePipeline's
-per-item isolation and what it does not port yet, the CLI on a GIF, the
-max-dimension guard and corrupt streams (the same error class as the
-JAX package). Batched == streaming bytes is held on both packages. The
-builder's GIFs are held against PIL, and the port's gif_codec.cpp
-against the JAX package's file.
+streaming decoder's frames and metadata, the batched decode
+(animation_inputs, decode_animation), the GifEncoder's bytes,
+ImageOps.transform to .gif, .jpeg, .png and .thumbhash, transcode_gif
+and transcode_gif_batch (Fit crop, group chunking, inert frame and lane
+padding), AnimatedTranscodePipeline's per-item isolation and what it
+does not port yet, the CLI on a GIF, the max-dimension guard and corrupt
+streams (the same error class as the JAX package). Batched == streaming
+bytes is held on both packages. The builder's GIFs are held against PIL,
+and the port's gif_codec.cpp against the JAX package's file.
 """
 
 import functools
@@ -172,6 +171,28 @@ def test_builder_gifs_decode_under_pil(name):
                       f.indices, pal)
 
 
+def test_codec_lzw_gif_decodes_as_the_literal_one():
+    """pan_gif written with dictionary LZW (codec_gif_bytes, the C++
+    encoder) decodes, under the JAX package's decoder and under PIL, to
+    the literal-only writer's frames and frame headers, in fewer bytes."""
+    lit = G.pan_gif(_rgb(), 48, 40, 9, start=2)
+    dic = G.pan_gif(_rgb(), 48, 40, 9, start=2, codec=True)
+    assert len(dic) < len(lit)
+    want, want_m = _decode_all(L.new_decoder(lit), L.Framebuffer)
+    got, got_m = _decode_all(L.new_decoder(dic), L.Framebuffer)
+    assert len(got) == len(want) == 9 and got_m == want_m
+    for k, (a, b) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(b[0], a[0], err_msg=f"frame {k}")
+        assert b[1:] == a[1:], k
+    pa, pb = Image.open(io.BytesIO(lit)), Image.open(io.BytesIO(dic))
+    assert pb.n_frames == pa.n_frames and pb.info["loop"] == 0
+    for k in range(pa.n_frames):
+        pa.seek(k)
+        pb.seek(k)
+        np.testing.assert_array_equal(np.asarray(pb.convert("RGBA")),
+                                      np.asarray(pa.convert("RGBA")))
+
+
 def _check_raster(buf, indices, pal):
     im = Image.open(io.BytesIO(buf))
     assert im.mode == "P"
@@ -201,13 +222,11 @@ def _check_rasters_under_pil(buf):
 # -- decoding ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fast", ["1", "0"], ids=["fastfirst", "generic"])
 @pytest.mark.parametrize("name", list(CASES))
-def test_decode_frames_equal_jax(name, fast, monkeypatch):
+def test_decode_frames_equal_jax(name):
     """decode_to: every composited frame, its timing/dispose/blend and the
     frame header (rect, palette, forced transparency, extensions), and
     the decoder's metadata."""
-    monkeypatch.setenv("LILLIPUT_GIF_FASTFIRST", fast)
     buf = CASES[name]
     jd, td = L.new_decoder(buf), T.new_decoder(buf, device="cpu")
     assert isinstance(td, TG.GifDecoder) and td.device.type == "cpu"
@@ -420,7 +439,9 @@ def test_transcode_gif_batch_equals_jax(monkeypatch):
     """Three canvases and three frame buckets make five groups; a lane cap
     of 3 cuts the four 9-frame pans into chunks of 3 (padded to the
     animation bucket 4 with an inert lane) and 1. Every output equals the
-    JAX package's batch and the port's per-animation transcode_gif."""
+    JAX package's batch and the port's per-animation transcode_gif, and
+    the stage clock (stage_times) times each group's stages without
+    changing the bytes."""
     bufs = [CASES[k] for k in ("pan9", "pan4", "clipped", "dispose_prev_first",
                                "bg_trans_removal", "no_gce", "interlaced")]
     bufs += [G.pan_gif(_rgb(), 48, 40, 9, start=s) for s in (5, 9, 13)]
@@ -433,10 +454,19 @@ def test_transcode_gif_batch_equals_jax(monkeypatch):
     for buf, b in zip(bufs, got):
         assert TP.transcode_gif(buf, *DST, fit=True, device="cpu") == b
     from lilliput_tpu_torch.utils import metrics
-    before = metrics.snapshot()["counters"].get("serving.anim_pad_lanes", 0)
-    TP.transcode_gif_batch(bufs, *DST, fit=True, device="cpu")
-    assert metrics.snapshot()["counters"]["serving.anim_pad_lanes"] \
-        == before + 1
+    before = dict(metrics.snapshot()["counters"])
+    times = {}
+    assert TP.transcode_gif_batch(bufs, *DST, fit=True, device="cpu",
+                                  stage_times=times) == want
+    after = metrics.snapshot()["counters"]
+    assert after["serving.anim_pad_lanes"] \
+        == before.get("serving.anim_pad_lanes", 0) + 1
+    groups = after["serving.anim_groups"] - before.get("serving.anim_groups",
+                                                       0)
+    assert groups == 6 and len(times.pop("lzw_decode")) == 1
+    assert sorted(times) == sorted(("stack", "h2d", "composite", "resize",
+                                    "plan", "quantize", "d2h", "lzw_encode"))
+    assert all(len(ms) == groups and min(ms) >= 0 for ms in times.values())
 
 
 def test_animated_pipeline_isolates_a_corrupt_gif():

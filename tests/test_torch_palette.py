@@ -3,8 +3,7 @@ against the JAX package's (lilliput_tpu/ops/palette.py, jitted), at atol
 0 on the same numpy-seeded inputs: frame_bucket, lut_select(_batched),
 _crush, quantize_to_palette with its carried cache tables,
 quantize_animation (single and over a leading animation axis, against
-the JAX package's jit and vmap), composite_indexed_frame and
-composite_animation.
+the JAX package's jit and vmap) and composite_animation.
 
 The quantizer cases cover palettes with duplicate entries and black
 padding (ties: the first lowest index wins), a transparent index inside,
@@ -324,20 +323,3 @@ def test_composite_animation_equals_jax():
     gotb = TP.composite_animation(*(_t(a) for a in batch)).numpy()
     np.testing.assert_array_equal(gotb, wantb)
     np.testing.assert_array_equal(gotb[0], got)
-
-
-@pytest.mark.parametrize("first,have_trans", [(True, True), (False, True),
-                                              (False, False)])
-def test_composite_indexed_frame_equals_jax(first, have_trans):
-    rng = np.random.default_rng(int(first) * 2 + int(have_trans))
-    canvas = rng.integers(0, 256, (H, W, 4), np.uint8)
-    idx = rng.integers(0, 256, (H, W), np.uint8)
-    drawn = rng.integers(0, 2, (H, W)).astype(bool)
-    lut = rng.integers(0, 256, (150, 4), np.uint8)
-    bg = rng.integers(0, 256, 4).astype(np.uint8)
-    want = JP.composite_indexed_frame(
-        jnp.asarray(canvas), jnp.asarray(idx), jnp.asarray(drawn),
-        jnp.asarray(lut), jnp.int32(9), have_trans, jnp.asarray(bg), first)
-    got = TP.composite_indexed_frame(_t(canvas), _t(idx), _t(drawn), _t(lut),
-                                     9, have_trans, _t(bg), first)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
