@@ -38,7 +38,7 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
                       (u8), gray pixels, 1-channel PNG;
 
 then the single-image surface (the still phase), the overlap check of
-transcode_pipelined, the still formats and GIF.
+transcode_pipelined, the still formats, GIF and the mixed serving front.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -118,7 +118,28 @@ transcode_pipelined, the still formats and GIF.
    under the step gate); times of each group's stages from
    transcode_gif_batch's stage_times (host LZW decode, stacking, H2D,
    composite, crop + resize, plan, quantize, D2H, host LZW encode),
-   output frames/s, peak device memory and busy share.
+   output frames/s, peak device memory and busy share;
+9. the mixed serving front: MultiGeometryPipeline(256, 256, q85) over MIX,
+   193 shuffled requests of 12 signatures (the 1080p fixtures of every
+   layout, gray and o6; a 720p 4:2:0 JPEG the port stretches from
+   bench_1080p.jpg; PNG RGB8, RGBA8 and gray8 of the fixtures' pixels;
+   the 1080p GIF) and three broken inputs (a truncated scan, a truncated
+   PNG, a RIFF/WEBP header), with every launch count 0 just before its
+   first transcode and read just after (MIX_LAUNCHES: decode420 3, the
+   other four 1 each, none from the still and gray groups). Every healthy
+   output equals its per-signature JpegTranscodePipeline or
+   StillTranscodePipeline on the card in input order, the broken slots
+   and only they hold exceptions (the WebP one naming item 6.2), stats()
+   reads one build per signature and one hit per other routed request
+   (again on a second call, no eviction), max_geometries=4 counts
+   evictions without changing the bytes, the .jpeg coefficients are
+   within the step gate of the CPU front's, and a front warmed from the
+   twelve signatures builds nothing on the mix. Times: images/s, each
+   group's host decode, device_step and encode, busy share, peak device
+   memory, a new geometry's first request cold and warmed, and
+   StillTranscodePipeline over 128 1080p PNG RGB8 (host decode per image
+   on the decode threads, with torch's intra-op threads and with one; H2D,
+   device_step, transcode_pipelined images/s).
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -953,6 +974,36 @@ STILL_JPEGS = {"jpeg_rgb": ("bench_1080p_rgb.jpg", None, 3),
                "jpeg_ycck": ("bench_1080p_cmyk.jpg", 2, 4)}
 
 
+def fixture_pixels(fixture: str) -> np.ndarray:
+    """A committed fixture's pixels, (H, W, C) u8 BGR or gray, decoded by
+    the port on the CPU."""
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    fb = Framebuffer()
+    with open(os.path.join(ASSETS, fixture), "rb") as f:
+        new_decoder(f.read(), device="cpu").decode_to(fb)
+    return fb.to_numpy()
+
+
+def alpha_ramp(h: int, w: int) -> np.ndarray:
+    """(h, w, 1) alpha rising from 0 at the left edge to 255 at the
+    right."""
+    return np.broadcast_to(
+        (np.arange(w) * 255 // (w - 1)).astype(np.uint8)[None, :, None],
+        (h, w, 1))
+
+
+def png_inputs(bgr, gray) -> dict:
+    """PNG RGB8, RGBA8 (alpha_ramp) and gray8 of BGR and gray pixels
+    (tests/_torch_still_builders.png_bytes: filter type 0)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_still_builders import png_bytes
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    return {"png_rgb8": png_bytes(rgb, 2),
+            "png_rgba8": png_bytes(np.concatenate(
+                [rgb, alpha_ramp(*rgb.shape[:2])], axis=-1), 6),
+            "png_gray8": png_bytes(gray, 0)}
+
+
 def still_inputs():
     """Phase 7's inputs at 1080p, name -> (bytes, launches of
     dequant_idct_blocks per decode): the JCS_RGB and CMYK fixtures, YCCK
@@ -964,7 +1015,7 @@ def still_inputs():
     Sun Raster colormap). The
     pixels are bench_1080p.jpg's and bench_1080p_gray.jpg's, decoded by
     the port on the CPU."""
-    from lilliput_tpu_torch import Framebuffer, new_decoder, new_encoder
+    from lilliput_tpu_torch import Framebuffer, new_encoder
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_still_builders import (bmp_bytes, bmp_rle8, bmp_rows,
                                        png_bytes, pnm16, sunras_bytes)
@@ -978,27 +1029,19 @@ def still_inputs():
             buf = bytes(b)
         out[name] = (buf, n)
 
-    def pixels(fixture):
-        fb = Framebuffer()
-        with open(os.path.join(ASSETS, fixture), "rb") as f:
-            new_decoder(f.read(), device="cpu").decode_to(fb)
-        return fb.to_numpy()
-    bgr, gray = pixels("bench_1080p.jpg"), pixels("bench_1080p_gray.jpg")
+    bgr, gray = fixture_pixels("bench_1080p.jpg"), fixture_pixels(
+        "bench_1080p_gray.jpg")
     h, w = bgr.shape[:2]
     rgb = np.ascontiguousarray(bgr[..., ::-1])
-    alpha = np.broadcast_to(
-        (np.arange(w) * 255 // (w - 1)).astype(np.uint8)[None, :, None],
-        (h, w, 1))
+    alpha = alpha_ramp(h, w)
     i = np.arange(256)
     pal = np.stack([(i >> 5) * 255 // 7, ((i >> 2) & 7) * 255 // 7,
                     (i & 3) * 255 // 3], axis=1)          # RGB
     r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
     idx = ((r >> 5) << 5 | (g >> 5) << 2 | (b >> 6)).astype(np.uint8)
     word = (r >> 3) << 11 | (g >> 2) << 5 | (b >> 3)
+    out.update(png_inputs(bgr, gray))
     out.update({
-        "png_rgb8": png_bytes(rgb, 2),
-        "png_rgba8": png_bytes(np.concatenate([rgb, alpha], axis=-1), 6),
-        "png_gray8": png_bytes(gray, 0),
         "png_palette8": png_bytes(idx[..., None], 3, palette=pal),
         "png_rgb16": png_bytes(rgb.astype(np.uint16) * 257, 2, 16),
         "png_adam7": png_bytes(rgb, 2, interlace=1),
@@ -1209,13 +1252,9 @@ def gif_inputs():
     0 in turn, an interlaced frame, loop and comment extensions; the LZW
     streams are dictionary LZW, written by the port's C++ GIF encoder
     (codec=True), as a real GIF's are."""
-    from lilliput_tpu_torch import Framebuffer, new_decoder
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from _torch_gif_builders import pan_gif
-    fb = Framebuffer()
-    with open(os.path.join(ASSETS, "bench_1080p.jpg"), "rb") as f:
-        new_decoder(f.read(), device="cpu").decode_to(fb)
-    rgb = np.ascontiguousarray(fb.to_numpy()[..., ::-1])
+    rgb = np.ascontiguousarray(fixture_pixels("bench_1080p.jpg")[..., ::-1])
     anims = [pan_gif(rgb, GIF_SIZE, GIF_SIZE,
                      GIF_SHORT if k % 8 == 7 else GIF_FRAMES, start=11 * k,
                      codec=True)
@@ -1371,6 +1410,366 @@ def phase8(card):
     check(not any(launched.values()), "the GIF path launched a kernel")
 
 
+#: phase 9's mix, all to DST x DST Fit .jpeg q85: source -> requests.
+#: JPEG sources are the committed fixtures (the 720p one the port's own
+#: 1280x720 stretch of bench_1080p.jpg), the PNGs png_inputs() of the
+#: 1080p fixtures' pixels, the GIF gif_inputs()'s 1080p one; MIX_BROKEN
+#: adds a truncated 4:2:0 scan, a truncated PNG RGB8 and a RIFF/WEBP
+#: header. Shuffled with MIX_SEED.
+MIX = {"420": 64, "422": 16, "440": 16, "444": 16, "gray_o6": 16, "gray": 8,
+       "o6": 8, "420_720p": 16, "png_rgb8": 16, "png_rgba8": 8,
+       "png_gray8": 4, "gif": 2}
+MIX_BROKEN = True
+MIX_SEED = 14
+#: the kernel launches of one transcode of the mix: one per JPEG group of
+#: each layout (4:2:0 at 1080p, 1080p o6 and 720p), dequant_idct_blocks'
+#: u8 epilogue for the gray o6 group; none for gray upright and the stills
+MIX_LAUNCHES = {"decode420": 3, "decode422": 1, "decode440": 1,
+                "decode444": 1, "dequant_idct_blocks": 1}
+#: StillTranscodePipeline's own run: batches of STILL_BATCH 1080p PNG RGB8
+STILL_BATCH = 128
+#: the first-request latency's two new 4:2:0 geometries (cold, warmed)
+NEW_GEOMS = ((1600, 900), (1440, 810))
+
+
+def _stretched_jpeg(fixture: bytes, w: int, h: int) -> bytes:
+    """The port's own ImageOps stretch of a JPEG to w x h .jpeg at q85
+    (4:2:0), on DEVICE."""
+    from lilliput_tpu_torch import (JPEG_QUALITY, ImageOps, ImageOptions,
+                                    ResizeMethod, new_decoder)
+    return ImageOps(8192).transform(
+        new_decoder(fixture, device=DEVICE), ImageOptions(
+            file_type=".jpeg", width=w, height=h,
+            resize_method=ResizeMethod.RESIZE,
+            encode_options={JPEG_QUALITY: 85}))
+
+
+def mix_inputs():
+    """Phase 9's mix: (sources, labels, bufs, groups), where sources maps
+    each source to its bytes, labels[i] names request i's source
+    ("broken" for the three broken inputs) and groups[i] the signature
+    group it joins (None for the WebP header, which fails routing)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_gif_builders import pan_gif
+    sources = {}
+    for name in ("420", "422", "440", "444", "gray_o6", "gray", "o6"):
+        fixture = ("bench_1080p.jpg" if name == "420"
+                   else f"bench_1080p_{name}.jpg")
+        with open(os.path.join(ASSETS, fixture), "rb") as f:
+            sources[name] = f.read()
+    sources["420_720p"] = _stretched_jpeg(sources["420"], 1280, 720)
+    bgr = fixture_pixels("bench_1080p.jpg")
+    sources.update(png_inputs(bgr, fixture_pixels("bench_1080p_gray.jpg")))
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    sources["gif"] = pan_gif(rgb, rgb.shape[1], rgb.shape[0], 4, codec=True)
+    items = [(name, name) for name, n in MIX.items() for _ in range(n)]
+    if MIX_BROKEN:
+        jpeg, png = sources["420"], sources["png_rgb8"]
+        sources["broken_jpeg"] = jpeg[:len(jpeg) // 2]   # scan cut
+        sources["broken_png"] = png[:len(png) // 2]
+        sources["broken_webp"] = b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8)
+        items += [("broken_jpeg", "420"), ("broken_png", "png_rgb8"),
+                  ("broken_webp", None)]
+    order = np.random.default_rng(MIX_SEED).permutation(len(items))
+    items = [items[i] for i in order]
+    labels = [k for k, _ in items]
+    return (sources, labels, [sources[k] for k in labels],
+            [g for _, g in items])
+
+
+def _mix_groups(groups):
+    """signature group -> the request indices in it, in input order."""
+    out = {}
+    for i, g in enumerate(groups):
+        if g is not None:
+            out.setdefault(g, []).append(i)
+    return out
+
+
+def _mix_signature_pipe(sources, group):
+    """The per-signature pipeline of a group, on DEVICE."""
+    from lilliput_tpu_torch import (JpegTranscodePipeline,
+                                    StillTranscodePipeline)
+    cls = (StillTranscodePipeline if group.startswith(("png", "gif"))
+           else JpegTranscodePipeline)
+    return cls(sources[group], DST, DST, quality=85, device=DEVICE)
+
+
+def _mix_specs(sources):
+    """warm() specs of the mix's twelve signatures: JPEG geometry tuples
+    (synthetic_jpeg), samples for the oriented sources and the GIF, PNG
+    tuples (a zero-pixel PNG of the channel count)."""
+    return [(1920, 1080, "420"), (1920, 1080, "422"), (1920, 1080, "440"),
+            (1920, 1080, "444"), sources["gray_o6"],
+            (1920, 1080, "420", True), sources["o6"], (1280, 720, "420"),
+            ("png", 1920, 1080, 3), ("png", 1920, 1080, 4),
+            ("png", 1920, 1080, 1), sources["gif"]]
+
+
+def phase9(card, kernels):
+    """The mixed serving front: MultiGeometryPipeline(DST, DST, q85) on
+    the card over the shuffled MIX, with every launch count 0 just before
+    its first transcode and read just after (MIX_LAUNCHES exactly). Gates:
+    every healthy output byte-identical to its per-signature
+    JpegTranscodePipeline or StillTranscodePipeline on the card, in input
+    order; the broken slots hold exceptions (the WebP one naming item 6.2)
+    and only they; stats() reads twelve signatures built and cached, one
+    hit per other routed request and again that many on a second call,
+    which gives the same bytes, no eviction; with max_geometries=4 the
+    evictions are counted and the bytes unchanged; each .jpeg output's
+    coefficients within the step gate of MultiGeometryPipeline(...,
+    device="cpu") on the batch; a fresh front warmed from the twelve
+    signatures serves the mix without building a pipeline. Prints images/s
+    (mean of 3 after warming), each group's host decode, device_step (CUDA
+    events) and encode ms, the busy share and the peak device memory,
+    the first-request latency of a new 4:2:0 geometry cold against
+    warmed, and StillTranscodePipeline over STILL_BATCH 1080p PNG RGB8:
+    host decode, H2D, device_step and transcode_pipelined images/s."""
+    import torch
+    from lilliput_tpu_torch import MultiGeometryPipeline
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    from lilliput_tpu_torch.utils import metrics
+    t0 = time.perf_counter()
+    sources, labels, bufs, groups = mix_inputs()
+    by_group = _mix_groups(groups)
+    broken = [i for i, k in enumerate(labels) if k.startswith("broken")]
+    n_ok = len(bufs) - len(broken)
+    print(f"phase 9: {len(bufs)} requests of {len(by_group)} signatures and "
+          f"{len(broken)} broken inputs built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    metrics.reset()
+    mg = MultiGeometryPipeline(DST, DST, quality=85, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DK.reset_launches()
+    t0 = time.perf_counter()
+    outs = mg.transcode(bufs, return_exceptions=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launched = dict(DK.launches)
+    print(f"phase 9: first transcode of the mix {first_s!r} s; "
+          f"launches={launched}", flush=True)
+    check(launched == MIX_LAUNCHES, f"the mix launched {launched}, not "
+          f"{MIX_LAUNCHES}")
+    for k, n in launched.items():
+        kernels[k]["launches"] += n
+        kernels[k]["mix_launches"] = n
+
+    # the broken slots, and only they, hold exceptions
+    failed = [i for i, o in enumerate(outs) if not isinstance(o, bytes)]
+    check(failed == broken, f"failed slots {failed}, broken {broken}")
+    webp = outs[labels.index("broken_webp")]
+    check(isinstance(webp, NotImplementedError) and "item 6.2" in str(webp),
+          f"the WebP slot holds {webp!r}")
+    print(f"phase 9: broken slots: "
+          f"{[(labels[i], type(outs[i]).__name__) for i in broken]}",
+          flush=True)
+
+    # stats: one build per signature, a hit per other routed request. The
+    # WebP header fails routing; so does the truncated PNG if it comes
+    # before every healthy PNG RGB8 (its signature's pipeline would be
+    # built from it, and refuses it), at the cost of one more build
+    png_first = int(labels.index("broken_png") < labels.index("png_rgb8"))
+    routed = len(bufs) - 1 - png_first
+    st = mg.stats()
+    want = {"geometries_cached": len(by_group),
+            "compiles": len(by_group) + png_first,
+            "hits": routed - len(by_group), "evictions": 0}
+    check({k: st[k] for k in want} == want, f"stats {st}, want {want}")
+    again = mg.transcode(bufs, return_exceptions=True)
+    st2 = mg.stats()
+    want.update(hits=want["hits"] + len(bufs) - 1)
+    check({k: st2[k] for k in want} == want,
+          f"stats after a second call {st2}, want {want}")
+    check([a for a in again if isinstance(a, bytes)]
+          == [o for o in outs if isinstance(o, bytes)],
+          "a second transcode of the mix gave other bytes")
+    print(f"phase 9: stats after one call {st}; after two {st2}", flush=True)
+
+    # gate 1: each group equals its per-signature pipeline on the card
+    for g, idx in by_group.items():
+        res = _mix_signature_pipe(sources, g).transcode(
+            [bufs[i] for i in idx], return_exceptions=True)
+        for i, r in zip(idx, res):
+            if i not in broken:
+                check(r == outs[i], f"request {i} ({labels[i]}) differs "
+                      f"from its per-signature pipeline")
+    print(f"phase 9: {n_ok} outputs equal their per-signature pipelines "
+          f"on {DEVICE}, in input order", flush=True)
+
+    # the LRU at max_geometries=4: evictions counted, bytes unchanged
+    metrics.reset()
+    small = MultiGeometryPipeline(DST, DST, quality=85, max_geometries=4,
+                                  device=DEVICE)
+    t0 = time.perf_counter()
+    lru = small.transcode(bufs, return_exceptions=True)
+    lru_s = time.perf_counter() - t0
+    st4 = small.stats()
+    check(st4["evictions"] > 0 and st4["geometries_cached"] == 4,
+          f"max_geometries=4: {st4}")
+    check(all(a == b for a, b in zip(lru, outs) if isinstance(b, bytes)),
+          "max_geometries=4 changed the bytes")
+    print(f"phase 9: max_geometries=4: {st4}, bytes unchanged, "
+          f"{lru_s!r} s", flush=True)
+    del small, lru
+
+    # gate 5: the CPU front on the same batch
+    t0 = time.perf_counter()
+    cpu = MultiGeometryPipeline(DST, DST, quality=85,
+                                device="cpu").transcode(
+        bufs, return_exceptions=True)
+    cpu_s = time.perf_counter() - t0
+    worst = (0, 0, 0)
+    for i, (o, c) in enumerate(zip(outs, cpu)):
+        if i in broken:
+            check(not isinstance(c, bytes), f"request {i} ({labels[i]}) "
+                  "did not fail on the CPU")
+            continue
+        mx, nd, n = diff_stats(
+            [torch.from_numpy(a) for a in jpeg_coefs(o)],
+            [torch.from_numpy(a) for a in jpeg_coefs(c)])
+        check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+              f"request {i} ({labels[i]}) differs from the CPU front: "
+              f"max {mx}, {nd}/{n} coefficients")
+        worst = max(worst, (mx, nd, n))
+    print(f"phase 9: .jpeg coefficients vs MultiGeometryPipeline on the CPU "
+          f"({cpu_s!r} s there): worst max_abs_diff={worst[0]} "
+          f"differing={worst[1]}/{worst[2]}; bytes equal in "
+          f"{sum(o == c for o, c in zip(outs, cpu) if isinstance(o, bytes))}"
+          f" of {n_ok}", flush=True)
+    del cpu
+
+    # gate 6: a fresh front warmed from the twelve signatures
+    fresh = MultiGeometryPipeline(DST, DST, quality=85, device=DEVICE)
+    metrics.reset()
+    rep = fresh.warm(_mix_specs(sources))
+    built = fresh.stats()["compiles"]
+    check(rep["compiled_new"] == len(by_group) == built,
+          f"warm() built {rep}, stats {fresh.stats()}")
+    served = fresh.transcode(bufs, return_exceptions=True)
+    check(all(a == b for a, b in zip(served, outs) if isinstance(b, bytes)),
+          "the warmed front's bytes differ")
+    check(fresh.stats()["compiles"] == built, f"the warmed front built "
+          f"{fresh.stats()['compiles'] - built} pipelines on the mix")
+    print(f"phase 9: warm() of {len(by_group)} signatures {rep}; the mix "
+          f"built no pipeline after it", flush=True)
+    del fresh
+
+    # times, after warming
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mg.transcode(bufs, return_exceptions=True)
+        reps.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    share = busy_share(lambda: mg.transcode(bufs, return_exceptions=True))
+    print(f"phase 9: mix of {len(bufs)} requests: {n_ok} outputs in "
+          f"{reps!r} s, {n_ok * 3 / sum(reps)!r} images/s (mean of 3); "
+          f"busy share {share!r}; peak device memory "
+          f"{peak / 2**20!r} MiB [{card}]", flush=True)
+    mix_group_times(mg, labels, bufs, groups, card)
+    first_request_latency(sources, card)
+    still_batch_times(sources, card)
+
+
+def mix_group_times(mg, labels, bufs, groups, card):
+    """Each signature group of the mix through its pipeline in mg: host
+    decode (host clock), device_step (CUDA events, mean of 3) and the host
+    encode (host clock), ms per group."""
+    from lilliput_tpu_torch.utils import metrics
+    by_group = _mix_groups(groups)
+    for g, idx in by_group.items():
+        members = [bufs[i] for i in idx]
+        pipe = mg._pipe_for(members[0])
+        t0 = time.perf_counter()
+        args, iccs = pipe._host_decode(members, {})
+        decode_ms = 1e3 * (time.perf_counter() - t0)
+        step_ms = cuda_ms(lambda: pipe.device_step(*args), 3)
+        arrs = pipe._to_host(pipe._fetch(pipe.device_step(*args)))
+        t0 = time.perf_counter()
+        pipe._encode_outputs(arrs, iccs)
+        encode_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"phase 9: group {g} x{len(idx)}: host decode {decode_ms!r} "
+              f"ms, device_step {step_ms!r} ms, encode {encode_ms!r} ms "
+              f"[{card}]", flush=True)
+    metrics.reset()
+
+
+def first_request_latency(sources, card):
+    """The first request of a new 4:2:0 geometry: cold (the front builds
+    its pipeline and tables on it) against warmed (warm() of its geometry
+    tuple first), host clock to the bytes; two geometries neither has
+    seen, so one's warm-up cannot serve the other."""
+    import torch
+    from lilliput_tpu_torch import MultiGeometryPipeline
+    (cw, ch), (ww, wh) = NEW_GEOMS
+    cold_buf = _stretched_jpeg(sources["420"], cw, ch)
+    warm_buf = _stretched_jpeg(sources["420"], ww, wh)
+    torch.cuda.synchronize()
+    mg = MultiGeometryPipeline(DST, DST, quality=85, device=DEVICE)
+    t0 = time.perf_counter()
+    cold = mg.transcode([cold_buf])
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    mg.warm([(ww, wh, "420")])
+    t0 = time.perf_counter()
+    warm = mg.transcode([warm_buf])
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    check(all(isinstance(o, bytes) for o in cold + warm),
+          "a new geometry's first request failed")
+    print(f"phase 9: first request of a new 4:2:0 geometry: cold "
+          f"{cw}x{ch} {cold_ms!r} ms, warmed {ww}x{wh} {warm_ms!r} ms "
+          f"[{card}]", flush=True)
+
+
+def still_batch_times(sources, card):
+    """StillTranscodePipeline over STILL_BATCH 1080p PNG RGB8: host decode
+    ms per image on the decode threads against one image alone, H2D and
+    device_step (CUDA events), transcode_pipelined images/s over 2
+    batches (host clock)."""
+    import torch
+    from lilliput_tpu_torch import StillTranscodePipeline
+    png = sources["png_rgb8"]
+    pipe = StillTranscodePipeline(png, DST, DST, quality=85, device=DEVICE)
+    bufs = [png] * STILL_BATCH
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pipe._decode_one(png)
+    alone_ms = 1e3 * (time.perf_counter() - t0) / 3
+    pipe.decode_pixels(bufs, pool=True)          # the pool's first slot
+    t0 = time.perf_counter()
+    (px,), _ = pipe._host_decode(bufs)
+    batch_ms = 1e3 * (time.perf_counter() - t0)
+    # the same with one intra-op thread per decode thread: does torch's
+    # CPU pool oversubscribe the host under the decode threads?
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        pipe.decode_pixels(bufs, pool=True)
+        single_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.set_num_threads(threads)
+    h2d_ms = cuda_ms(lambda: pipe._to_device(px), 3)
+    step_ms = cuda_ms(lambda: pipe.device_step(px), 3)
+    pipe.transcode_pipelined([bufs] * 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.transcode_pipelined([bufs] * 2)
+    ips = 2 * STILL_BATCH / (time.perf_counter() - t0)
+    check(all(isinstance(o, bytes) for b in res for o in b),
+          "StillTranscodePipeline failed an item")
+    print(f"phase 9: StillTranscodePipeline {STILL_BATCH}x PNG RGB8 "
+          f"{pipe.src_w}x{pipe.src_h}: host decode {batch_ms / STILL_BATCH!r}"
+          f" ms per image on {min(8, os.cpu_count() or 1)} threads "
+          f"({batch_ms!r} ms per batch) against {alone_ms!r} ms alone "
+          f"(torch intra-op threads {threads}; with 1: "
+          f"{single_ms / STILL_BATCH!r} ms per image); H2D "
+          f"{h2d_ms!r} ms; device_step {step_ms!r} ms; transcode_pipelined "
+          f"{ips!r} images/s [{card}]", flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -1433,6 +1832,7 @@ def main() -> int:
     phase6(card)
     phase7(card, kernels)
     phase8(card)
+    phase9(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -23,6 +23,16 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
 * the animated GIF -> GIF serving path (``AnimatedTranscodePipeline``,
   ``pipeline.transcode_gif`` and ``transcode_gif_batch``), with the
   palette ops of ``ops/palette.py``;
+* the still-input serving front: ``StillTranscodePipeline`` (batches of
+  one non-JPEG still signature: host decode, one device step) and
+  ``MultiGeometryPipeline``, which groups mixed JPEG/PNG/GIF/... traffic
+  by signature into per-signature pipelines (an LRU), runs each group as
+  one batch and restores the input order::
+
+      from lilliput_tpu_torch import MultiGeometryPipeline
+      mg = MultiGeometryPipeline(256, 256, quality=85)   # device="cuda"
+      outs = mg.transcode(list_of_image_bytes, return_exceptions=True)
+
 * the command line, ``python -m lilliput_tpu_torch`` (``cli.py``).
 
 The decode kernels are CUDA (``csrc/*.cu``); the host entropy stages are
@@ -49,7 +59,8 @@ from .framebuffer import (JPEG_PROGRESSIVE, JPEG_QUALITY,  # noqa: E402,F401
 from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401
 from .pipeline import (AnimatedTranscodePipeline,  # noqa: E402,F401
-                       JpegTranscodePipeline, transcode_gif,
+                       JpegTranscodePipeline, MultiGeometryPipeline,
+                       StillTranscodePipeline, transcode_gif,
                        transcode_gif_batch)
 
 __version__ = "0.1.0"

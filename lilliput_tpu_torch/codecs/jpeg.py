@@ -413,6 +413,40 @@ def scaled_qtables(quality: int, chroma_quality: Optional[int] = None):
                           else chroma_quality))
 
 
+#: subsampling name -> (h_samp, v_samp) per component
+_SAMP = {"420": ([2, 1, 1], [2, 1, 1]), "422": ([2, 1, 1], [1, 1, 1]),
+         "440": ([1, 1, 1], [2, 1, 1]), "444": ([1, 1, 1], [1, 1, 1])}
+
+
+def synthetic_jpeg(w: int, h: int, subsampling: str = "420",
+                   gray: bool = False, quality: int = 85) -> bytes:
+    """Zero-coefficient baseline JPEG of an exact geometry (dims, sampling
+    factors, quant tables of `quality`): the warm-up input of
+    MultiGeometryPipeline.warm(). Written by the port's baseline encoder
+    (csrc/host/jpeg_enc.cpp), whose bytes are libjpeg's for baseline,
+    non-optimized output."""
+    from .. import binding
+    if subsampling not in _SAMP:
+        raise ValueError(f"unknown subsampling {subsampling!r}")
+    qt_l, qt_c = scaled_qtables(quality)
+    h_samp, v_samp = ([1], [1]) if gray else _SAMP[subsampling]
+    max_h, max_v = max(h_samp), max(v_samp)
+    comps = [np.zeros(((h * v + 8 * max_v - 1) // (8 * max_v),
+                       (w * hs + 8 * max_h - 1) // (8 * max_h), 64), np.int16)
+             for hs, v in zip(h_samp, v_samp)]
+    nc = len(comps)
+    out = np.empty(w * h + (1 << 20), np.uint8)
+    n = binding.load().lpt_jpeg_encode_baseline(
+        w, h, nc, (ctypes.c_int32 * nc)(*h_samp),
+        (ctypes.c_int32 * nc)(*v_samp),
+        (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in comps]),
+        qt_l.ctypes.data_as(_u16p), qt_c.ctypes.data_as(_u16p), None, 0,
+        out.ctypes.data_as(_u8p), out.size)
+    if n <= 0:
+        raise DecodingFailedError(f"synthetic JPEG encode failed ({n})")
+    return out[:n].tobytes()
+
+
 # ---------------------------------------------------------------------------
 # byte walkers of the single-image surface
 # ---------------------------------------------------------------------------

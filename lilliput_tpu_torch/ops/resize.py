@@ -490,6 +490,14 @@ def resize_area_mxu_or_exact_planes(plane: torch.Tensor, dst_w: int,
     return resize_area_mxu_planes(plane, dst_w, dst_h)
 
 
+def resize_area_mxu_or_exact(img: torch.Tensor, dst_w: int,
+                             dst_h: int) -> torch.Tensor:
+    """The JAX ``resize_area_mxu_or_exact`` of (..., H, W, C) images (the
+    still tail): each channel through resize_area_mxu_or_exact_planes."""
+    return resize_area_mxu_or_exact_planes(img.movedim(-1, 0), dst_w,
+                                           dst_h).movedim(0, -1)
+
+
 # ---------------------------------------------------------------------------
 # LILLIPUT_FUSED_EXACT: the byte-identical forms of the fused tails
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Batched JPEG Fit transcode — the port's serving path — and the
-animated GIF -> GIF serving path.
+"""Batched JPEG Fit transcode — the port's serving path — the still and
+mixed-geometry serving fronts, and the animated GIF -> GIF serving path.
 
 The JPEG-in half of ``lilliput_tpu/pipeline.py``: a batch of
 same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
@@ -44,6 +44,15 @@ i-1 and decodes batch i+1 while step i runs. Everything outside the port
 (.webp output, optimize_coding, the libjpeg decode route) raises
 NotImplementedError naming its ROADMAP queue 1 item; nothing falls back.
 
+Non-JPEG stills (``StillTranscodePipeline``): host decode of each source
+to pixels (decoders on the CPU, threaded) into one pinned batch, one H2D
+copy, then orientation, the Fit crop, the resize and the JPEG colour
+encode (or the pixel pack) as torch ops on the device
+(``_fused_still_fit_impl``, no kernel), then the host encode.
+``MultiGeometryPipeline`` routes mixed traffic by signature to
+per-signature JpegTranscodePipeline and StillTranscodePipeline instances
+(an LRU), batches each group and restores the input order.
+
 GIF (``transcode_gif``, ``transcode_gif_batch``,
 ``AnimatedTranscodePipeline``): host LZW decode and index scattering
 (codecs/gif.py, gif_codec.cpp), then on the device the composite of every
@@ -60,6 +69,7 @@ import ctypes
 import dataclasses
 import os
 import time
+from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -150,6 +160,14 @@ def mcu_decode_window(src_w: int, src_h: int, dst_w: int, dst_h: int,
             slice(cby0, cby1), slice(cbx0, cbx1))
 
 
+def _normalize_output_format(output_format: str) -> str:
+    """The serving fronts' output-format check: ".jpg" is ".jpeg"."""
+    fmt = {".jpg": ".jpeg"}.get(output_format, output_format)
+    if fmt not in (".jpeg", ".webp", ".png"):
+        raise ValueError("output_format must be .jpeg, .webp or .png")
+    return fmt
+
+
 def _oriented_fit(src_w: int, src_h: int, dst_w: int, dst_h: int,
                   orientation: int):
     """fit_rect of the upright (oriented) image: orientations 5-8 swap the
@@ -171,6 +189,16 @@ def _pack_pixels(bpl, gpl, rpl) -> torch.Tensor:
         return torch.clamp(torch.round(x.to(torch.float32)), 0.0,
                            255.0).to(torch.int32)
     return u8(bpl) | (u8(gpl) << 8) | (u8(rpl) << 16) | _ALPHA_FF
+
+
+def _pack_pixels_a(bpl, gpl, rpl, apl) -> torch.Tensor:
+    """_pack_pixels with a real alpha plane (still sources with
+    transparency keep it through .png output): the same round and clip;
+    alpha << 24 wraps into the int32 sign bit, as in the JAX package."""
+    def u8(x):
+        return torch.clamp(torch.round(x.to(torch.float32)), 0.0,
+                           255.0).to(torch.int32)
+    return u8(bpl) | (u8(gpl) << 8) | (u8(rpl) << 16) | (u8(apl) << 24)
 
 
 def _encode_or_pack(out, enc_qt_y, enc_qt_c, emit: str):
@@ -383,6 +411,46 @@ def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
     return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),)
 
 
+def _fused_still_fit_impl(px, enc_qt_y, enc_qt_c, src_w: int, src_h: int,
+                          dst_w: int, dst_h: int, method: str = R.AREA,
+                          orientation: int = 1, emit: str = "coefs"):
+    """(B, H, W, C) u8 BGR(A) or gray still pixels -> quantized JPEG encode
+    coefficients (emit="coefs": (yq, cbq, crq), or (yq,) for C=1) or packed
+    BGRA int32 pixels at the destination size (emit="pixels", a 1-tuple):
+    the JAX function (lilliput_tpu/pipeline.py:481-531), torch ops as it is
+    XLA, with no kernel.
+
+    EXIF orientation, the Fit crop of the upright size, then AREA through
+    resize_area_mxu_or_exact (LILLIPUT_FUSED_EXACT switches it to the exact
+    forms) or the streaming LINEAR/CUBIC kernels. C=1 encodes a
+    1-component JPEG of the rounded plane; C=3 and C=4 encode at 4:2:0
+    (alpha dropped); pixels keep a C=4 source's alpha."""
+    c = px.shape[-1]
+    if orientation != 1:
+        px = O.orient(px, orientation)
+    left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h, orientation)
+    cropped = px[..., top:top + h, left:left + w, :]
+    if method == R.AREA:
+        resized = R.resize_area_mxu_or_exact(cropped, dst_w, dst_h)
+    else:
+        resized = R.resize(cropped, dst_w, dst_h, method)
+    chans = resized.unbind(-1)
+    if emit == "pixels":
+        if c == 1:
+            return (_pack_pixels(chans[0], chans[0], chans[0]),)
+        if c == 4:
+            return (_pack_pixels_a(*chans),)
+        return (_pack_pixels(*chans),)
+    if c == 1:
+        # 1-channel sources encode as grayscale JPEG, like the reference's
+        # OpenCV encoder over a 1-channel mat
+        yr = torch.clamp(torch.round(chans[0].to(torch.float32)), 0, 255)
+        ph = (dst_h + 7) // 8 * 8
+        pw = (dst_w + 7) // 8 * 8
+        return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),)
+    return K.encode_from_bgr(resized, enc_qt_y, enc_qt_c, subsample=True)
+
+
 class _Fetch(NamedTuple):
     """A device step's outputs on their way to the host: the host arrays
     (pinned on CUDA, filled once `event` has completed; None on the CPU,
@@ -395,9 +463,9 @@ class _ServingPipelineBase:
     """Host-encode/orchestration stages of the serving pipelines.
 
     Subclasses provide `_host_decode` and `device_step` plus the attributes
-    the encode stages read: device, dst_w/dst_h, ncomp,
-    enc_qt_y_np/enc_qt_c_np, output_format, encode_options, _lib, and
-    `_pooled`."""
+    the stages read: device, dst_w/dst_h, ncomp, enc_qt_y_np/enc_qt_c_np,
+    output_format, encode_options, _lib, and `_pool` (a dict, the store of
+    `_pooled`)."""
 
     @property
     def _emit(self) -> str:
@@ -417,6 +485,51 @@ class _ServingPipelineBase:
 
     def device_step(self, *args, plain: bool = False):
         raise NotImplementedError
+
+    # -- host buffers ---------------------------------------------------------
+
+    def _alloc(self, shape, zeros: bool = False, pin: bool = True,
+               dtype=torch.int16) -> np.ndarray:
+        """Host batch array; page-locked on CUDA (unless pin is False, for
+        arrays that never leave the host) so the H2D copy of a batch is
+        asynchronous and overlaps the next batch's host decode."""
+        make = torch.zeros if zeros else torch.empty
+        return make(shape, dtype=dtype,
+                    pin_memory=pin and self.device.type == "cuda").numpy()
+
+    def _pooled(self, key, alloc):
+        """Rotating 2-slot pool of pinned host arrays: decode_entropy's
+        destination arrays and tables (decode_pixels' pixel batch), and
+        _fetch's output arrays.
+
+        Steady-state serving reuses the previous-but-one batch's arrays
+        (fresh arrays pay first-touch page faults, and pinned ones a
+        cudaHostAlloc). Two slots cover transcode_pipelined, whose batch-i
+        H2D transfer may still be in flight while batch i+1 decodes; slot
+        i is reused only at batch i+2, after iteration i+1 fetched batch
+        i's OUTPUTS (which orders after its input transfer). Callers of
+        pool=True must serialize decode_entropy (decode_pixels) calls per
+        pipeline. The output arrays follow the same rule (see _fetch)."""
+        slots = self._pool.get(key)
+        if slots is None:
+            # up to four keys per batch size (arrays, lanes, tables,
+            # outputs); ragged tail batches: stay bounded
+            if len(self._pool) >= 8:
+                self._pool.pop(next(iter(self._pool)))
+            self._pool[key] = slots = [[], 0]
+        arrs, idx = slots
+        if len(arrs) < 2:
+            arrs.append(alloc())
+            return arrs[-1]
+        out = arrs[idx]
+        slots[1] = 1 - idx
+        return out
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """One host array to the pipeline's device, non-blocking (the
+        pooled arrays are pinned on CUDA)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(self.device, non_blocking=True)
 
     # -- host encode stage ----------------------------------------------------
 
@@ -647,9 +760,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             raise ValueError("chroma_mode must be 'rgb' or 'direct'")
         if dct_scale not in (1, 2, 4):
             raise ValueError("dct_scale must be 1, 2 or 4")
-        fmt = {".jpg": ".jpeg"}.get(output_format, output_format)
-        if fmt not in (".jpeg", ".webp", ".png"):
-            raise ValueError("output_format must be .jpeg, .webp or .png")
+        fmt = _normalize_output_format(output_format)
         if dct_scale != 1 and chroma_mode != "direct":
             raise ValueError("dct_scale needs chroma_mode='direct'")
         if dct_scale != 1 and method != R.AREA:
@@ -773,42 +884,6 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 f"EXIF orientation mismatch: pipeline expects "
                 f"{self.orientation}, got {o}")
         return info
-
-    def _alloc(self, shape, zeros: bool = False, pin: bool = True,
-               dtype=torch.int16) -> np.ndarray:
-        """Host batch array; page-locked on CUDA (unless pin is False, for
-        arrays that never leave the host) so the H2D copy of a batch is
-        asynchronous and overlaps the next batch's host decode."""
-        make = torch.zeros if zeros else torch.empty
-        return make(shape, dtype=dtype,
-                    pin_memory=pin and self.device.type == "cuda").numpy()
-
-    def _pooled(self, key, alloc):
-        """Rotating 2-slot pool of pinned host arrays: decode_entropy's
-        destination arrays and tables, and _fetch's output arrays.
-
-        Steady-state serving reuses the previous-but-one batch's arrays
-        (fresh arrays pay first-touch page faults, and pinned ones a
-        cudaHostAlloc). Two slots cover transcode_pipelined, whose batch-i
-        H2D transfer may still be in flight while batch i+1 decodes; slot
-        i is reused only at batch i+2, after iteration i+1 fetched batch
-        i's OUTPUTS (which orders after its input transfer). Callers of
-        pool=True must serialize decode_entropy calls per pipeline. The
-        output arrays follow the same rule (see _fetch)."""
-        slots = self._pool.get(key)
-        if slots is None:
-            # up to four keys per batch size (arrays, lanes, tables,
-            # outputs); ragged tail batches: stay bounded
-            if len(self._pool) >= 8:
-                self._pool.pop(next(iter(self._pool)))
-            self._pool[key] = slots = [[], 0]
-        arrs, idx = slots
-        if len(arrs) < 2:
-            arrs.append(alloc())
-            return arrs[-1]
-        out = arrs[idx]
-        slots[1] = 1 - idx
-        return out
 
     def decode_entropy(self, bufs: Sequence[bytes],
                        workers: Optional[int] = None, pool: bool = False,
@@ -955,10 +1030,6 @@ class JpegTranscodePipeline(_ServingPipelineBase):
 
     # -- device stage ----------------------------------------------------------
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(self.device, non_blocking=True)
-
     def device_step(self, ys, cbs=None, crs=None, qty=None, qtc=None,
                     plain: bool = False):
         """One batch through the dense stages; returns a tuple of device
@@ -1008,6 +1079,187 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 else J.read_icc(buf) for i, buf in enumerate(bufs)]
         return coefs, iccs
 
+
+def _synthetic_still(fmt: str, w: int, h: int, channels: int = 3) -> bytes:
+    """Zero-pixel sample of a still format and geometry: the warm() input
+    of the pixel-domain pipelines, as codecs.jpeg.synthetic_jpeg is of the
+    JPEG ones. The channel count is part of the serving signature (the PNG
+    colour type), so it is written faithfully."""
+    arr = np.zeros((h, w, channels), np.uint8)
+    if fmt == "png":
+        from .codecs.png import encode_png_pixels
+        return encode_png_pixels(arr, 1)
+    if fmt == "webp":
+        _not_ported("a synthesized .webp warm-up sample (the WebP encoder)",
+                    "item 4.7b")
+    raise ValueError(f"unsupported warm still format {fmt!r}")
+
+
+class StillTranscodePipeline(_ServingPipelineBase):
+    """Batched Fit transcoder for same-signature NON-JPEG still sources
+    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF: anything the port's
+    new_decoder reads but JPEG).
+
+    JPEG sources go through JpegTranscodePipeline, in the coefficient
+    domain. Every other still format decodes to pixels on the HOST, with
+    decoders on device="cpu" on a thread pool (the entropy codecs release
+    the GIL; their per-image conversions stay on the host, so the batch
+    crosses to the device once, the counterpart of the JAX package's
+    _host_cpu_device), into one pinned (B, H, W, C) u8 array. One device
+    step then orients, crops, resizes and encodes the batch
+    (_fused_still_fit_impl, torch ops: no kernel), and the host
+    Huffman-codes or PNG-encodes each output.
+
+    Gray (1-channel) sources give 1-component JPEGs and gray PNGs;
+    4-channel sources keep alpha in .png output (JPEG output drops it).
+    Animated sources transcode their first frame, what the reference's
+    Transform emits for animated input with still output. .webp output
+    (item 4.7b) and optimize_coding (item 2) raise NotImplementedError.
+
+    Usage:
+        pipe = StillTranscodePipeline(sample_png, 256, 256, quality=85)
+        outs = pipe.transcode(list_of_pngs)   # same signature as sample
+
+    device: the torch device of the device step, "cuda" by default (it
+    raises without a card); device="cpu" runs it on the CPU."""
+
+    def __init__(self, sample: bytes, dst_w: int, dst_h: int,
+                 quality: int = 85, method: str = R.AREA,
+                 optimize_coding: bool = False,
+                 output_format: str = ".jpeg",
+                 encode_options: Optional[dict] = None, device="cuda"):
+        from . import api as A
+        if A.is_jpeg(sample):
+            raise DecodingFailedError(
+                "JPEG sources: use JpegTranscodePipeline (the "
+                "coefficient-domain path) or MultiGeometryPipeline")
+        fmt = _normalize_output_format(output_format)
+        if fmt == ".webp":
+            _not_ported("output_format='.webp'", "item 4.7b")
+        if optimize_coding:
+            _not_ported("optimize_coding (optimal Huffman tables)",
+                        "item 2, host encode")
+        self.device = resolve_device(device)
+        self._lib = binding.load()
+        self._pool: dict = {}
+        self.dst_w, self.dst_h = dst_w, dst_h
+        self.method = method
+        self.quality = quality
+        self.optimize_coding = optimize_coding
+        self.output_format = fmt
+        self.encode_options = dict(encode_options or {})
+        d = A.new_decoder(sample, device="cpu")
+        self.kind = type(d).__name__
+        hdr = d.header()
+        self.src_w, self.src_h = int(hdr.width), int(hdr.height)
+        self.orientation = int(hdr.orientation)
+        arr = self._decode_array(d)
+        if arr.shape[:2] != (self.src_h, self.src_w):
+            raise DecodingFailedError(
+                f"decoder output {arr.shape[1]}x{arr.shape[0]} does not "
+                f"match header geometry {self.src_w}x{self.src_h}: use "
+                "the streaming ImageOps path for this source")
+        self.channels = int(arr.shape[-1])
+        self.ncomp = 1 if self.channels == 1 else 3
+        eql, eqc = J.scaled_qtables(quality)
+        self.enc_qt_y_np, self.enc_qt_c_np = eql, eqc
+        self.enc_qt_y = torch.from_numpy(eql.astype(np.float32)).to(self.device)
+        self.enc_qt_c = torch.from_numpy(eqc.astype(np.float32)).to(self.device)
+
+    # -- host decode stage ----------------------------------------------------
+
+    @staticmethod
+    def _decode_array(d) -> np.ndarray:
+        """The first frame of a CPU decoder as (H, W, C) u8 numpy."""
+        from .framebuffer import Framebuffer
+        fb = Framebuffer()
+        d.decode_to(fb)
+        return fb.to_numpy()
+
+    def _decode_one(self, buf: bytes):
+        """Decode and validate one source: every buffer is checked against
+        the pipeline's signature (format, geometry, orientation, decoded
+        shape) before it lands in the batch array."""
+        from . import api as A
+        d = A.new_decoder(buf, device="cpu")
+        if type(d).__name__ != self.kind:
+            raise DecodingFailedError(
+                f"format mismatch: pipeline built for {self.kind} "
+                f"sources, got {type(d).__name__}")
+        hdr = d.header()
+        if (int(hdr.width), int(hdr.height)) != (self.src_w, self.src_h):
+            raise DecodingFailedError(
+                f"geometry mismatch: pipeline built for "
+                f"{self.src_w}x{self.src_h}, got {hdr.width}x{hdr.height}")
+        if int(hdr.orientation) != self.orientation:
+            raise DecodingFailedError(
+                f"EXIF orientation mismatch: pipeline expects "
+                f"{self.orientation}, got {int(hdr.orientation)}")
+        arr = self._decode_array(d)
+        if arr.shape != (self.src_h, self.src_w, self.channels):
+            raise DecodingFailedError(
+                f"decoded shape mismatch: pipeline built for "
+                f"{(self.src_h, self.src_w, self.channels)}, got "
+                f"{arr.shape} (same-size sources must share the channel "
+                "layout)")
+        return arr, (d.icc() or b"")
+
+    def decode_pixels(self, bufs: Sequence[bytes],
+                      workers: Optional[int] = None, pool: bool = False,
+                      errors: Optional[Dict[int, Exception]] = None):
+        """Decode a batch into one (B, H, W, C) u8 array (pinned on CUDA)
+        and the per-image ICC profiles, on `workers` threads (8 at most by
+        default). pool=True takes the array from the 2-slot pool (see
+        _pooled). errors: when a dict, per-item failures are ISOLATED: the
+        exception lands in errors[i] and the lane is zero-filled; None
+        raises on the first bad buffer."""
+        b = len(bufs)
+
+        def alloc():
+            return self._alloc((b, self.src_h, self.src_w, self.channels),
+                               dtype=torch.uint8)
+        batch = self._pooled((b, "px"), alloc) if pool else alloc()
+        iccs: List[bytes] = [b""] * b
+
+        def one(i: int):
+            batch[i], iccs[i] = self._decode_one(bufs[i])
+
+        if errors is not None:
+            decode_one = one
+
+            def one(i: int):
+                try:
+                    decode_one(i)
+                except Exception as e:  # noqa: BLE001 -- isolate per item
+                    errors[i] = e
+                    batch[i] = 0   # benign black lane; wipes pooled data
+                    iccs[i] = b""
+
+        n_workers = (workers if workers is not None
+                     else min(8, os.cpu_count() or 1))
+        _tmap(one, range(b), n_workers)
+        return batch, iccs
+
+    def _host_decode(self, bufs: Sequence[bytes],
+                     errors: Optional[Dict[int, Exception]] = None):
+        batch, iccs = self.decode_pixels(bufs, pool=True, errors=errors)
+        return (batch,), iccs
+
+    def _pixel_channels(self) -> int:
+        """Alpha and gray survive .png output."""
+        return self.channels
+
+    # -- device stage ---------------------------------------------------------
+
+    def device_step(self, px):
+        """One H2D copy of the pixel batch (non-blocking) and the fused
+        still tail on the pipeline's device (no kernel); returns a tuple
+        of device tensors, as JpegTranscodePipeline.device_step."""
+        return _fused_still_fit_impl(
+            self._to_device(px), self.enc_qt_y, self.enc_qt_c,
+            src_w=self.src_w, src_h=self.src_h, dst_w=self.dst_w,
+            dst_h=self.dst_h, method=self.method,
+            orientation=self.orientation, emit=self._emit)
 
 
 # ---------------------------------------------------------------------------
@@ -1369,3 +1621,238 @@ class AnimatedTranscodePipeline:
             out[i] = r
         return _ServingPipelineBase._resolve_errors(out, errors,
                                                     return_exceptions)
+
+
+# ---------------------------------------------------------------------------
+# the mixed-geometry, mixed-format serving front
+# ---------------------------------------------------------------------------
+
+
+class MultiGeometryPipeline:
+    """Serving front for mixed-geometry still batches (SURVEY.md hard part
+    #3), JPEG and non-JPEG sources alike.
+
+    Requests are grouped by their exact signature: JPEGs by coefficient
+    geometry (dims + subsampling) and EXIF orientation, read by the port's
+    header parser; other still formats by (decoder, dims, channels,
+    orientation). Each group runs as one batch through a per-signature
+    JpegTranscodePipeline (coefficient domain: the layout's decode kernel)
+    or StillTranscodePipeline (pixel domain: host decode, one device
+    step), and the input order is restored. The pipelines sit in an LRU of
+    max_geometries. The JAX package caches a compiled XLA program per
+    signature; eager torch compiles nothing, so here a "compile"
+    (serving.geometry_compiles) is a pipeline built, and each pipeline
+    keeps its own resize tables (ops/resize caches them per geometry).
+    Animated GIF sources with .gif output go to AnimatedTranscodePipeline.
+
+    device: "cuda" by default (it raises without a card), passed to every
+    pipeline built; device="cpu" runs the fronts on the CPU. Not ported:
+    a mesh (item 9); .webp output raises per request (item 4.7b), as do
+    sources the port cannot decode (WebP 6.2, AVIF 6.5, JPEG 2000 6.4,
+    video 6.6), each in its own slot."""
+
+    def __init__(self, dst_w: int, dst_h: int, quality: int = 85,
+                 method: str = R.AREA, max_geometries: int = 64,
+                 chroma_mode: str = "rgb", dct_scale: int = 1,
+                 output_format: str = ".jpeg",
+                 encode_options: Optional[dict] = None, mesh=None,
+                 device="cuda"):
+        if mesh is not None:
+            _not_ported("the sharded serving fronts (mesh: "
+                        "ShardedJpegPipeline, ShardedStillPipeline)",
+                        "item 9")
+        self.device = resolve_device(device)
+        self.dst_w, self.dst_h = dst_w, dst_h
+        self.quality = quality
+        self.method = method
+        self.max_geometries = max_geometries
+        self.chroma_mode = chroma_mode
+        self.dct_scale = dct_scale
+        # fail at construction, not on the first request; ".gif" is the
+        # animated-only output (GIF sources, reference giflib.go parity)
+        fmt = {".jpg": ".jpeg"}.get(output_format, output_format)
+        self.output_format = (fmt if fmt == ".gif"
+                              else _normalize_output_format(output_format))
+        self.encode_options = dict(encode_options or {})
+        self._anim_pipe: Optional[AnimatedTranscodePipeline] = None
+        # signature key -> serving pipeline, in LRU order; JPEG keys are
+        # (JpegGeometry, orientation), still keys ("still", kind, w, h,
+        # channels, orientation)
+        self._pipes: "OrderedDict[tuple, _ServingPipelineBase]" = \
+            OrderedDict()
+
+    def _animated_route(self, buf: bytes):
+        """Animated source + animation-capable output -> the animated
+        serving pipeline (the reference's Transform keeps the animation
+        for .gif and .webp output); still outputs take the first frame.
+        Returns (pipeline or None for the still routes, decoder or None):
+        a CPU decoder built for the animation probe is handed back so the
+        still route reads its header instead of parsing again."""
+        from . import api as A
+        if self.output_format == ".gif":
+            # GIF output: GIF sources only (single-frame ones too: the GIF
+            # encoder reuses the source palette)
+            if not A.is_gif(buf):
+                raise DecodingFailedError(
+                    ".gif output requires a GIF source (the GIF encoder "
+                    "reuses the source palette, giflib.go parity)")
+        elif self.output_format != ".webp":
+            return None, None
+        elif not (A.is_gif(buf) or A.is_webp(buf) or A.is_avif(buf)):
+            return None, None
+        else:
+            d = A.new_decoder(buf, device="cpu")
+            if not d.header().is_animated():
+                return None, d
+        if self._anim_pipe is None:
+            self._anim_pipe = AnimatedTranscodePipeline(
+                self.dst_w, self.dst_h, output_format=self.output_format,
+                fit=True, encode_options=self.encode_options,
+                device=self.device)
+        return self._anim_pipe, None
+
+    def _pipe_for(self, buf: bytes):
+        from . import api as A
+        from .utils import metrics
+        anim, d0 = self._animated_route(buf)
+        if anim is not None:
+            return anim
+        kw = dict(quality=self.quality, method=self.method,
+                  output_format=self.output_format,
+                  encode_options=self.encode_options, device=self.device)
+        if A.is_jpeg(buf):
+            geom = geometry_of(J.read_info(buf))
+            orientation = int(J.exif_orientation(buf))
+            key = (geom, orientation)
+
+            def build():
+                mode = ("direct" if self.chroma_mode == "direct"
+                        and JpegTranscodePipeline.direct_eligible(
+                            geom, orientation, self.dst_w, self.dst_h,
+                            self.method) else "rgb")
+                return JpegTranscodePipeline(
+                    buf, self.dst_w, self.dst_h, chroma_mode=mode,
+                    dct_scale=self.dct_scale if mode == "direct" else 1,
+                    **kw)
+        else:
+            # pixel-domain pipelines keyed by (format, dims, channels,
+            # orientation); a JPEG key is a 2-tuple, so the key spaces
+            # never collide
+            d = d0 if d0 is not None else A.new_decoder(buf, device="cpu")
+            hdr = d.header()
+            key = ("still", type(d).__name__, int(hdr.width),
+                   int(hdr.height), int(hdr.channels), int(hdr.orientation))
+
+            def build():
+                return StillTranscodePipeline(buf, self.dst_w, self.dst_h,
+                                              **kw)
+        pipe = self._pipes.get(key)
+        if pipe is None:
+            metrics.incr("serving.geometry_compiles")
+            # build BEFORE evicting: a refused source (exotic subsampling,
+            # distinct chroma tables) must not cost a hot signature its
+            # pipeline
+            pipe = build()
+            if len(self._pipes) >= self.max_geometries:
+                self._pipes.popitem(last=False)
+                metrics.incr("serving.geometry_evictions")
+        else:
+            self._pipes.pop(key)
+            metrics.incr("serving.geometry_hits")
+        self._pipes[key] = pipe  # the most recently used position
+        return pipe
+
+    def stats(self) -> dict:
+        """The LRU's size and the process-global build/hit/eviction
+        counters (utils.metrics)."""
+        from .utils import metrics
+        snap = metrics.snapshot()["counters"]
+        return {
+            "geometries_cached": len(self._pipes),
+            "max_geometries": self.max_geometries,
+            "compiles": int(snap.get("serving.geometry_compiles", 0)),
+            "hits": int(snap.get("serving.geometry_hits", 0)),
+            "evictions": int(snap.get("serving.geometry_evictions", 0)),
+        }
+
+    def warm(self, specs, anim_lane_buckets=None) -> dict:
+        """Build (and run once) the pipelines of an expected signature set
+        before traffic arrives. Each spec is a sample image (bytes), a
+        JPEG geometry tuple (width, height[, subsampling[, gray]]) warmed
+        through codecs.jpeg.synthetic_jpeg, or a still tuple ("png",
+        width, height[, channels]) warmed through a zero-pixel PNG.
+        Animated specs run every lane bucket of the cross-animation batch
+        ({1} and ops.palette.frame_bucket of 2..32 lanes) unless
+        anim_lane_buckets names some. Raises ValueError when the specs
+        outnumber max_geometries (the LRU would evict earlier ones).
+        Returns {"warmed": n, "compiled_new": n_new, "seconds": s}."""
+        specs = list(specs)
+        if len(specs) > self.max_geometries:
+            raise ValueError(
+                f"warm set of {len(specs)} geometries exceeds "
+                f"max_geometries={self.max_geometries}: earlier entries "
+                "would be LRU-evicted during warming; raise "
+                "max_geometries to cover the expected set")
+        if anim_lane_buckets is None:
+            anim_lane_buckets = sorted(
+                {1} | {P.frame_bucket(k)
+                       for k in range(2, _MAX_ANIM_LANES + 1)})
+        t0 = time.time()
+        before = len(self._pipes)
+        for spec in specs:
+            if isinstance(spec, (bytes, bytearray)):
+                buf = bytes(spec)
+            elif isinstance(spec[0], str):
+                buf = _synthetic_still(*spec)
+            else:
+                buf = J.synthetic_jpeg(*spec)
+            pipe = self._pipe_for(buf)
+            if isinstance(pipe, AnimatedTranscodePipeline):
+                for b in anim_lane_buckets:
+                    pipe.transcode([buf] * b)
+            else:
+                pipe.transcode([buf])
+        return {"warmed": len(specs),
+                "compiled_new": len(self._pipes) - before,
+                "seconds": round(time.time() - t0, 3)}
+
+    def transcode(self, bufs: Sequence[bytes],
+                  return_exceptions: bool = False) -> List[bytes]:
+        """Group by signature, batch each group, restore the input order.
+
+        Per-item failures are isolated end to end: a buffer that fails
+        routing (unrecognized or unported format, unsupported layout,
+        header parse failure: anything _pipe_for raises) or fails inside
+        its group (every group runs with return_exceptions=True) affects
+        only its own slot. With return_exceptions=True the failing slots
+        hold the exceptions; with the default False the first failure
+        re-raises after every healthy item finished."""
+        from .utils import metrics
+        groups: Dict[int, tuple] = {}
+        errors: Dict[int, Exception] = {}
+        routing_failures = 0
+        for i, buf in enumerate(bufs):
+            try:
+                pipe = self._pipe_for(buf)
+            except Exception as e:  # noqa: BLE001 -- isolate per item
+                errors[i] = e
+                routing_failures += 1
+                continue
+            groups.setdefault(id(pipe), (pipe, []))[1].append(i)
+        out: List[Optional[bytes]] = [None] * len(bufs)
+        for pipe, idxs in groups.values():
+            results = pipe.transcode([bufs[i] for i in idxs],
+                                     return_exceptions=True)
+            for i, r in zip(idxs, results):
+                if isinstance(r, Exception):
+                    errors[i] = r
+                else:
+                    out[i] = r
+        if routing_failures:
+            # the groups count their own failures
+            metrics.incr("serving.poison_isolated", routing_failures)
+        if errors and not return_exceptions:
+            raise errors[min(errors)]
+        for i, e in errors.items():
+            out[i] = e  # type: ignore[assignment]
+        return out  # type: ignore[return-value]

@@ -30,6 +30,12 @@ the CPU's pixels with 0 differing values, dequant_idct_blocks launched 3
 or 4 times per JPEG decode and not at all for the others, and a JPEG's
 frame is within the kernel bound of its plain route (2-image stack).
 
+The still serving pipeline's device step (no kernel) on the card equals
+its CPU step within the step gate (coefficients) or the kernel gate
+(pixels), and MultiGeometryPipeline on the card gives each group the bytes
+of its per-signature pipeline, launching each layout's kernel once per
+group.
+
 The GIF path (no kernel: torch ops) on the card equals the CPU port: the
 quantizer's indices and cache tables across a palette change (argmin
 ties included), the whole-animation quantizer and composite over an
@@ -633,3 +639,142 @@ def test_gif_transform_on_card_equals_cpu(fmt):
                                                   encode_timeout=300.0))
             for dev in ("cuda", "cpu")]
     assert outs[0] == outs[1]
+
+
+def _still_sources(n, w=160, h=120):
+    """n distinct PNGs of each channel count (RGB8, RGBA8, gray8) and a
+    GIF, made from the fixture by the port and the numpy builders."""
+    from _torch_gif_builders import pan_gif
+    from _torch_still_builders import png_bytes
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    with open(FIXTURE, "rb") as f:
+        fb = Framebuffer()
+        new_decoder(f.read(), device="cpu").decode_to(fb)
+    rgb = np.ascontiguousarray(fb.fit(w + 40, h + 30).to_numpy()[..., ::-1])
+    ramp = (np.arange(w) * 255 // (w - 1)).astype(np.uint8)
+    out = {"png_rgb8": [], "png_rgba8": [], "png_gray8": []}
+    for i in range(n):
+        px = np.roll(rgb, 13 * i, axis=1)[:h, :w]
+        alpha = np.broadcast_to(np.roll(ramp, 7 * i)[None, :, None],
+                                (h, w, 1))
+        out["png_rgb8"].append(png_bytes(px, 2))
+        out["png_rgba8"].append(png_bytes(np.concatenate([px, alpha], -1),
+                                          6))
+        out["png_gray8"].append(png_bytes(px[..., 1:2], 0))
+    out["gif"] = [pan_gif(rgb, w, h, 3, start=i) for i in range(n)]
+    return out
+
+
+def _coef_gate(got, ref):
+    mx, nd, n = _diff([torch.from_numpy(np.asarray(g)) for g in got],
+                      [torch.from_numpy(np.asarray(r)) for r in ref])
+    assert mx <= 1 and nd <= 1e-3 * n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [".jpeg", ".png"])
+@pytest.mark.parametrize("kind", ["png_rgb8", "png_rgba8", "png_gray8",
+                                  "gif"])
+def test_still_device_step_on_card_matches_cpu(kind, fmt):
+    """StillTranscodePipeline's device step on the card (no kernel: torch
+    ops) against its CPU step on the same pixel batch: coefficients within
+    the step gate, pixels within the kernel gate; the .png bytes and the
+    transcode_pipelined bytes those of transcode."""
+    _need_card()
+    from lilliput_tpu_torch import StillTranscodePipeline
+    bufs = _still_sources(3)[kind]
+    gpu = StillTranscodePipeline(bufs[0], 64, 48, output_format=fmt)
+    cpu = StillTranscodePipeline(bufs[0], 64, 48, output_format=fmt,
+                                 device="cpu")
+    (px,), _ = gpu._host_decode(bufs)
+    before = dict(DK.launches)
+    step = [t.cpu().numpy() for t in gpu.device_step(px)]
+    assert DK.launches == before
+    ref = [t.numpy() for t in cpu.device_step(px)]
+    if fmt == ".jpeg":
+        _coef_gate(step, ref)
+    else:
+        mx, nd, n = _diff([torch.from_numpy(step[0].view(np.uint8))],
+                          [torch.from_numpy(ref[0].view(np.uint8))])
+        assert mx <= 1 and nd <= 1e-4 * n
+    out = gpu.transcode(bufs)
+    assert gpu.transcode_pipelined([bufs, bufs[::-1]]) == [out, out[::-1]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["area", "linear", "cubic"])
+def test_still_tail_on_card_matches_cpu(method):
+    """_fused_still_fit_impl on the card, EXIF orientation 6, 1, 3 and 4
+    channels: the CPU's coefficients within the step gate, its pixels
+    within the kernel gate."""
+    _need_card()
+    from lilliput_tpu_torch import pipeline as TP
+    ql, qc = (torch.from_numpy(q.astype(np.float32))
+              for q in scaled_qtables(85))
+    for c in (1, 3, 4):
+        px = torch.from_numpy(np.random.default_rng(c).integers(
+            0, 256, (3, 131, 97, c), np.uint8))
+        for emit in ("coefs", "pixels"):
+            got = TP._fused_still_fit_impl(px.cuda(), ql.cuda(), qc.cuda(),
+                                           97, 131, 40, 30, method=method,
+                                           orientation=6, emit=emit)
+            ref = TP._fused_still_fit_impl(px, ql, qc, 97, 131, 40, 30,
+                                           method=method, orientation=6,
+                                           emit=emit)
+            if emit == "coefs":
+                _coef_gate([g.cpu() for g in got], ref)
+            else:
+                mx, nd, n = _diff(
+                    [(got[0].cpu() >> s) & 255 for s in (0, 8, 16, 24)],
+                    [(ref[0] >> s) & 255 for s in (0, 8, 16, 24)])
+                assert mx <= 1 and nd <= 1e-4 * n
+
+
+@pytest.mark.gpu
+def test_multigeometry_on_card_equals_per_signature_pipelines():
+    """A small mix (4:2:0, 4:2:2, 4:4:4, grayscale oriented, PNG RGB8,
+    RGBA8 and gray8, GIF, a truncated scan and a RIFF/WEBP header) through
+    MultiGeometryPipeline on the card: each group's bytes those of its
+    per-signature pipeline on the card, in input order; the layouts'
+    kernels launched once per group; the .jpeg coefficients within the
+    step gate of the CPU front's."""
+    _need_card()
+    import chip_smoke
+    from lilliput_tpu_torch import (JpegTranscodePipeline,
+                                    MultiGeometryPipeline,
+                                    StillTranscodePipeline)
+    srcs = {sub: _fixture(sub) for sub in ("420", "422", "444", "gray_o6")}
+    jpegs = {}
+    for sub, path in srcs.items():
+        with open(path, "rb") as f:
+            jpegs[sub] = f.read()
+    stills = _still_sources(2)
+    items = [(sub, jpegs[sub]) for sub in jpegs for _ in range(2)]
+    items += [(k, b) for k, bs in stills.items() for b in bs]
+    webp = b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8)
+    items += [("broken", jpegs["420"][:len(jpegs["420"]) // 2]),
+              ("broken", webp)]
+    order = np.random.default_rng(5).permutation(len(items))
+    labels = [items[i][0] for i in order]
+    bufs = [items[i][1] for i in order]
+    mg = MultiGeometryPipeline(96, 96)
+    DK.reset_launches()
+    got = mg.transcode(bufs, return_exceptions=True)
+    assert dict(DK.launches) == {
+        "decode420": 1, "decode422": 1, "decode440": 0, "decode444": 1,
+        "dequant_idct_blocks": 1}
+    assert [isinstance(g, Exception) for g in got] == [
+        k == "broken" for k in labels]
+    assert "item 6.2" in str(got[bufs.index(webp)])
+    cpu = MultiGeometryPipeline(96, 96, device="cpu").transcode(
+        bufs, return_exceptions=True)
+    for label in set(labels) - {"broken"}:
+        idx = [i for i, k in enumerate(labels) if k == label]
+        members = [bufs[i] for i in idx]
+        cls = (JpegTranscodePipeline if label in jpegs
+               else StillTranscodePipeline)
+        assert cls(members[0], 96, 96).transcode(members) == [
+            got[i] for i in idx], label
+        for i in idx:
+            _coef_gate(chip_smoke.jpeg_coefs(got[i]),
+                       chip_smoke.jpeg_coefs(cpu[i]))
