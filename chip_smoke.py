@@ -1413,13 +1413,12 @@ def phase8(card):
 #: phase 9's mix, all to DST x DST Fit .jpeg q85: source -> requests.
 #: JPEG sources are the committed fixtures (the 720p one the port's own
 #: 1280x720 stretch of bench_1080p.jpg), the PNGs png_inputs() of the
-#: 1080p fixtures' pixels, the GIF gif_inputs()'s 1080p one; MIX_BROKEN
+#: 1080p fixtures' pixels, the GIF gif_inputs()'s 1080p one; mix_inputs()
 #: adds a truncated 4:2:0 scan, a truncated PNG RGB8 and a RIFF/WEBP
 #: header. Shuffled with MIX_SEED.
 MIX = {"420": 64, "422": 16, "440": 16, "444": 16, "gray_o6": 16, "gray": 8,
        "o6": 8, "420_720p": 16, "png_rgb8": 16, "png_rgba8": 8,
        "png_gray8": 4, "gif": 2}
-MIX_BROKEN = True
 MIX_SEED = 14
 #: the kernel launches of one transcode of the mix: one per JPEG group of
 #: each layout (4:2:0 at 1080p, 1080p o6 and 720p), dequant_idct_blocks'
@@ -1462,14 +1461,13 @@ def mix_inputs():
     sources.update(png_inputs(bgr, fixture_pixels("bench_1080p_gray.jpg")))
     rgb = np.ascontiguousarray(bgr[..., ::-1])
     sources["gif"] = pan_gif(rgb, rgb.shape[1], rgb.shape[0], 4, codec=True)
+    jpeg, png = sources["420"], sources["png_rgb8"]
+    sources["broken_jpeg"] = jpeg[:len(jpeg) // 2]   # scan cut
+    sources["broken_png"] = png[:len(png) // 2]
+    sources["broken_webp"] = b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8)
     items = [(name, name) for name, n in MIX.items() for _ in range(n)]
-    if MIX_BROKEN:
-        jpeg, png = sources["420"], sources["png_rgb8"]
-        sources["broken_jpeg"] = jpeg[:len(jpeg) // 2]   # scan cut
-        sources["broken_png"] = png[:len(png) // 2]
-        sources["broken_webp"] = b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8)
-        items += [("broken_jpeg", "420"), ("broken_png", "png_rgb8"),
-                  ("broken_webp", None)]
+    items += [("broken_jpeg", "420"), ("broken_png", "png_rgb8"),
+              ("broken_webp", None)]
     order = np.random.default_rng(MIX_SEED).permutation(len(items))
     items = [items[i] for i in order]
     labels = [k for k, _ in items]
@@ -1669,32 +1667,28 @@ def phase9(card, kernels):
           f"{reps!r} s, {n_ok * 3 / sum(reps)!r} images/s (mean of 3); "
           f"busy share {share!r}; peak device memory "
           f"{peak / 2**20!r} MiB [{card}]", flush=True)
-    mix_group_times(mg, labels, bufs, groups, card)
+    mix_group_times(mg, bufs, groups, card)
     first_request_latency(sources, card)
     still_batch_times(sources, card)
 
 
-def mix_group_times(mg, labels, bufs, groups, card):
-    """Each signature group of the mix through its pipeline in mg: host
-    decode (host clock), device_step (CUDA events, mean of 3) and the host
-    encode (host clock), ms per group."""
-    from lilliput_tpu_torch.utils import metrics
-    by_group = _mix_groups(groups)
-    for g, idx in by_group.items():
-        members = [bufs[i] for i in idx]
-        pipe = mg._pipe_for(members[0])
-        t0 = time.perf_counter()
-        args, iccs = pipe._host_decode(members, {})
-        decode_ms = 1e3 * (time.perf_counter() - t0)
-        step_ms = cuda_ms(lambda: pipe.device_step(*args), 3)
-        arrs = pipe._to_host(pipe._fetch(pipe.device_step(*args)))
-        t0 = time.perf_counter()
-        pipe._encode_outputs(arrs, iccs)
-        encode_ms = 1e3 * (time.perf_counter() - t0)
-        print(f"phase 9: group {g} x{len(idx)}: host decode {decode_ms!r} "
-              f"ms, device_step {step_ms!r} ms, encode {encode_ms!r} ms "
+def mix_group_times(mg, bufs, groups, card, reps: int = 5):
+    """Each signature group's stages in mg.transcode of the mix, with its
+    stage clock on (stage_times): host decode and encode (host clock) and
+    device_step (CUDA events), ms per group, the mean of reps calls and
+    each call's."""
+    times = {}
+    for _ in range(reps):
+        mg.transcode(bufs, return_exceptions=True, stage_times=times)
+    check(len(times) == len(_mix_groups(groups)) and all(
+        sorted(t) == ["device_step", "encode", "host_decode"]
+        and all(len(v) == reps for v in t.values())
+        for t in times.values()), f"stage_times recorded {times}")
+    for idx, t in times.items():
+        stages = ", ".join(f"{k} {sum(t[k]) / reps!r} ms (calls {t[k]!r})"
+                           for k in ("host_decode", "device_step", "encode"))
+        print(f"phase 9: group {groups[idx[0]]} x{len(idx)}: {stages} "
               f"[{card}]", flush=True)
-    metrics.reset()
 
 
 def first_request_latency(sources, card):

@@ -160,11 +160,14 @@ def mcu_decode_window(src_w: int, src_h: int, dst_w: int, dst_h: int,
             slice(cby0, cby1), slice(cbx0, cbx1))
 
 
-def _normalize_output_format(output_format: str) -> str:
-    """The serving fronts' output-format check: ".jpg" is ".jpeg"."""
+def _normalize_output_format(output_format: str,
+                             allow_gif: bool = False) -> str:
+    """The serving fronts' output-format check: ".jpg" is ".jpeg";
+    allow_gif admits ".gif" (the mixed front's animated-only output)."""
     fmt = {".jpg": ".jpeg"}.get(output_format, output_format)
-    if fmt not in (".jpeg", ".webp", ".png"):
-        raise ValueError("output_format must be .jpeg, .webp or .png")
+    allowed = (".jpeg", ".webp", ".png") + ((".gif",) if allow_gif else ())
+    if fmt not in allowed:
+        raise ValueError(f"output_format must be one of {allowed}")
     return fmt
 
 
@@ -682,20 +685,29 @@ class _ServingPipelineBase:
         return fetch.arrays
 
     def transcode(self, bufs: Sequence[bytes],
-                  return_exceptions: bool = False) -> List[bytes]:
+                  return_exceptions: bool = False,
+                  stage_times: Optional[Dict[str, List[float]]] = None
+                  ) -> List[bytes]:
         """Transcode a batch. Per-item decode failures are ISOLATED: a
         corrupt buffer cannot fail its healthy co-batched requests (its
         lane is zero-filled through the device step and its output
         discarded). With return_exceptions=True the failing items' slots
         hold the exception objects; with the default False the first
-        failure re-raises after healthy items finish."""
+        failure re-raises after healthy items finish.
+
+        stage_times, when a dict, gets the ms of "host_decode",
+        "device_step" (CUDA events on a CUDA device, waited for) and
+        "encode" appended under their names (see _StageClock)."""
         from .utils import StageTimer, metrics
         errors: Dict[int, Exception] = {}
-        with StageTimer("entropy_decode"):
+        clock = _StageClock(stage_times, self.device)
+        with StageTimer("entropy_decode"), clock("host_decode"):
             args, iccs = self._host_decode(bufs, errors)
         with StageTimer("device"):
-            arrs = self._to_host(self._fetch(self.device_step(*args)))
-        with StageTimer("encode"):
+            with clock("device_step", device=True):
+                dev = self.device_step(*args)
+            arrs = self._to_host(self._fetch(dev))
+        with StageTimer("encode"), clock("encode"):
             out = self._encode_outputs(arrs, iccs)
         metrics.incr("images_transcoded", len(bufs) - len(errors))
         return self._resolve_errors(out, errors, return_exceptions)
@@ -1579,14 +1591,17 @@ class AnimatedTranscodePipeline:
             "animated transcode supports GIF/WebP/AVIF sources")
 
     def transcode(self, bufs: Sequence[bytes],
-                  return_exceptions: bool = False) -> List[bytes]:
+                  return_exceptions: bool = False,
+                  stage_times: Optional[Dict[str, List[float]]] = None
+                  ) -> List[bytes]:
         """Transcode a mixed batch. Per-item failures are isolated: a
         malformed animation grouped into a cross-animation batch cannot
         fail its healthy co-batched requests, since a failed group falls
         back to per-item transcode, where errors attach to their own
         index. With return_exceptions=True the failing items' slots hold
         the exception objects; with the default False the first failure
-        re-raises after the healthy items finish."""
+        re-raises after the healthy items finish. stage_times goes to
+        transcode_gif_batch (the per-item path is not timed)."""
         from . import api as A
         out: List[Optional[bytes]] = [None] * len(bufs)
         errors: Dict[int, Exception] = {}
@@ -1598,7 +1613,8 @@ class AnimatedTranscodePipeline:
                     res = transcode_gif_batch(
                         [bufs[i] for i in members], self.dst_w, self.dst_h,
                         fit=self.fit, file_type=self.output_format,
-                        workers=self.workers, device=self.device)
+                        workers=self.workers, device=self.device,
+                        stage_times=stage_times)
                 except Exception:
                     # one hostile member poisoned the group: the per-item
                     # path below isolates the failure to its own index
@@ -1670,9 +1686,8 @@ class MultiGeometryPipeline:
         self.dct_scale = dct_scale
         # fail at construction, not on the first request; ".gif" is the
         # animated-only output (GIF sources, reference giflib.go parity)
-        fmt = {".jpg": ".jpeg"}.get(output_format, output_format)
-        self.output_format = (fmt if fmt == ".gif"
-                              else _normalize_output_format(output_format))
+        self.output_format = _normalize_output_format(output_format,
+                                                      allow_gif=True)
         self.encode_options = dict(encode_options or {})
         self._anim_pipe: Optional[AnimatedTranscodePipeline] = None
         # signature key -> serving pipeline, in LRU order; JPEG keys are
@@ -1817,7 +1832,9 @@ class MultiGeometryPipeline:
                 "seconds": round(time.time() - t0, 3)}
 
     def transcode(self, bufs: Sequence[bytes],
-                  return_exceptions: bool = False) -> List[bytes]:
+                  return_exceptions: bool = False,
+                  stage_times: Optional[Dict[tuple, Dict[str, List[float]]]]
+                  = None) -> List[bytes]:
         """Group by signature, batch each group, restore the input order.
 
         Per-item failures are isolated end to end: a buffer that fails
@@ -1826,7 +1843,11 @@ class MultiGeometryPipeline:
         its group (every group runs with return_exceptions=True) affects
         only its own slot. With return_exceptions=True the failing slots
         hold the exceptions; with the default False the first failure
-        re-raises after every healthy item finished."""
+        re-raises after every healthy item finished.
+
+        stage_times, when a dict, maps each group's request indices (a
+        tuple, in input order) to the stage times its pipeline's
+        transcode recorded (stage_times= of the pipelines)."""
         from .utils import metrics
         groups: Dict[int, tuple] = {}
         errors: Dict[int, Exception] = {}
@@ -1841,8 +1862,11 @@ class MultiGeometryPipeline:
             groups.setdefault(id(pipe), (pipe, []))[1].append(i)
         out: List[Optional[bytes]] = [None] * len(bufs)
         for pipe, idxs in groups.values():
+            times = (None if stage_times is None
+                     else stage_times.setdefault(tuple(idxs), {}))
             results = pipe.transcode([bufs[i] for i in idxs],
-                                     return_exceptions=True)
+                                     return_exceptions=True,
+                                     stage_times=times)
             for i, r in zip(idxs, results):
                 if isinstance(r, Exception):
                     errors[i] = r

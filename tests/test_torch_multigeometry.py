@@ -262,6 +262,41 @@ def test_warm_counts_and_signatures_equal_jax():
         tm.warm([("bmp", 16, 16)])
 
 
+@pytest.mark.parametrize("w,h,quality", [(320, 200, 85), (97, 61, 85),
+                                         (1, 1, 85), (33, 47, 30)])
+@pytest.mark.parametrize("layout", ["420", "422", "440", "444", "gray"])
+def test_synthetic_jpeg_bytes_equal_jax(layout, w, h, quality):
+    """warm()'s zero-coefficient JPEG: the port's baseline encoder writes
+    the JAX package's libjpeg bytes for every layout, odd sizes and 1x1."""
+    from lilliput_tpu.codecs import jpeg as JJ
+    from lilliput_tpu_torch.codecs import jpeg as TJ
+    kw = (dict(subsampling="420", gray=True) if layout == "gray"
+          else dict(subsampling=layout))
+    got = TJ.synthetic_jpeg(w, h, quality=quality, **kw)
+    assert got == JJ.synthetic_jpeg(w, h, quality=quality, **kw)
+    img = Image.open(io.BytesIO(got))
+    assert img.size == (w, h) and img.mode == ("L" if layout == "gray"
+                                               else "RGB")
+
+
+def test_stage_times_record_every_group():
+    """transcode(stage_times=) of the mixed front: each group's pipeline
+    records its stages under the group's request indices, and the bytes
+    are those of an untimed call."""
+    bufs = [layout_jpeg(96, 64, 85, 1, "420"), _png(60, 40, 3, 2),
+            layout_jpeg(96, 64, 85, 3, "420"), gray_jpeg(64, 48, 85, 4),
+            b"not an image"]
+    _, tm = _pair((32, 32))
+    want = tm.transcode(bufs, return_exceptions=True)
+    times = {}
+    got = tm.transcode(bufs, return_exceptions=True, stage_times=times)
+    assert got[:4] == want[:4] and isinstance(got[4], Exception)
+    assert sorted(times) == [(0, 2), (1,), (3,)]
+    for t in times.values():
+        assert sorted(t) == ["device_step", "encode", "host_decode"]
+        assert all(len(v) == 1 and v[0] >= 0 for v in t.values())
+
+
 def test_warm_runs_every_animation_lane_bucket(monkeypatch):
     gif = _gif(40, 30, 5)
     jm, tm = _pair((24, 24), output_format=".gif")
@@ -291,6 +326,12 @@ def test_gif_output_routes_animations():
     assert isinstance(tm._anim_pipe, TP.AnimatedTranscodePipeline)
     assert tm._anim_pipe.device == torch.device("cpu")
     assert not tm._pipes
+    # the animated group's stage clock is transcode_gif_batch's
+    times = {}
+    timed = tm.transcode(bufs, return_exceptions=True, stage_times=times)
+    assert [t for t in timed if isinstance(t, bytes)] == [
+        g for g in got if isinstance(g, bytes)]
+    assert list(times) == [(0, 2, 3)] and "lzw_decode" in times[(0, 2, 3)]
 
 
 def test_webp_output_fails_per_request():
