@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; builds the host library (g++: Huffman decode and
-encode, PNG row filters, the GIF container and LZW) and the kernels (nvcc, sm_90a; one nvcc per
+encode, PNG row filters, the GIF container and LZW, JPEG 2000 Tier-1)
+and the kernels (nvcc, sm_90a; one nvcc per
 source, all at once) from the sources in this checkout, then drives
 fourteen serving paths, each JpegTranscodePipeline(fixture -> 256x256 Fit
 JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
@@ -38,7 +39,8 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
                       (u8), gray pixels, 1-channel PNG;
 
 then the single-image surface (the still phase), the overlap check of
-transcode_pipelined, the still formats, GIF and the mixed serving front.
+transcode_pipelined, the still formats, GIF, the mixed serving front and
+JPEG 2000.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -139,7 +141,21 @@ transcode_pipelined, the still formats, GIF and the mixed serving front.
    memory, a new geometry's first request cold and warmed, and
    StillTranscodePipeline over 128 1080p PNG RGB8 (host decode per image
    on the decode threads, with torch's intra-op threads and with one; H2D,
-   device_step, transcode_pipelined images/s).
+   device_step, transcode_pipelined images/s);
+10. JPEG 2000 (no kernel: Tier-2 and Tier-1 on the host, the wavelet,
+   colour transforms and decode tail as torch ops): jp2_inputs(), seven
+   1080p streams the port's encoder writes on the card (lossless RGB,
+   9/7 at JPEG2000_RATE 10000, gray, RGBA, 9/7 in 256x256 tiles, sYCC,
+   truncated), with every launch count 0 just before the phase and read
+   just after (none may launch): decode_to on the card equal to the CPU
+   port with 0 differing values, ImageOps.transform to .jpeg, .png and
+   .jp2 equal to the CPU port's (.jpeg: coefficients under the step
+   gate), the .jp2 encode of the card's frames equal to the CPU's, one
+   CLI run, StillTranscodePipeline over 16 requests of 4 lossless images
+   equal to the CPU front, MultiGeometryPipeline failing the truncated
+   slot alone; decode ms on the card and the CPU split into host Tier-2
+   + Tier-1 and the device tail, device events per decode, encode ms,
+   the still front's images/s.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -642,9 +658,9 @@ def bound(inputs, outputs, blocks):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def busy_share(fn) -> float:
-    """Device busy share of fn() under torch.profiler: the union of the
-    device-side events' intervals over the host clock's window."""
+def device_spans(fn):
+    """(sorted (start, end) of every device-side event, host wall us) of
+    fn() under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -654,9 +670,15 @@ def busy_share(fn) -> float:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA), wall_us
+
+
+def busy_share(fn) -> float:
+    """Device busy share of fn() under torch.profiler: the union of the
+    device-side events' intervals over the host clock's window."""
+    spans, wall_us = device_spans(fn)
     check(bool(spans), "torch.profiler recorded no device events")
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -1266,7 +1288,7 @@ def gif_stage_times(anims, card, reps: int = 3):
     """transcode_gif_batch of `anims` called directly `reps` times with
     its stage clock on (stage_times): each stage's ms per group, the mean
     over the reps (CUDA events around device stages, the host clock
-    around host ones; see pipeline._StageClock). Returns the bytes of the
+    around host ones; see utils.StageClock). Returns the bytes of the
     last call for the caller to check."""
     from lilliput_tpu_torch import pipeline as TP
     times = {}
@@ -1764,6 +1786,258 @@ def still_batch_times(sources, card):
           f"{ips!r} images/s [{card}]", flush=True)
 
 
+#: phase 10's JPEG 2000 inputs: the 9/7 tile, the Jp2Encoder ratio, and
+#: the still front's requests (JP2_STILL of JP2_DISTINCT lossless images)
+JP2_TILE = (256, 256)
+JP2_RATE = 10000
+JP2_STILL, JP2_DISTINCT = 16, 4
+#: the inputs whose decode phase 10 times (mean of 3) on the card and CPU
+JP2_TIMED = ("lossless", "rate10", "tiled_97")
+
+
+def jp2_inputs():
+    """Phase 10's inputs, name -> bytes, 1080p from bench_1080p.jpg's
+    pixels (bench_1080p_gray.jpg's for gray), written by the port's own
+    encoder on DEVICE (the card's machine has no PIL or OpenJPEG):
+    lossless 5/3 RGB; 9/7 RGB through Jp2Encoder with JPEG2000_RATE
+    JP2_RATE; 5/3 gray; 5/3 RGBA (alpha_ramp); 9/7 in JP2_TILE tiles; the
+    lossless stream with its colr box patched to sYCC (enumcs 18, as
+    tests/test_jp2.py patches it); the lossless stream cut in half. Also
+    returns the three more lossless RGB images of the still front (the
+    pixels mirrored, flipped, and the 4:4:4 fixture's)."""
+    import struct
+    import torch
+    from lilliput_tpu_torch import Framebuffer, JPEG2000_RATE, new_encoder
+    from lilliput_tpu_torch.codecs.jp2_enc import encode_jp2
+    bgr = fixture_pixels("bench_1080p.jpg")
+    gray = fixture_pixels("bench_1080p_gray.jpg")
+    rgb = torch.from_numpy(np.ascontiguousarray(bgr[..., ::-1])).to(DEVICE)
+    alpha = torch.from_numpy(np.ascontiguousarray(
+        alpha_ramp(*bgr.shape[:2]))).to(DEVICE)
+    out = {"lossless": encode_jp2(rgb),
+           "rate10": new_encoder(".jp2").encode(
+               Framebuffer.from_array(bgr, device=DEVICE),
+               {JPEG2000_RATE: JP2_RATE}),
+           "gray": encode_jp2(torch.from_numpy(
+               np.ascontiguousarray(gray[..., 0])).to(DEVICE)),
+           "rgba": encode_jp2(torch.cat([rgb, alpha], -1)),
+           "tiled_97": encode_jp2(rgb, reversible=False, tile=JP2_TILE)}
+    sycc = bytearray(out["lossless"])
+    i = bytes(sycc).find(b"colr")
+    sycc[i + 7:i + 11] = struct.pack(">I", 18)
+    out["sycc"] = bytes(sycc)
+    out["truncated"] = out["lossless"][:len(out["lossless"]) // 2]
+    b444 = fixture_pixels("bench_1080p_444.jpg")
+    more = [encode_jp2(rgb.flip(1)), encode_jp2(rgb.flip(0)),
+            encode_jp2(torch.from_numpy(np.ascontiguousarray(
+                b444[..., ::-1])).to(DEVICE))]
+    return out, more
+
+
+def _jp2_decode(buf, device, times=None):
+    from lilliput_tpu_torch import Framebuffer
+    from lilliput_tpu_torch.codecs.jp2 import Jp2Decoder
+    fb = Framebuffer()
+    Jp2Decoder(buf, device=device, stage_times=times).decode_to(fb)
+    return fb
+
+
+def phase10(card):
+    """JPEG 2000 (no kernel: Tier-2 in Python and Tier-1 in C++ on the
+    host, the dequantization, wavelet, colour transforms and decode tail
+    as torch ops on the device), with every launch count 0 just before the
+    phase and read just after (none may launch). Gates, on jp2_inputs():
+    decode_to on the card equals device="cpu" with 0 differing values on
+    every input (9/7 and sYCC included) and the truncated one fails alike;
+    ImageOps.transform to .jpeg, .png and .jp2 (Fit 256x256) equals the
+    CPU port's bytes (.jpeg: coefficients under the step gate); the .jp2
+    encode of the card's 1080p frame equals the CPU's bytes and decodes
+    back to it; one CLI run of the lossless input to .jpg on the card
+    equals -device cpu's bytes; StillTranscodePipeline(256, 256) over
+    JP2_STILL requests of JP2_DISTINCT lossless images equals the CPU
+    front; MultiGeometryPipeline(256, 256) over the healthy inputs and
+    the truncated one fails that slot alone, every other output equal to
+    its per-signature pipeline's. Prints ms per image of decode on the
+    card and on the CPU (mean of 3) split into the host's Tier-2 + Tier-1
+    and the device tail (CUDA events), the tiled input's device events
+    (device_spans), ms of the .jp2 encodes and the still front's
+    images/s."""
+    import torch
+    from lilliput_tpu_torch import (Framebuffer, MultiGeometryPipeline,
+                                    StillTranscodePipeline, new_decoder,
+                                    new_encoder)
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    t_phase = time.perf_counter()
+    DK.reset_launches()
+    t0 = time.perf_counter()
+    inputs, more = jp2_inputs()
+    print(f"phase 10: {len(inputs)} inputs and {len(more)} more lossless "
+          f"images written on {DEVICE} in {time.perf_counter() - t0:.1f}s: "
+          f"{ {k: len(v) for k, v in inputs.items()} } bytes", flush=True)
+    healthy = [k for k in inputs if k != "truncated"]
+
+    # decode_to: the card against the CPU, 0 differing values
+    frames = {}
+    for name in healthy:
+        fb, cpu = (_jp2_decode(inputs[name], d) for d in (DEVICE, "cpu"))
+        mx, nd, nv = diff_stats([fb.array], [cpu.array.to(DEVICE)])
+        print(f"phase 10: {name} {fb.width}x{fb.height}x{fb.channels} "
+              f"decode vs CPU: max_abs_diff={mx} differing={nd}/{nv}",
+              flush=True)
+        check(fb.array.device.type == torch.device(DEVICE).type
+              and fb.array.shape == cpu.array.shape and nd == 0,
+              f"jp2 {name}: the card's decode differs from the CPU's")
+        frames[name] = fb
+    errs = []
+    for dev in (DEVICE, "cpu"):
+        try:
+            _jp2_decode(inputs["truncated"], dev)
+            errs.append(None)
+        except Exception as e:  # noqa: BLE001 -- compared below
+            errs.append(type(e).__name__)
+    check(errs[0] == errs[1] == "DecodingFailedError",
+          f"the truncated JP2 raised {errs}")
+
+    # ImageOps.transform: .png and .jp2 bytes equal, .jpeg coefficients
+    for name in healthy:
+        for fmt in (".jpeg", ".png", ".jp2"):
+            got, ref = (_still_output(inputs[name], d, fmt)
+                        for d in (DEVICE, "cpu"))
+            if fmt == ".jpeg":
+                _gate(f"jp2 {name} .jpeg coefficients vs CPU",
+                      [torch.from_numpy(c) for c in jpeg_coefs(got)],
+                      [torch.from_numpy(c) for c in jpeg_coefs(ref)],
+                      (STEP_MAX_DIFF, STEP_MAX_SHARE), "coefficients", 10)
+            else:
+                check(got == ref, f"jp2 {name} {fmt} bytes differ from the "
+                      "CPU port's")
+    print(f"phase 10: ImageOps.transform of {len(healthy)} inputs to .jpeg, "
+          f".png and .jp2 on {DEVICE}: .png and .jp2 bytes equal the CPU "
+          f"port's", flush=True)
+
+    # the .jp2 encode of the card's 1080p frame
+    enc_ms = {}
+    for name, opts in (("lossless", {}), ("rate10", {1000: JP2_RATE})):
+        fb = frames[name]
+        cpu_fb = Framebuffer.from_array(fb.to_numpy(), device="cpu")
+        t0 = time.perf_counter()
+        got = new_encoder(".jp2").encode(fb, opts)
+        enc_ms[name] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = new_encoder(".jp2").encode(cpu_fb, opts)
+        enc_ms[name + "_cpu"] = 1e3 * (time.perf_counter() - t0)
+        check(got == ref, f"jp2 .jp2 encode of the card's {name} frame "
+              "differs from the CPU's")
+        if name == "lossless":
+            back = _jp2_decode(got, DEVICE)
+            check(torch.equal(back.array, fb.array), "the card's lossless "
+                  ".jp2 does not decode back to its frame")
+    print(f"phase 10: .jp2 encode of the 1080p frames: bytes equal the "
+          f"CPU's, lossless decodes back; ms {enc_ms!r} [{card}]",
+          flush=True)
+
+    # the CLI, lossless -> .jpg
+    import tempfile
+    from lilliput_tpu_torch import cli
+    outs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase10_") as d:
+        src = os.path.join(d, "in.jp2")
+        with open(src, "wb") as f:
+            f.write(inputs["lossless"])
+        for dev in (DEVICE, "cpu"):
+            dst = os.path.join(d, f"out_{dev}.jpg")
+            rc = cli.main(["-input", src, "-output", dst, "-width",
+                           str(DST), "-height", str(DST), "-device", dev])
+            check(rc == 0, f"the CLI on {dev} exited {rc}")
+            with open(dst, "rb") as f:
+                outs[dev] = f.read()
+    check(outs[DEVICE] == outs["cpu"], "the CLI's .jpg of a JP2 on the card "
+          "differs from -device cpu's")
+    print(f"phase 10: CLI jp2 -> jpg on {DEVICE} and cpu: "
+          f"{len(outs[DEVICE])} bytes, equal", flush=True)
+
+    # the still front: JP2_STILL requests of JP2_DISTINCT lossless images
+    distinct = [inputs["lossless"]] + more
+    bufs = [distinct[i % JP2_DISTINCT] for i in range(JP2_STILL)]
+    pipe = StillTranscodePipeline(bufs[0], DST, DST, quality=85,
+                                  device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.transcode(bufs)
+    torch.cuda.synchronize()
+    ips = JP2_STILL / (time.perf_counter() - t0)
+    cpu_res = StillTranscodePipeline(bufs[0], DST, DST, quality=85,
+                                     device="cpu").transcode(bufs)
+    worst = (0, 0, 0)
+    for o, c in zip(res, cpu_res):
+        mx, nd, n = diff_stats([torch.from_numpy(a) for a in jpeg_coefs(o)],
+                               [torch.from_numpy(a) for a in jpeg_coefs(c)])
+        check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+              "the JP2 still front on the card differs from the CPU's")
+        worst = max(worst, (mx, nd, n))
+    print(f"phase 10: StillTranscodePipeline {JP2_STILL}x of {JP2_DISTINCT} "
+          f"1080p lossless JP2: {ips!r} images/s; .jpeg coefficients vs the "
+          f"CPU front worst max_abs_diff={worst[0]} differing="
+          f"{worst[1]}/{worst[2]}, bytes equal in "
+          f"{sum(a == b for a, b in zip(res, cpu_res))} of {JP2_STILL} "
+          f"[{card}]", flush=True)
+
+    # the mixed front: the healthy inputs and the truncated one; each
+    # signature group against its pipeline on the same members
+    names = healthy + ["truncated"]
+    mix = [inputs[k] for k in names]
+    outs = MultiGeometryPipeline(DST, DST, quality=85, device=DEVICE
+                                 ).transcode(mix, return_exceptions=True)
+    failed = [names[i] for i, o in enumerate(outs)
+              if not isinstance(o, bytes)]
+    check(failed == ["truncated"], f"the JP2 mix failed {failed}")
+    groups = {}
+    for i, buf in enumerate(mix):
+        h = new_decoder(buf, device="cpu").header()
+        groups.setdefault((h.width, h.height, h.channels), []).append(i)
+    for idx in groups.values():
+        solo = StillTranscodePipeline(mix[idx[0]], DST, DST, quality=85,
+                                      device=DEVICE).transcode(
+            [mix[i] for i in idx], return_exceptions=True)
+        for i, o in zip(idx, solo):
+            if names[i] != "truncated":
+                check(o == outs[i], f"jp2 {names[i]}: the mixed front "
+                      "differs from its per-signature pipeline")
+    print(f"phase 10: MultiGeometryPipeline over {len(mix)} JP2 requests "
+          f"({len(groups)} signatures): only the truncated slot failed "
+          f"({type(outs[-1]).__name__}); the others equal their "
+          f"per-signature pipelines", flush=True)
+
+    # times: decode on the card and the CPU, split host / device tail
+    for name in JP2_TIMED:
+        for dev in (DEVICE, "cpu"):
+            times = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                _jp2_decode(inputs[name], dev, times)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / 3
+            split = {k: sum(v) / len(v) for k, v in times.items()}
+            tail = split["device_synthesis"] + split["device_convert"]
+            print(f"phase 10: {name} decode_to on {dev}: {ms!r} ms per "
+                  f"image (mean of 3); host Tier-2 + Tier-1 "
+                  f"{split['host_tier2_tier1']!r} ms, device tail "
+                  f"{tail!r} ms (synthesis {split['device_synthesis']!r}, "
+                  f"conversions {split['device_convert']!r}) [{card}]",
+                  flush=True)
+    n_ev = len(device_spans(
+        lambda: _jp2_decode(inputs["tiled_97"], DEVICE))[0])
+    n_one = len(device_spans(
+        lambda: _jp2_decode(inputs["rate10"], DEVICE))[0])
+    print(f"phase 10: device events of one decode_to: tiled_97 ({JP2_TILE} "
+          f"tiles) {n_ev}, rate10 (one tile) {n_one}", flush=True)
+    launched = {k: v for k, v in DK.launches.items() if v}
+    check(not launched, f"phase 10 launched {launched}")
+    print(f"phase 10: no kernel launched; phase took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -1827,6 +2101,7 @@ def main() -> int:
     phase7(card, kernels)
     phase8(card)
     phase9(card, kernels)
+    phase10(card)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -10,8 +10,10 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
   "rgb" or "direct", dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT
   tier);
 * the single-image surface: JPEG (YCbCr, gray, JCS_RGB, CMYK/YCCK),
-  GIF (animated too), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR
-  and PFM in; those (not APNG) and thumbhash out::
+  GIF (animated too), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR,
+  PFM and JPEG 2000 (JP2/J2K: Tier-2 and Tier-1 on the host, the wavelet
+  and colour transforms as torch ops on the device) in; those (not APNG)
+  and thumbhash out::
 
       from lilliput_tpu_torch import (ImageOps, ImageOptions,
                                       ResizeMethod, new_decoder)
@@ -53,8 +55,8 @@ from .errors import (BufTooSmallError, DecodingFailedError,  # noqa: E402,F401
                      EncodeTimeoutError, FrameBufNoPixelsError,
                      InvalidImageError, LilliputError, SkipNotSupportedError)
 from .api import new_decoder, new_encoder  # noqa: E402,F401
-from .framebuffer import (JPEG_PROGRESSIVE, JPEG_QUALITY,  # noqa: E402,F401
-                          PNG_COMPRESSION, BlendMethod, DisposeMethod,
+from .framebuffer import (JPEG2000_RATE, JPEG_PROGRESSIVE,  # noqa: E402,F401
+                          JPEG_QUALITY, PNG_COMPRESSION, BlendMethod, DisposeMethod,
                           Framebuffer, ImageHeader, ImageOrientation)
 from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401

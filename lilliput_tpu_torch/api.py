@@ -2,9 +2,10 @@
 
 The counterpart of ``lilliput_tpu/api.py`` (lilliput.go:100-202): magic-byte
 dispatch and extension-based encoder selection. The port decodes GIF,
-JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR and PFM, and
-encodes those formats and thumbhash (not APNG). WebP, AVIF, JPEG 2000 and
-video raise NotImplementedError naming their ROADMAP queue 1 item, never
+JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and JPEG
+2000 (JP2 and J2K), and encodes those formats and thumbhash (not APNG).
+WebP, AVIF and video raise NotImplementedError naming their ROADMAP
+queue 1 item, never
 InvalidImageError, so a caller can tell "not ported" from "not an image";
 bytes no decoder of the JAX package would recognize raise
 InvalidImageError as there.
@@ -70,7 +71,6 @@ _NOT_PORTED_FIRST = (
     (is_avif, "the AVIF decoder", "item 6.5"),
 )
 _NOT_PORTED_LAST = (
-    (is_jpeg2000, "the JPEG 2000 decoder", "item 6.4"),
     (_is_video, "the video first-frame decoder", "item 6.6"),
 )
 
@@ -103,6 +103,9 @@ def _still_decoder(buf: bytes):
     if is_pfm(buf):
         from .codecs.pfm import PfmDecoder
         return PfmDecoder
+    if is_jpeg2000(buf):
+        from .codecs.jp2 import Jp2Decoder
+        return Jp2Decoder
     return None
 
 
@@ -133,8 +136,6 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
 _ENCODERS_NOT_PORTED = {
     ".webp": ("the WebP encoder", "item 4.7b"),
     ".avif": ("the AVIF encoder", "item 6.5"),
-    ".jp2": ("the JPEG 2000 encoder", "item 6.4"),
-    ".j2k": ("the JPEG 2000 encoder", "item 6.4"),
 }
 
 
@@ -167,6 +168,9 @@ def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,
     if e == ".pam":
         from .codecs.pnm import PamEncoder
         return PamEncoder(decoded_by, icc_override=icc_override)
+    if e in (".jp2", ".j2k"):
+        from .codecs.jp2 import Jp2Encoder
+        return Jp2Encoder(decoded_by, icc_override=icc_override)
     if e in (".sr", ".ras"):
         from .codecs.sunras import SunRasEncoder
         return SunRasEncoder(decoded_by, icc_override=icc_override)

@@ -5,8 +5,9 @@ package's ``make`` (which compiles every native shim and links libjpeg,
 libwebp and ffmpeg): the port needs the Huffman decoder
 (``csrc/host/jpeg_huff.cpp``), the PNG row filters with their deflate
 helpers (``csrc/host/png_filter.cpp``) and the GIF container and LZW
-codec (``csrc/host/gif_codec.cpp``), byte-for-byte copies of the JAX
-package's ``native/src`` files held equal by tests, and the port's
+codec (``csrc/host/gif_codec.cpp``) and the JPEG 2000 Tier-1 coder
+(``csrc/host/jp2_t1.cpp``), byte-for-byte copies of the JAX package's
+``native/src`` files held equal by tests, and the port's
 baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). None needs libjpeg,
 so the library builds on machines without it. ``png_filter.cpp`` uses
 libdeflate where ``libdeflate.h`` exists; the build then links
@@ -30,6 +31,7 @@ HOST_SOURCES = (
     os.path.join(_build.CSRC_DIR, "host", "jpeg_enc.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "png_filter.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "gif_codec.cpp"),
+    os.path.join(_build.CSRC_DIR, "host", "jp2_t1.cpp"),
 )
 #: the header whose presence compiles png_filter.cpp's libdeflate route
 LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
@@ -67,6 +69,7 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.lp_zlib_decompress.argtypes = [u8p, c.c_int64, u8p, c.c_int64]
     lib.lp_zlib_decompress.restype = c.c_int64
     _configure_gif(lib, u8p, i32p)
+    _configure_jp2(lib, u8p, i32p)
 
 
 def _configure_gif(lib: ctypes.CDLL, u8p, i32p) -> None:
@@ -95,6 +98,24 @@ def _configure_gif(lib: ctypes.CDLL, u8p, i32p) -> None:
         "lp_gif_enc_size": ([c.c_void_p], c.c_long),
         "lp_gif_enc_finish": ([c.c_void_p, u8p, c.c_size_t], c.c_long),
         "lp_gif_enc_free": ([c.c_void_p], None),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
+def _configure_jp2(lib: ctypes.CDLL, u8p, i32p) -> None:
+    """The lp_jp2_t1_* entry points of jp2_t1.cpp, with the signatures the
+    JAX package's codecs/jp2_t1.py registers."""
+    c = ctypes
+    i32 = c.c_int32
+    sigs = {
+        "lp_jp2_t1_decode": ([u8p] + [i32] * 7 + [i32p], c.c_int),
+        "lp_jp2_t1_decode2": ([u8p, i32, i32p, i32p] + [i32] * 8 + [i32p],
+                              c.c_int),
+        "lp_jp2_t1_encode": ([i32p] + [i32] * 5 + [u8p, i32] + [i32p] * 6
+                             + [i32], c.c_int),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)

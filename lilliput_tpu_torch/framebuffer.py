@@ -74,6 +74,9 @@ WEBP_SEGMENTS = 1005
 WEBP_PREPROCESSING = 1006
 WEBP_THREAD_LEVEL = 1007
 WEBP_PALETTE = 1008
+# JPEG 2000: compression ratio x1000 (OpenCV's
+# IMWRITE_JPEG2000_COMPRESSION_X1000 analog; 9/7 when set, else lossless)
+JPEG2000_RATE = 1000
 # AVIF options (avif.hpp:17)
 AVIF_QUALITY = 1
 AVIF_SPEED = 2

@@ -64,7 +64,6 @@ host LZW encode; the bytes equal the streaming ImageOps transform's.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import os
@@ -83,7 +82,7 @@ from .ops import jpeg_kernels as K
 from .ops import orient as O
 from .ops import palette as P
 from .ops import resize as R
-from .utils import resolve_device
+from .utils import StageClock, resolve_device
 
 _i16p = ctypes.POINTER(ctypes.c_int16)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -697,10 +696,10 @@ class _ServingPipelineBase:
 
         stage_times, when a dict, gets the ms of "host_decode",
         "device_step" (CUDA events on a CUDA device, waited for) and
-        "encode" appended under their names (see _StageClock)."""
+        "encode" appended under their names (see utils.StageClock)."""
         from .utils import StageTimer, metrics
         errors: Dict[int, Exception] = {}
-        clock = _StageClock(stage_times, self.device)
+        clock = StageClock(stage_times, self.device)
         with StageTimer("entropy_decode"), clock("host_decode"):
             args, iccs = self._host_decode(bufs, errors)
         with StageTimer("device"):
@@ -1109,8 +1108,10 @@ def _synthetic_still(fmt: str, w: int, h: int, channels: int = 3) -> bytes:
 
 class StillTranscodePipeline(_ServingPipelineBase):
     """Batched Fit transcoder for same-signature NON-JPEG still sources
-    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF: anything the port's
-    new_decoder reads but JPEG).
+    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, JPEG 2000: anything
+    the port's new_decoder reads but JPEG). A JPEG 2000 source's CPU
+    decoder runs its Tier-2 and Tier-1 on the host and its wavelet and
+    colour transforms as torch ops on the host CPU.
 
     JPEG sources go through JpegTranscodePipeline, in the coefficient
     domain. Every other still format decodes to pixels on the HOST, with
@@ -1359,36 +1360,6 @@ def _gif_emit_frames(enc, metas, plans, idx_np: np.ndarray,
     return enc.encode(None, {})
 
 
-class _StageClock:
-    """Per-stage times of transcode_gif_batch: `with clock(name)` appends
-    the block's ms to times[name]. Device stages (device=True) on a CUDA
-    device are timed with CUDA events and waited for, host stages with
-    the host clock. With times=None nothing is timed and nothing waits."""
-
-    def __init__(self, times: Optional[Dict[str, List[float]]], dev):
-        self.times = times
-        self.cuda = dev.type == "cuda"
-
-    @contextlib.contextmanager
-    def __call__(self, name: str, device: bool = False):
-        if self.times is None:
-            yield
-            return
-        if device and self.cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            yield
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end)
-        else:
-            t0 = time.perf_counter()
-            yield
-            ms = 1e3 * (time.perf_counter() - t0)
-        self.times.setdefault(name, []).append(ms)
-
-
 def _tmap(fn, items, n_workers: int) -> list:
     """Thread-pooled map (the host codecs release the GIL)."""
     if n_workers > 1 and len(items) > 1:
@@ -1465,7 +1436,7 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     stage_times, when a dict, gets the ms of each stage appended under
     its name: "lzw_decode" (host LZW and scatter, once per call), then
     per group "stack", "h2d", "composite", "resize", "plan", "quantize",
-    "d2h" and "lzw_encode" (see _StageClock)."""
+    "d2h" and "lzw_encode" (see utils.StageClock)."""
     from .codecs.gif import GifDecoder
 
     if file_type not in (".gif", ".webp"):
@@ -1484,7 +1455,7 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
             raise DecodingFailedError("gif has no frames")
         return dec, inp, metas
 
-    clock = _StageClock(stage_times, dev)
+    clock = StageClock(stage_times, dev)
     with clock("lzw_decode"):
         prepped = _tmap(prep, bufs, n_workers)
     groups = _anim_batch_groups(
@@ -1664,8 +1635,8 @@ class MultiGeometryPipeline:
     device: "cuda" by default (it raises without a card), passed to every
     pipeline built; device="cpu" runs the fronts on the CPU. Not ported:
     a mesh (item 9); .webp output raises per request (item 4.7b), as do
-    sources the port cannot decode (WebP 6.2, AVIF 6.5, JPEG 2000 6.4,
-    video 6.6), each in its own slot."""
+    sources the port cannot decode (WebP 6.2, AVIF 6.5, video 6.6),
+    each in its own slot."""
 
     def __init__(self, dst_w: int, dst_h: int, quality: int = 85,
                  method: str = R.AREA, max_geometries: int = 64,

@@ -1,6 +1,6 @@
 import torch
 
-from .metrics import Metrics, StageTimer, metrics  # noqa: F401
+from .metrics import Metrics, StageClock, StageTimer, metrics  # noqa: F401
 
 
 def resolve_device(device) -> torch.device:

@@ -8,10 +8,11 @@ registry): a serving deployment gets imgs/sec and p50/p99 per pipeline stage
 from __future__ import annotations
 
 import bisect
+import contextlib
 import random
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 class _Reservoir:
@@ -98,3 +99,34 @@ class StageTimer:
     def __exit__(self, *exc):
         self.registry.observe(self.stage, time.perf_counter() - self._t0)
         return False
+
+
+class StageClock:
+    """Per-call stage times: `with clock(name)` appends the block's ms to
+    times[name]. Device stages (device=True) on a CUDA device are timed
+    with CUDA events and waited for, host stages with the host clock.
+    With times=None nothing is timed and nothing waits."""
+
+    def __init__(self, times: Optional[Dict[str, List[float]]], dev):
+        self.times = times
+        self.cuda = dev.type == "cuda"
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, device: bool = False):
+        if self.times is None:
+            yield
+            return
+        if device and self.cuda:
+            import torch
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            yield
+            ms = 1e3 * (time.perf_counter() - t0)
+        self.times.setdefault(name, []).append(ms)

@@ -41,7 +41,13 @@ quantizer's indices and cache tables across a palette change (argmin
 ties included), the whole-animation quantizer and composite over an
 animation axis, the streaming and batched decodes, transcode_gif_batch
 (also equal to per-animation transcode_gif) and ImageOps.transform's
-.gif, .png and .thumbhash bytes."""
+.gif, .png and .thumbhash bytes.
+
+JPEG 2000 (no kernel: the wavelet, colour transforms and decode tail are
+torch ops): decode_to and the .jp2 encode on the card equal the CPU's
+(0 differing values, equal bytes) on small lossless, 9/7, tiled and
+sYCC streams, and each ops/wavelet function on the card equals the CPU
+on random int64 and float64 stacks, bit for bit."""
 
 import functools
 
@@ -778,3 +784,89 @@ def test_multigeometry_on_card_equals_per_signature_pipelines():
         for i in idx:
             _coef_gate(chip_smoke.jpeg_coefs(got[i]),
                        chip_smoke.jpeg_coefs(cpu[i]))
+
+
+def _jp2_streams():
+    """name -> a small JP2 stream, written by the port's encoder on the
+    CPU from the fixture's pixels (no PIL on the card's machine)."""
+    import struct
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    from lilliput_tpu_torch.codecs.jp2_enc import encode_j2k, encode_jp2
+    with open(FIXTURE, "rb") as f:
+        fb = Framebuffer()
+        new_decoder(f.read(), device="cpu").decode_to(fb)
+    rgb = np.ascontiguousarray(fb.fit(130, 98).to_numpy()[..., ::-1])
+    out = {"lossless": encode_jp2(rgb),
+           "97": encode_jp2(rgb, reversible=False),
+           "97_rate": encode_jp2(rgb, reversible=False, rate=12.0),
+           "tiled_97": encode_jp2(rgb, reversible=False, tile=(32, 32)),
+           "tiled_gray": encode_j2k(np.ascontiguousarray(rgb[..., 1]),
+                                    tile=(48, 40)),
+           "sub_roi": encode_jp2(rgb, sub=[(1, 1), (2, 2), (2, 2)],
+                                 roi=(8, 8, 60, 40))}
+    buf = bytearray(encode_jp2(rgb, mct=False))
+    i = bytes(buf).find(b"colr")
+    buf[i + 7:i + 11] = struct.pack(">I", 18)         # sYCC
+    out["sycc"] = bytes(buf)
+    return out, rgb
+
+
+@pytest.mark.gpu
+def test_jp2_decode_and_encode_on_card_equal_cpu():
+    _need_card()
+    from lilliput_tpu_torch import Framebuffer, new_decoder, new_encoder
+    from lilliput_tpu_torch.codecs.jp2_enc import encode_jp2
+    streams, rgb = _jp2_streams()
+    for name, b in streams.items():
+        DK.reset_launches()
+        fbs = []
+        for dev in ("cuda", "cpu"):
+            fb = Framebuffer()
+            new_decoder(b, device=dev).decode_to(fb)
+            fbs.append(fb)
+        assert not any(DK.launches.values()), name
+        assert fbs[0].array.device.type == "cuda"
+        assert torch.equal(fbs[0].array.cpu(), fbs[1].array), name
+        for opts in ({}, {1000: 9000}):
+            enc = [new_encoder(".jp2").encode(fb, opts) for fb in fbs]
+            assert enc[0] == enc[1], (name, opts)
+    t = torch.from_numpy(rgb)
+    for kw in ({}, dict(reversible=False), dict(tile=(32, 32)),
+               dict(reversible=False, rate=20.0)):
+        assert encode_jp2(t.cuda(), **kw) == encode_jp2(t, **kw), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reversible", [True, False], ids=["53", "97"])
+def test_wavelet_on_card_equals_cpu(reversible):
+    """No FMA contraction, no reciprocal division: the card's lifting
+    and colour transforms are the CPU's bit for bit."""
+    _need_card()
+    from lilliput_tpu_torch.ops import wavelet as W
+    rng = np.random.default_rng(5)
+    for x0, y0, w, h in ((0, 0, 64, 48), (1, 0, 33, 17), (3, 5, 7, 1),
+                         (0, 1, 1, 9), (2, 3, 130, 129)):
+        rect = (x0, y0, x0 + w, y0 + h)
+        x = torch.from_numpy(rng.integers(-2000, 2000, (4, h, w))
+                             if reversible else rng.normal(0, 500, (4, h, w)))
+        cpu = W.forward_dwt_level(x, rect, reversible)
+        gpu = W.forward_dwt_level(x.cuda(), rect, reversible)
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu())
+        bands = [torch.from_numpy(rng.normal(0, 200, a.shape)
+                                  if not reversible else
+                                  rng.integers(-900, 900, a.shape))
+                 for a in cpu]
+        assert torch.equal(
+            W.inverse_dwt_level(*bands, None, rect, reversible),
+            W.inverse_dwt_level(*[b.cuda() for b in bands], None, rect,
+                                reversible).cpu())
+    args = [torch.from_numpy(rng.integers(-128, 128, (3, 50, 70))
+                             if reversible else rng.normal(0, 90, (3, 50, 70)))
+            for _ in range(3)]
+    fns = (("forward_rct", "inverse_rct") if reversible
+           else ("forward_ict", "inverse_ict"))
+    for fn in fns:
+        for a, b in zip(getattr(W, fn)(*args),
+                        getattr(W, fn)(*[a.cuda() for a in args])):
+            assert torch.equal(a, b.cpu()), fn

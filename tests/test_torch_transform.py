@@ -223,15 +223,15 @@ _ISO_BMFF = b"\x00\x00\x00\x18ftyp"
 NOT_PORTED_DECODERS = {
     "webp": (b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8), "item 6.2"),
     "avif": (_ISO_BMFF + b"avif" + bytes(8), "item 6.5"),
-    "jp2": (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8), "item 6.4"),
-    "j2k": (b"\xff\x4f\xff\x51" + bytes(8), "item 6.4"),
     "mp4": (_ISO_BMFF + b"isom" + bytes(8), "item 6.6"),
     "mov": (_ISO_BMFF + b"qt  " + bytes(8), "item 6.6"),
     "webm": (b"\x1a\x45\xdf\xa3" + bytes(12), "item 6.6"),
 }
-#: headers of the formats ported in items 5.3, 6.1 and 6.3 that no
+#: headers of the formats ported in items 5.3, 6.1, 6.3 and 6.4 that no
 #: decoder reads: each raises what the JAX package raises
 PORTED_BAD_HEADERS = {
+    "jp2": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(8),
+    "j2k": b"\xff\x4f\xff\x51" + bytes(8),
     "gif": b"GIF89a" + bytes(20),
     "png": b"\x89PNG\r\n\x1a\n" + bytes(16),
     "bmp": b"BM" + bytes(40),
@@ -265,6 +265,9 @@ def test_new_decoder_of_a_ported_format_fails_as_jax(name):
             errs.append(type(e).__name__)
     assert errs[1] != "NotImplementedError"
     assert errs[0] == errs[1], errs
+    if name in ("jp2", "j2k"):
+        with pytest.raises(InvalidImageError, match="JPEG 2000"):
+            T.new_decoder(buf, device="cpu")
 
 
 @pytest.mark.parametrize("buf", [b"", b"not an image at all", bytes(64),
@@ -276,8 +279,7 @@ def test_new_decoder_refuses_what_is_no_image(buf):
 
 
 @pytest.mark.parametrize("ext,item", [
-    (".webp", "item 4.7b"), (".avif", "item 6.5"),
-    (".jp2", "item 6.4"), (".j2k", "item 6.4")])
+    (".webp", "item 4.7b"), (".avif", "item 6.5")])
 def test_new_encoder_names_the_item(ext, item):
     with pytest.raises(NotImplementedError, match=item):
         T.new_encoder(ext)
@@ -286,6 +288,18 @@ def test_new_encoder_names_the_item(ext, item):
             T.new_decoder(_source("420"), device="cpu"),
             T.ImageOptions(file_type=ext, width=8, height=8,
                            resize_method=FIT))
+
+
+@pytest.mark.parametrize("ext", [".jp2", ".j2k"])
+def test_new_encoder_jp2_equal_jax(ext):
+    """The JPEG 2000 encoder (item 6.4): new_encoder gives it, and the
+    transform's bytes equal the JAX package's (tests/test_torch_jp2_enc.py
+    holds every option)."""
+    from lilliput_tpu_torch.codecs.jp2 import Jp2Encoder
+    assert isinstance(T.new_encoder(ext), Jp2Encoder)
+    a, b = _both(_source("420"), file_type=ext, width=8, height=8,
+                 resize_method=FIT)
+    assert a == b and b.startswith(b"\x00\x00\x00\x0cjP")
 
 
 @pytest.mark.parametrize("ext", [".thumbhash", ".bmp", ".ppm", ".pam",
