@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; builds the host library (g++: Huffman decode and
-encode, PNG row filters, the GIF container and LZW, JPEG 2000 Tier-1)
+encode, PNG row filters, the GIF container and LZW, JPEG 2000 Tier-1;
+the WebP library only where libwebp's headers exist)
 and the kernels (nvcc, sm_90a; one nvcc per
 source, all at once) from the sources in this checkout, then drives
 fourteen serving paths, each JpegTranscodePipeline(fixture -> 256x256 Fit
@@ -39,8 +40,8 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
                       (u8), gray pixels, 1-channel PNG;
 
 then the single-image surface (the still phase), the overlap check of
-transcode_pipelined, the still formats, GIF, the mixed serving front and
-JPEG 2000.
+transcode_pipelined, the still formats, GIF, the mixed serving front,
+JPEG 2000 and WebP.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -126,12 +127,14 @@ JPEG 2000.
    layout, gray and o6; a 720p 4:2:0 JPEG the port stretches from
    bench_1080p.jpg; PNG RGB8, RGBA8 and gray8 of the fixtures' pixels;
    the 1080p GIF) and three broken inputs (a truncated scan, a truncated
-   PNG, a RIFF/WEBP header), with every launch count 0 just before its
+   PNG, a frameless RIFF/WEBP header), with every launch count 0 just
+   before its
    first transcode and read just after (MIX_LAUNCHES: decode420 3, the
    other four 1 each, none from the still and gray groups). Every healthy
    output equals its per-signature JpegTranscodePipeline or
    StillTranscodePipeline on the card in input order, the broken slots
-   and only they hold exceptions (the WebP one naming item 6.2), stats()
+   and only they hold exceptions (the WebP one HostLibraryMissingError
+   where libwebp's header is absent, else InvalidImageError), stats()
    reads one build per signature and one hit per other routed request
    (again on a second call, no eviction), max_geometries=4 counts
    evictions without changing the bytes, the .jpeg coefficients are
@@ -155,7 +158,28 @@ JPEG 2000.
    equal to the CPU front, MultiGeometryPipeline failing the truncated
    slot alone; decode ms on the card and the CPU split into host Tier-2
    + Tier-1 and the device tail, device events per decode, encode ms,
-   the still front's images/s.
+   the still front's images/s;
+11. WebP (phase11; no kernel of its own: the yuv420 emit and the
+   composite are torch ops), with every launch count 0 just before the
+   phase and read just after: (a) JpegTranscodePipeline(bench_1080p.jpg
+   -> 256x256 .webp, q85) emits yuv420, one batch-128 device step
+   launches decode420 once and nothing else (that launch joins the
+   kernels line), its planes (128x256x256 and 2x 128x128x128 u8) equal
+   the CPU port's step on 2 images and the yuv420 conversion of the .png
+   step's pixels on the card; the emit's ms, the .webp and .png steps'
+   ms, the D2H bytes and ms at 1.5 against 4 B/px; (b) the still front's
+   .webp step over 1080p PNG RGB8 (yuv420) and RGBA8 (pixels) equal to
+   the CPU port's; (c) webp_yuv420_from_packed over every u8 value, at
+   1x1, 5x7, 33x47 and a batch, equal to the CPU port's; (d) the
+   composite + AREA 480->128 of 16 animations x 32 frames
+   (webp_anim_inputs: sub-rects at clipped and negative offsets, partial
+   alpha, both blends and disposals, bucket padding) equal to the CPU
+   port's, with its ms, H2D and device events; (e) where libwebp's header
+   is absent (the card's machine), new_decoder of
+   tests/assets/anim_96x80.webp, new_encoder(".webp"), transcode_webp,
+   the .webp pipeline's transcode and GIF -> .webp each raise
+   HostLibraryMissingError; where it is present their card bytes equal
+   the CPU port's.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -312,10 +336,14 @@ def phase1():
     from lilliput_tpu_torch.ops import _build
     from lilliput_tpu_torch.ops import decode_kernels as DK
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:      # g++ beside the nvcc builds
+    have_webp = os.path.exists(binding.WEBP_HEADER)
+    with ThreadPoolExecutor(3) as ex:      # g++ beside the nvcc builds
         host = ex.submit(binding.load)
+        webp = ex.submit(binding.load_webp) if have_webp else None
         libs = DK.build()
         host.result()
+        if webp is not None:
+            webp.result()
     t1 = time.perf_counter()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
@@ -325,7 +353,9 @@ def phase1():
     deflate = ("linked" if binding.load().lp_zlib_fast_available()
                else "absent: PNG deflates with Python zlib")
     print(f"phase 1: host library and {len(libs)} kernel libraries built "
-          f"in {t1 - t0:.1f}s; libdeflate {deflate}", flush=True)
+          f"in {t1 - t0:.1f}s; libdeflate {deflate}; libwebp "
+          f"{'built' if have_webp else 'absent: WebP host calls raise HostLibraryMissingError'}",
+          flush=True)
 
 
 def random_case(rng, h, w, h2, v2, batch=3):
@@ -1532,8 +1562,9 @@ def phase9(card, kernels):
     its first transcode and read just after (MIX_LAUNCHES exactly). Gates:
     every healthy output byte-identical to its per-signature
     JpegTranscodePipeline or StillTranscodePipeline on the card, in input
-    order; the broken slots hold exceptions (the WebP one naming item 6.2)
-    and only they; stats() reads twelve signatures built and cached, one
+    order; the broken slots hold exceptions (the WebP one
+    HostLibraryMissingError where libwebp's header is absent, else
+    InvalidImageError) and only they; stats() reads twelve signatures built and cached, one
     hit per other routed request and again that many on a second call,
     which gives the same bytes, no eviction; with max_geometries=4 the
     evictions are counted and the bytes unchanged; each .jpeg output's
@@ -1579,8 +1610,13 @@ def phase9(card, kernels):
     # the broken slots, and only they, hold exceptions
     failed = [i for i, o in enumerate(outs) if not isinstance(o, bytes)]
     check(failed == broken, f"failed slots {failed}, broken {broken}")
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.errors import (HostLibraryMissingError,
+                                           InvalidImageError)
     webp = outs[labels.index("broken_webp")]
-    check(isinstance(webp, NotImplementedError) and "item 6.2" in str(webp),
+    check(isinstance(webp, InvalidImageError
+                     if os.path.exists(binding.WEBP_HEADER)
+                     else HostLibraryMissingError),
           f"the WebP slot holds {webp!r}")
     print(f"phase 9: broken slots: "
           f"{[(labels[i], type(outs[i]).__name__) for i in broken]}",
@@ -2038,6 +2074,267 @@ def phase10(card):
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+#: phase 11: the .webp step's batch and fixture, the still front's batch of
+#: each PNG kind, the composite's animations (WEBP_ANIMS x WEBP_FRAMES on a
+#: WEBP_CANVAS canvas to WEBP_DST), the CPU reference's lanes per chunk
+WEBP_STILL_BATCH = 4
+WEBP_ANIMS, WEBP_FRAMES, WEBP_CANVAS, WEBP_DST = 16, 32, 480, 128
+WEBP_CPU_CHUNK = 4
+WEBP_FIXTURE = "anim_96x80.webp"
+
+
+def webp_anim_inputs(seed: int = 11):
+    """Phase 11's composite inputs, made in numpy from `seed`: WEBP_ANIMS
+    animations of WEBP_FRAMES // 2 + 1 to WEBP_FRAMES frames (padded to the frame bucket
+    with inert frames: no-blend, nothing drawn) on a WEBP_CANVAS canvas,
+    as pipeline._webp_anim_inputs scatters them. Frame 0 covers the
+    canvas; the others are sub-rects of bench_1080p's pixels at offsets
+    that may be negative or run past the canvas (clipped as the host
+    assembly clips them), with partial alpha, blend 0 or 1 and dispose 0
+    or 1. Returns the dict of stacked arrays (_WEBP_INPUTS)."""
+    from lilliput_tpu_torch import pipeline as TP
+    from lilliput_tpu_torch.ops import palette as P
+    rng = np.random.default_rng(seed)
+    bgr = fixture_pixels("bench_1080p.jpg")
+    c, nb = WEBP_CANVAS, P.frame_bucket(WEBP_FRAMES)
+    stack = {"frames": np.zeros((WEBP_ANIMS, nb, c, c, 4), np.uint8),
+             "drawn": np.zeros((WEBP_ANIMS, nb, c, c), bool),
+             "blends": np.ones((WEBP_ANIMS, nb), np.int32),
+             "pdisp": np.zeros((WEBP_ANIMS, nb), np.int32),
+             "prects": np.zeros((WEBP_ANIMS, nb, c, c), bool)}
+    for a in range(WEBP_ANIMS):
+        n = int(rng.integers(WEBP_FRAMES // 2 + 1, WEBP_FRAMES + 1))
+        prev, prev_disp = None, 0
+        for k in range(n):
+            if k == 0:
+                x, y, w, h = 0, 0, c, c
+            else:
+                w, h = (int(v) for v in rng.integers(16, c, 2))
+                x, y = (int(v) for v in rng.integers(-w // 2, c - w // 2, 2))
+            sy, sx = (int(rng.integers(0, bgr.shape[i] - d))
+                      for i, d in ((0, h), (1, w)))
+            px = np.empty((h, w, 4), np.uint8)
+            px[..., :3] = bgr[sy:sy + h, sx:sx + w]
+            px[..., 3] = (255 if k == 0 else rng.choice(
+                [0, 64, 128, 200, 255], (h, w)).astype(np.uint8))
+            mask, (x2, y2, w2, h2) = TP._rect_mask(x, y, w, h, c, c)
+            if w2 > 0 and h2 > 0:
+                stack["frames"][a, k, y2:y2 + h2, x2:x2 + w2] = px[
+                    y2 - y:y2 - y + h2, x2 - x:x2 - x + w2]
+            stack["drawn"][a, k] = mask
+            if prev is not None:
+                stack["prects"][a, k] = TP._rect_mask(*prev, c, c)[0]
+            stack["blends"][a, k] = int(rng.integers(0, 2))
+            stack["pdisp"][a, k] = prev_disp
+            prev, prev_disp = (x, y, w, h), int(rng.integers(0, 2))
+    return stack
+
+
+def phase11(card, kernels):
+    """WebP: the yuv420 emit, the still front, the value sweep, the
+    animated composite and the host route, every launch count 0 just
+    before the phase and read just after (decode420 once per .webp step of
+    the 4:2:0 fixture, nothing else).
+
+    (a) JpegTranscodePipeline(bench_1080p.jpg, DST, DST, q85, ".webp"):
+    its emit is yuv420, one batch-128 device_step launches decode420
+    exactly once and no other kernel, its planes are (128, 256, 256) and
+    (128, 128, 128) u8; on 2 images they equal the CPU port's .webp step
+    (0 differing values) and, on the card, webp_yuv420_from_packed of the
+    .png pipeline's packed pixels of the same batch. Prints the emit's ms
+    (CUDA events), the .webp and .png steps' ms, and the D2H bytes and ms
+    of the planes against the packed pixels.
+    (b) StillTranscodePipeline(DST, DST, ".webp") steps over 1080p PNG
+    RGB8 (yuv420 emit) and RGBA8 (pixels emit) sources equal the CPU
+    port's steps (0 differing values).
+    (c) webp_yuv420_from_packed of every u8 value (the sweep of
+    tests/test_webp.py:187-198), at 1x1, 5x7 and 33x47 and over a batch,
+    equals the CPU port's.
+    (d) _webp_batch_to_pixels over webp_anim_inputs() (composite, no crop,
+    AREA to WEBP_DST) on the card equals the CPU port's (0 differing
+    values); prints its ms, the H2D's and the device events.
+    (e) Where libwebp's header is absent, new_decoder of tests/assets/
+    WEBP_FIXTURE, new_encoder(".webp"), transcode_webp, the .webp
+    pipeline's transcode and GIF -> .webp each raise
+    HostLibraryMissingError; where it is present their card bytes equal
+    the CPU port's."""
+    import torch
+    from lilliput_tpu_torch import (JpegTranscodePipeline,
+                                    StillTranscodePipeline, new_decoder,
+                                    new_encoder)
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch import pipeline as TP
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
+    from lilliput_tpu_torch.ops import color as C
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    t_phase = time.perf_counter()
+    have_webp = os.path.exists(binding.WEBP_HEADER)
+    print(f"phase 11: {binding.WEBP_HEADER} "
+          f"{'present' if have_webp else 'absent'}", flush=True)
+    DK.reset_launches()
+
+    # (a) the yuv420 emit on the main path
+    with open(os.path.join(ASSETS, "bench_1080p.jpg"), "rb") as f:
+        fixture = f.read()
+    bufs = [fixture] * BATCH
+    webp = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                 output_format=".webp", device=DEVICE)
+    png = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                output_format=".png", device=DEVICE)
+    check(webp._emit == "yuv420", f"the .webp emit is {webp._emit}")
+    args = webp.decode_entropy(bufs)
+    before = dict(DK.launches)
+    planes = webp.device_step(*args)
+    torch.cuda.synchronize()
+    step = {k: v - before[k] for k, v in DK.launches.items()}
+    check(step == {**dict.fromkeys(step, 0), "decode420": 1},
+          f"one .webp device step launched {step}")
+    shapes = [(tuple(p.shape), p.dtype) for p in planes]
+    half = DST // 2
+    check(shapes == [((BATCH, DST, DST), torch.uint8)]
+          + [((BATCH, half, half), torch.uint8)] * 2,
+          f"the .webp step's planes are {shapes}")
+    packed = png.device_step(*args)[0]
+    for p, q in zip(planes, C.webp_yuv420_from_packed(packed)):
+        check(torch.equal(p, q), "the .webp planes differ from the yuv420 "
+              "conversion of the .png step's pixels")
+    cpu = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                output_format=".webp", device="cpu")
+    two = cpu.decode_entropy(bufs[:2])
+    for p, q in zip(webp.device_step(*two), cpu.device_step(*two)):
+        mx, nd, n = diff_stats([p.cpu()], [q])
+        check(nd == 0, f"the .webp planes differ from the CPU port's in "
+              f"{nd} of {n} values (max {mx})")
+    emit_ms = cuda_ms(lambda: C.webp_yuv420_from_packed(packed), 10)
+    webp_ms = cuda_ms(lambda: webp.device_step(*args), 10)
+    png_ms = cuda_ms(lambda: png.device_step(*args), 10)
+    yuv_bytes = sum(p.numel() for p in planes)
+    bgra_bytes = packed.numel() * packed.element_size()
+
+    def d2h(ts):
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in ts]
+        return cuda_ms(lambda: [h.copy_(t, non_blocking=True)
+                                for h, t in zip(host, ts)], 10)
+    print(f"phase 11: .webp step of {BATCH}: planes {shapes}, equal to the "
+          f"CPU port's (2 images) and to the yuv420 conversion of the .png "
+          f"step; one decode420 launch per step", flush=True)
+    print(f"phase 11: yuv420 emit {emit_ms!r} ms; device_step .webp "
+          f"{webp_ms!r} ms vs .png {png_ms!r} ms; D2H {yuv_bytes} B "
+          f"({yuv_bytes / (BATCH * DST * DST)!r} B/px) in {d2h(planes)!r} ms "
+          f"vs {bgra_bytes} B ({bgra_bytes / (BATCH * DST * DST)!r} B/px) in "
+          f"{d2h([packed])!r} ms [{card}]", flush=True)
+    del planes, packed, args
+
+    # (b) the still front: yuv420 for RGB, pixels for RGBA
+    pngs = png_inputs(fixture_pixels("bench_1080p.jpg"),
+                      fixture_pixels("bench_1080p_gray.jpg"))
+    for kind, emit in (("png_rgb8", "yuv420"), ("png_rgba8", "pixels")):
+        sources = [pngs[kind]] * WEBP_STILL_BATCH
+        pipes = [StillTranscodePipeline(pngs[kind], DST, DST, quality=85,
+                                        output_format=".webp", device=dev)
+                 for dev in (DEVICE, "cpu")]
+        check([p._emit for p in pipes] == [emit] * 2,
+              f"{kind}: the emit is {pipes[0]._emit}, not {emit}")
+        (batch,), _ = pipes[1]._host_decode(sources)
+        got = pipes[0].device_step(batch)
+        want = pipes[1].device_step(batch)
+        for g, w in zip(got, want):
+            mx, nd, n = diff_stats([g.cpu()], [w])
+            check(nd == 0, f"{kind} .webp step differs from the CPU port's "
+                  f"in {nd} of {n} values (max {mx})")
+        print(f"phase 11: still front {kind} x{WEBP_STILL_BATCH} ({emit}): "
+              f"the card's step equals the CPU port's", flush=True)
+
+    # (c) the value sweep
+    sweep = np.zeros((2, 512), np.int32)
+    for v in range(256):
+        sweep[:, 2 * v:2 * v + 2] = v * 0x010101
+    rng = np.random.default_rng(16)
+    stacks = [sweep[None]] + [
+        rng.integers(0, 1 << 24, shape).astype(np.int32)
+        for shape in ((1, 1, 1), (1, 5, 7), (1, 33, 47), (6, 33, 47))]
+    for packed in stacks:
+        packed = torch.from_numpy(packed | np.int32(-16777216))
+        for g, w in zip(C.webp_yuv420_from_packed(packed.to(DEVICE)),
+                        C.webp_yuv420_from_packed(packed)):
+            check(torch.equal(g.cpu(), w), f"the yuv420 emit at "
+                  f"{tuple(packed.shape)} differs from the CPU port's")
+    print(f"phase 11: the yuv420 emit over every u8 value and at "
+          f"{[tuple(s.shape) for s in stacks[1:]]} equals the CPU port's",
+          flush=True)
+
+    # (d) the animated composite
+    t0 = time.perf_counter()
+    stack = webp_anim_inputs()
+    host = [torch.from_numpy(stack[k]) for k in TP._WEBP_INPUTS]
+    print(f"phase 11: composite inputs {tuple(host[0].shape)} "
+          f"({sum(t.numel() * t.element_size() for t in host)} B) built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    h2d_ms = cuda_ms(lambda: [t.to(DEVICE) for t in host], 3)
+    dev = [t.to(DEVICE) for t in host]
+
+    def batch():
+        return TP._webp_batch_to_pixels(*dev, None, WEBP_DST, WEBP_DST)
+    got = batch().cpu()
+    comp_ms = cuda_ms(batch, 3)
+    events = len(device_spans(batch)[0])
+    for lo in range(0, WEBP_ANIMS, WEBP_CPU_CHUNK):
+        lanes = slice(lo, lo + WEBP_CPU_CHUNK)
+        want = TP._webp_batch_to_pixels(*[t[lanes] for t in host], None,
+                                        WEBP_DST, WEBP_DST)
+        mx, nd, n = diff_stats([got[lanes]], [want])
+        check(nd == 0, f"the composite of animations {lo}.. differs from "
+              f"the CPU port's in {nd} of {n} values (max {mx})")
+    print(f"phase 11: composite + AREA {WEBP_CANVAS}->{WEBP_DST} of "
+          f"{WEBP_ANIMS} x {host[0].shape[1]} frames equals the CPU port's; "
+          f"{comp_ms!r} ms, H2D {h2d_ms!r} ms, {events} device events "
+          f"[{card}]", flush=True)
+    del dev, host, stack, got
+
+    # (e) the host route
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_gif_builders import pan_gif
+    with open(os.path.join(ASSETS, WEBP_FIXTURE), "rb") as f:
+        anim = f.read()
+    rgb = np.ascontiguousarray(fixture_pixels("bench_1080p.jpg")[
+        :240, :320, ::-1])
+    gif = pan_gif(rgb, 160, 120, 4)
+    calls = {
+        "new_decoder": lambda d: new_decoder(anim, device=d).header(),
+        "new_encoder": lambda d: new_encoder(".webp") and None,
+        "transcode_webp": lambda d: TP.transcode_webp(
+            anim, 48, 40, fit=True, device=d),
+        ".webp transcode": lambda d: JpegTranscodePipeline(
+            fixture, DST, DST, quality=85, output_format=".webp",
+            device=d).transcode([fixture] * 2),
+        "GIF -> .webp": lambda d: TP.transcode_gif(
+            gif, 64, 48, fit=True, file_type=".webp", device=d),
+    }
+    for name, call in calls.items():
+        if have_webp:
+            check(call(DEVICE) == call("cpu"), f"{name}: the card's bytes "
+                  "differ from the CPU port's")
+            continue
+        try:
+            call(DEVICE)
+        except HostLibraryMissingError as e:
+            check("libwebp" in str(e), f"{name}: {e}")
+        else:
+            raise SmokeFailure(f"{name} did not raise HostLibraryMissingError")
+    print(f"phase 11: host route {list(calls)}: "
+          f"{'card bytes equal the CPU port' if have_webp else 'each raised HostLibraryMissingError'}",
+          flush=True)
+    launched = {k: v for k, v in DK.launches.items() if v}
+    print(f"phase 11: launches over the phase {launched}", flush=True)
+    check(set(launched) == {"decode420"}, f"phase 11 launched {launched}")
+    # the main path's run: the one batch-128 .webp step of (a)
+    kernels["decode420"]["launches"] += step["decode420"]
+    kernels["decode420"]["webp_launches"] = step["decode420"]
+    print(f"phase 11: phase took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -2102,6 +2399,7 @@ def main() -> int:
     phase8(card)
     phase9(card, kernels)
     phase10(card)
+    phase11(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

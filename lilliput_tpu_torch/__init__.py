@@ -10,10 +10,11 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
   "rgb" or "direct", dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT
   tier);
 * the single-image surface: JPEG (YCbCr, gray, JCS_RGB, CMYK/YCCK),
-  GIF (animated too), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR,
-  PFM and JPEG 2000 (JP2/J2K: Tier-2 and Tier-1 on the host, the wavelet
-  and colour transforms as torch ops on the device) in; those (not APNG)
-  and thumbhash out::
+  GIF and WebP (animated too; WebP through libwebp where its headers
+  exist), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and JPEG
+  2000 (JP2/J2K: Tier-2 and Tier-1 on the host, the wavelet and colour
+  transforms as torch ops on the device) in; those (not APNG) and
+  thumbhash out::
 
       from lilliput_tpu_torch import (ImageOps, ImageOptions,
                                       ResizeMethod, new_decoder)
@@ -22,9 +23,11 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
           file_type=".jpeg", width=256, height=256,
           resize_method=ResizeMethod.FIT))
 
-* the animated GIF -> GIF serving path (``AnimatedTranscodePipeline``,
-  ``pipeline.transcode_gif`` and ``transcode_gif_batch``), with the
-  palette ops of ``ops/palette.py``;
+* the animated serving path, GIF -> GIF/WebP and WebP -> WebP
+  (``AnimatedTranscodePipeline``, ``pipeline.transcode_gif(_batch)``,
+  ``transcode_webp(_batch)``), with the palette and composite ops of
+  ``ops/palette.py``; .webp output of the still fronts through the
+  device's libwebp-exact YUV420 emit (``ops/color.py``);
 * the still-input serving front: ``StillTranscodePipeline`` (batches of
   one non-JPEG still signature: host decode, one device step) and
   ``MultiGeometryPipeline``, which groups mixed JPEG/PNG/GIF/... traffic
@@ -53,16 +56,19 @@ _torch.set_float32_matmul_precision("highest")
 
 from .errors import (BufTooSmallError, DecodingFailedError,  # noqa: E402,F401
                      EncodeTimeoutError, FrameBufNoPixelsError,
-                     InvalidImageError, LilliputError, SkipNotSupportedError)
+                     HostLibraryMissingError, InvalidImageError,
+                     LilliputError, SkipNotSupportedError)
 from .api import new_decoder, new_encoder  # noqa: E402,F401
 from .framebuffer import (JPEG2000_RATE, JPEG_PROGRESSIVE,  # noqa: E402,F401
-                          JPEG_QUALITY, PNG_COMPRESSION, BlendMethod, DisposeMethod,
+                          JPEG_QUALITY, PNG_COMPRESSION, WEBP_METHOD,
+                          WEBP_QUALITY, BlendMethod, DisposeMethod,
                           Framebuffer, ImageHeader, ImageOrientation)
 from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401
 from .pipeline import (AnimatedTranscodePipeline,  # noqa: E402,F401
                        JpegTranscodePipeline, MultiGeometryPipeline,
                        StillTranscodePipeline, transcode_gif,
-                       transcode_gif_batch)
+                       transcode_gif_batch, transcode_webp,
+                       transcode_webp_batch)
 
 __version__ = "0.1.0"

@@ -2,10 +2,11 @@
 
 The counterpart of ``lilliput_tpu/api.py`` (lilliput.go:100-202): magic-byte
 dispatch and extension-based encoder selection. The port decodes GIF,
-JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and JPEG
-2000 (JP2 and J2K), and encodes those formats and thumbhash (not APNG).
-WebP, AVIF and video raise NotImplementedError naming their ROADMAP
-queue 1 item, never
+WebP, JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and
+JPEG 2000 (JP2 and J2K), and encodes those formats and thumbhash (not
+APNG). WebP needs libwebp: where its headers are absent, its decoder and
+encoder raise HostLibraryMissingError. AVIF and video raise
+NotImplementedError naming their ROADMAP queue 1 item, never
 InvalidImageError, so a caller can tell "not ported" from "not an image";
 bytes no decoder of the JAX package would recognize raise
 InvalidImageError as there.
@@ -67,7 +68,6 @@ def _is_video(buf: bytes) -> bool:
 #: (sniffer, what, ROADMAP queue 1 item) of each decoder not ported yet,
 #: at its place in the JAX package's dispatch order
 _NOT_PORTED_FIRST = (
-    (is_webp, "the WebP decoder", "item 6.2"),
     (is_avif, "the AVIF decoder", "item 6.5"),
 )
 _NOT_PORTED_LAST = (
@@ -120,6 +120,9 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
     if is_gif(buf):
         from .codecs.gif import GifDecoder
         return GifDecoder(buf, device=device)
+    if is_webp(buf):
+        from .codecs.webp import WebpDecoder
+        return WebpDecoder(buf, device=device)
     for sniff, what, item in _NOT_PORTED_FIRST:
         if sniff(buf):
             not_ported(what, item)
@@ -134,7 +137,6 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
 
 #: output extension -> (what, ROADMAP queue 1 item) of encoders not ported
 _ENCODERS_NOT_PORTED = {
-    ".webp": ("the WebP encoder", "item 4.7b"),
     ".avif": ("the AVIF encoder", "item 6.5"),
 }
 
@@ -146,6 +148,9 @@ def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,
     if e == ".gif":
         from .codecs.gif import GifEncoder
         return GifEncoder(decoded_by, icc_override=icc_override)
+    if e == ".webp":
+        from .codecs.webp import WebpEncoder
+        return WebpEncoder(decoded_by, icc_override=icc_override)
     if e in _ENCODERS_NOT_PORTED:
         not_ported(*_ENCODERS_NOT_PORTED[e])
     if e in (".mp4", ".webm"):

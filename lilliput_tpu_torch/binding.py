@@ -9,7 +9,14 @@ codec (``csrc/host/gif_codec.cpp``) and the JPEG 2000 Tier-1 coder
 (``csrc/host/jp2_t1.cpp``), byte-for-byte copies of the JAX package's
 ``native/src`` files held equal by tests, and the port's
 baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). None needs libjpeg,
-so the library builds on machines without it. ``png_filter.cpp`` uses
+so the library builds on machines without it.
+
+WebP's shim (``csrc/host/webp_shim.cpp``, a byte-for-byte copy of the JAX
+package's) includes libwebp's headers unconditionally, so it is a library
+of its own (``load_webp``), built and linked with ``-lwebp -lwebpmux
+-lwebpdemux`` only where ``WEBP_HEADER`` exists, as
+``lilliput_tpu/native/Makefile`` gates it; elsewhere ``load_webp`` raises
+``errors.HostLibraryMissingError`` and nothing takes another route. ``png_filter.cpp`` uses
 libdeflate where ``libdeflate.h`` exists; the build then links
 ``-ldeflate``, the decision of ``lilliput_tpu/native/Makefile``, and
 elsewhere ``lp_zlib_fast_available()`` is 0 and the PNG encoder deflates
@@ -35,9 +42,14 @@ HOST_SOURCES = (
 )
 #: the header whose presence compiles png_filter.cpp's libdeflate route
 LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
+WEBP_SOURCES = (os.path.join(_build.CSRC_DIR, "host", "webp_shim.cpp"),)
+#: the header whose presence builds the WebP library (the JAX package's
+#: Makefile gate)
+WEBP_HEADER = "/usr/include/webp/encode.h"
 
 _lock = threading.Lock()
 _lib = None
+_webp_lib = None
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -123,6 +135,35 @@ def _configure_jp2(lib: ctypes.CDLL, u8p, i32p) -> None:
         fn.restype = restype
 
 
+def _configure_webp(lib: ctypes.CDLL) -> None:
+    """The 12 lp_webp_* entry points of webp_shim.cpp, with the signatures
+    the JAX package's codecs/webp.py registers."""
+    c = ctypes
+    u8p, i32p = c.POINTER(c.c_uint8), c.POINTER(c.c_int32)
+    i32, vp = c.c_int32, c.c_void_p
+    sigs = {
+        "lp_webp_open": ([u8p, c.c_size_t, i32p], vp),
+        "lp_webp_icc": ([vp, u8p, i32], c.c_int),
+        "lp_webp_next_frame": ([vp, i32p], c.c_int),
+        "lp_webp_total_duration": ([vp], c.c_int),
+        "lp_webp_frame_pixels": ([vp, u8p, i32, i32, i32], c.c_int),
+        "lp_webp_free": ([vp], None),
+        "lp_webp_enc_new": ([u8p, i32, c.c_uint32, i32], vp),
+        "lp_webp_enc_add": ([vp, u8p, i32, i32, i32, i32, i32p, i32],
+                            c.c_int),
+        "lp_webp_enc_flush": ([vp, i32p, i32, u8p, c.c_size_t], c.c_long),
+        "lp_webp_enc_free": ([vp], None),
+        "lp_webp_bgra_to_yuv": ([u8p, i32, i32, i32, u8p, u8p, u8p, u8p],
+                                c.c_int),
+        "lp_webp_encode_yuv": ([u8p, u8p, u8p, u8p, i32, i32, i32p, i32,
+                                u8p, i32, u8p, c.c_size_t], c.c_long),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
 def build() -> str:
     """Build (or find) the host library; returns its path."""
     return _build.build_shared("liblilliput_torch_host", HOST_SOURCES,
@@ -138,6 +179,45 @@ def _libs() -> list:
     (its ``__has_include`` sees the header), as the JAX package's Makefile
     decides."""
     return ["-ldeflate"] if os.path.exists(LIBDEFLATE_HEADER) else []
+
+
+def _require_webp_header() -> None:
+    from .errors import HostLibraryMissingError
+    if not os.path.exists(WEBP_HEADER):
+        raise HostLibraryMissingError(
+            f"libwebp is not installed on this machine ({WEBP_HEADER} is "
+            "missing), so the WebP host codec (csrc/host/webp_shim.cpp) "
+            "cannot be built: WebP decode and encode need libwebp, "
+            "libwebpmux and libwebpdemux")
+
+
+def build_webp() -> str:
+    """Build (or find) the WebP library; returns its path. Raises
+    HostLibraryMissingError where libwebp's headers are absent."""
+    _require_webp_header()
+    return _build.build_shared("liblilliput_torch_webp", WEBP_SOURCES,
+                               lambda out: [
+                                   "g++", "-O3", "-fPIC", "-std=c++20",
+                                   "-march=native", "-shared", "-pthread",
+                                   "-Wl,--no-undefined", "-o", out,
+                                   *WEBP_SOURCES, "-lwebp", "-lwebpmux",
+                                   "-lwebpdemux"])
+
+
+def load_webp() -> ctypes.CDLL:
+    """The WebP library (lp_webp_*), built at first use. Raises
+    HostLibraryMissingError where WEBP_HEADER is absent, checked on every
+    call, so no WebP call runs on a machine without libwebp's headers."""
+    global _webp_lib
+    _require_webp_header()
+    if _webp_lib is not None:
+        return _webp_lib
+    with _lock:
+        if _webp_lib is None:
+            lib = ctypes.CDLL(build_webp())
+            _configure_webp(lib)
+            _webp_lib = lib
+    return _webp_lib
 
 
 def load() -> ctypes.CDLL:

@@ -29,6 +29,13 @@ class EncodeTimeoutError(LilliputError):
     """Encode timed out."""
 
 
+class HostLibraryMissingError(LilliputError):
+    """A system library a ported host stage links against is absent on this
+    machine (its header is missing, so the stage's shim was not built).
+    The code is ported; only the machine lacks the library, so this is
+    neither NotImplementedError nor a reason to take another route."""
+
+
 def not_ported(what: str, item: str):
     """Raise NotImplementedError for a part of the JAX package the port
     does not have yet, naming its ROADMAP queue 1 item: never an

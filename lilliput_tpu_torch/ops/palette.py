@@ -380,3 +380,53 @@ def composite_animation(idx_frames: torch.Tensor, drawn_masks: torch.Tensor,
         canvas = torch.where(valid, color, canvas)
         out[:, k] = canvas
     return out.view(torch.uint8).reshape(lead + (n, h, w, 4))
+
+
+def composite_animation_rgba(frames_full: torch.Tensor,
+                             drawn_masks: torch.Tensor,
+                             blend_flags: torch.Tensor,
+                             prev_disposal: torch.Tensor,
+                             prev_rect_masks: torch.Tensor) -> torch.Tensor:
+    """Composite animated-WebP-style clips (the JAX package's
+    composite_animation_rgba, a lax.scan): a loop over frames of
+    ``torch.where`` and ``ops.blend.alpha_blend_full`` over every
+    animation of the leading axes at once, so a batch needs no vmap.
+
+    Frames carry their own BGRA pixels, scattered to canvas shape on the
+    host (zeros outside the rect); per-frame blend is WebP's (0 = alpha
+    blend, 1 = replace) and disposal 1 clears the previous frame's rect to
+    transparent: the ops the streaming ImageOps path applies per frame
+    (ops.go:150-218, 431-461), so the outputs are byte-identical.
+
+      frames_full     (..., N, H, W, 4) u8
+      drawn_masks     (..., N, H, W)    bool
+      blend_flags     (..., N)          int (0 blend / 1 no-blend)
+      prev_disposal   (..., N)          int disposal of frame k-1 (0 for
+                                        k = 0)
+      prev_rect_masks (..., N, H, W)    bool rect of frame k-1
+
+    Returns (..., N, H, W, 4) u8 composited frames.
+    """
+    from .blend import alpha_blend_full
+    lead = tuple(frames_full.shape[:-4])
+    n, h, w = frames_full.shape[-4:-1]
+    na = 1
+    for d in lead:
+        na *= d
+    frames = frames_full.reshape(na, n, h, w, 4)
+    drawn = drawn_masks.reshape(na, n, h, w, 1)
+    prects = prev_rect_masks.reshape(na, n, h, w, 1)
+    blend = blend_flags.reshape(na, n, 1, 1, 1)
+    disp = prev_disposal.reshape(na, n, 1, 1, 1)
+    canvas = torch.zeros((na, h, w, 4), dtype=torch.uint8,
+                         device=frames.device)
+    out = torch.empty((na, n, h, w, 4), dtype=torch.uint8,
+                      device=frames.device)
+    for k in range(n):
+        frame, drawn_k = frames[:, k], drawn[:, k]
+        canvas = torch.where((disp[:, k] == 1) & prects[:, k], 0, canvas)
+        blended = alpha_blend_full(canvas, frame)
+        canvas = torch.where(drawn_k & (blend[:, k] == 0), blended, canvas)
+        canvas = torch.where(drawn_k & (blend[:, k] != 0), frame, canvas)
+        out[:, k] = canvas
+    return out.reshape(lead + (n, h, w, 4))

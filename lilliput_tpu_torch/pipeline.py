@@ -29,19 +29,23 @@ Five stages:
    switches the AREA tails to the byte-identical sequential-tap forms;
 4. JPEG output: BGR->YCbCr, 2x2 chroma downsample, fDCT and quantization
    (``ops/jpeg_kernels``; the luma fDCT alone for grayscale; the fDCT of
-   the three YCbCr planes in the direct mode). PNG output: the resized
-   planes packed to little-endian B, G, R, 255 int32 pixels
+   the three YCbCr planes in the direct mode). PNG and WebP output: the
+   resized planes packed to little-endian B, G, R, 255 int32 pixels
    (``_pack_pixels``; the direct mode colour-converts at the output size
-   first);
-5. host encode: Huffman (``encode_entropy``, csrc/host/jpeg_enc.cpp), or
-   PNG row filters and deflate (``encode_pixels``, codecs/png.py).
+   first); opaque lossy .webp then converts them to libwebp's exact
+   YUV420 planes on the device (the "yuv420" emit,
+   ``ops/color.webp_yuv420_from_packed``), 1.5 B/px to the host;
+5. host encode: Huffman (``encode_entropy``, csrc/host/jpeg_enc.cpp), PNG
+   row filters and deflate (``encode_pixels``, codecs/png.py), or libwebp
+   (``encode_yuv``, ``encode_pixels``; codecs/webp.py, built where
+   libwebp's headers exist, raising HostLibraryMissingError elsewhere).
 
 Stages 2-4 run on the pipeline's torch device, and the host threads run
 the serial stages. ``transcode_pipelined`` overlaps them: the end of each
 device step queues its outputs' copies into pinned host arrays and records
 a CUDA event, and the host waits on that event alone, so it encodes batch
 i-1 and decodes batch i+1 while step i runs. Everything outside the port
-(.webp output, optimize_coding, the libjpeg decode route) raises
+(optimize_coding, the libjpeg decode route, AVIF) raises
 NotImplementedError naming its ROADMAP queue 1 item; nothing falls back.
 
 Non-JPEG stills (``StillTranscodePipeline``): host decode of each source
@@ -59,7 +63,12 @@ GIF (``transcode_gif``, ``transcode_gif_batch``,
 frame (``ops.palette.composite_animation``), the Fit crop and exact AREA
 resize and the whole-animation quantizer (``quantize_animation``), over a
 leading animation axis for a batch of same-canvas animations, then the
-host LZW encode; the bytes equal the streaming ImageOps transform's.
+host LZW encode (or, for .webp output, libwebp's animation encoder of the
+resized frames); the bytes equal the streaming ImageOps transform's.
+Animated WebP (``transcode_webp``, ``transcode_webp_batch``) is the same
+shape: host libwebp frame decode, the alpha-blend/dispose composite
+(``ops.palette.composite_animation_rgba``), crop and resize on the
+device, the host animation encode.
 """
 
 from __future__ import annotations
@@ -78,6 +87,7 @@ from . import binding
 from .codecs import jpeg as J
 from .errors import DecodingFailedError
 from .errors import not_ported as _not_ported
+from .ops import color as C
 from .ops import jpeg_kernels as K
 from .ops import orient as O
 from .ops import palette as P
@@ -201,6 +211,21 @@ def _pack_pixels_a(bpl, gpl, rpl, apl) -> torch.Tensor:
         return torch.clamp(torch.round(x.to(torch.float32)), 0.0,
                            255.0).to(torch.int32)
     return u8(bpl) | (u8(gpl) << 8) | (u8(rpl) << 16) | (u8(apl) << 24)
+
+
+def _fused_emit(emit: str) -> str:
+    """The fused tails' emit for a serving emit: "yuv420" is a pass over
+    the packed pixels (_emit_post), so the tails emit "pixels" for it."""
+    return "pixels" if emit == "yuv420" else emit
+
+
+def _emit_post(out, emit: str):
+    """The device steps' epilogue (the JAX package's emit_post): the yuv420
+    emit converts the tail's packed BGRA pixels to libwebp's exact YUV420
+    planes, (y, u, v); any other emit keeps the tail's tuple."""
+    if emit == "yuv420":
+        return C.webp_yuv420_from_packed(out[0])
+    return out
 
 
 def _encode_or_pack(out, enc_qt_y, enc_qt_c, emit: str):
@@ -465,20 +490,40 @@ class _ServingPipelineBase:
     """Host-encode/orchestration stages of the serving pipelines.
 
     Subclasses provide `_host_decode` and `device_step` plus the attributes
-    the stages read: device, dst_w/dst_h, ncomp, enc_qt_y_np/enc_qt_c_np,
-    output_format, encode_options, _lib, and `_pool` (a dict, the store of
-    `_pooled`)."""
+    the stages read: device, dst_w/dst_h, ncomp, quality,
+    enc_qt_y_np/enc_qt_c_np, output_format, encode_options, _lib, and
+    `_pool` (a dict, the store of `_pooled`)."""
 
     @property
     def _emit(self) -> str:
-        """Device-step output: 'coefs' for JPEG output, else 'pixels'
-        (packed BGRA int32). The JAX package's 'yuv420' emit belongs to
-        .webp output (ROADMAP queue 1, item 4.7b)."""
-        return "coefs" if self.output_format == ".jpeg" else "pixels"
+        """Device-step output, from output_format: 'coefs' for JPEG output,
+        'yuv420' for opaque lossy WebP output (the device converts with
+        libwebp's exact import arithmetic and ships 1.5 B/px of planes to
+        the host instead of 4 B/px of packed BGRA, with the same .webp
+        bytes: ops.color.webp_yuv420_from_packed), else 'pixels' (packed
+        BGRA int32)."""
+        if self.output_format == ".jpeg":
+            return "coefs"
+        if self.output_format == ".webp" and self._webp_yuv_ok():
+            return "yuv420"
+        return "pixels"
 
-    def _pixel_channels(self) -> int:
-        """Channel count the PNG encoder writes for pixel outputs: JPEG
-        sources decode to opaque BGR, gray sources stay 1-channel."""
+    def _webp_yuv_ok(self) -> bool:
+        """The yuv420 emit serves OPAQUE lossy WebP: alpha-keeping sources
+        stay BGRA (libwebp's alpha-weighted chroma sums are another
+        arithmetic), and lossless (quality > 100) needs ARGB input."""
+        from .framebuffer import WEBP_QUALITY
+        if self._pixel_channels(".webp") != 3:
+            return False
+        return int(self.encode_options.get(WEBP_QUALITY,
+                                           int(self.quality))) <= 100
+
+    def _pixel_channels(self, fmt: str) -> int:
+        """Channel count the host still-encoders write for pixel outputs:
+        JPEG sources decode to opaque BGR; gray sources stay 1-channel in
+        PNG (libwebp takes 3 or 4 channels only)."""
+        if fmt == ".webp":
+            return 3
         return 1 if self.ncomp == 1 else 3
 
     def _host_decode(self, bufs: Sequence[bytes],
@@ -593,39 +638,64 @@ class _ServingPipelineBase:
                 list(ex.map(one, range(b)))
         return outs  # type: ignore[return-value]
 
+    def _webp_options(self) -> dict:
+        from .framebuffer import WEBP_QUALITY
+        o = dict(self.encode_options)
+        o.setdefault(WEBP_QUALITY, int(self.quality))
+        return o
+
     def encode_pixels(self, packed: np.ndarray,
                       iccs: Optional[Sequence[bytes]] = None,
                       workers: Optional[int] = None) -> List[bytes]:
-        """Host still-encode stage for .png output.
+        """Host still-encode stage for .png and .webp output.
 
         packed: (B, dst_h, dst_w) int32 BGRA from device_step (little-
-        endian byte 0 = B). Threaded like encode_entropy (zlib and the row
-        filter release the GIL); _pixel_channels decides how many of the
-        bytes are written. PNG_COMPRESSION of encode_options sets the
-        level (6 by default)."""
+        endian byte 0 = B). Threaded like encode_entropy (libwebp, zlib and
+        the row filter release the GIL); _pixel_channels decides how many
+        of the bytes are written. PNG_COMPRESSION of encode_options sets
+        the PNG level (6 by default); .webp takes encode_options with
+        WEBP_QUALITY defaulting to the pipeline's quality."""
         from .codecs.png import encode_png_pixels
+        from .codecs.webp import encode_webp_pixels
         from .framebuffer import PNG_COMPRESSION
         b = packed.shape[0]
         bgra = np.ascontiguousarray(packed).view(np.uint8).reshape(
             b, self.dst_h, self.dst_w, 4)
         outs: List[Optional[bytes]] = [None] * b
-        ch = self._pixel_channels()
+        fmt = self.output_format
+        ch = self._pixel_channels(fmt)
         level = int(self.encode_options.get(PNG_COMPRESSION, 6))
+        webp_opts = self._webp_options()
 
         def one(i: int):
             icc = (iccs[i] if iccs is not None else b"") or None
-            outs[i] = encode_png_pixels(
-                np.ascontiguousarray(bgra[i][:, :, :ch]), level, icc)
+            px = np.ascontiguousarray(bgra[i][:, :, :ch])
+            if fmt == ".webp":
+                outs[i] = encode_webp_pixels(px, webp_opts, icc)
+            else:
+                outs[i] = encode_png_pixels(px, level, icc)
 
-        n_workers = (workers if workers is not None
-                     else min(8, os.cpu_count() or 1))
-        if n_workers <= 1 or b <= 1:
-            for i in range(b):
-                one(i)
-        else:
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(n_workers) as ex:
-                list(ex.map(one, range(b)))
+        _tmap(one, range(b), workers if workers is not None
+              else min(8, os.cpu_count() or 1))
+        return outs  # type: ignore[return-value]
+
+    def encode_yuv(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                   iccs: Optional[Sequence[bytes]] = None,
+                   workers: Optional[int] = None) -> List[bytes]:
+        """Host still-encode stage of the yuv420 emit: libwebp encodes
+        straight from the device's planes (the same bytes as the BGRA
+        route, see _emit). Threaded like encode_pixels."""
+        from .codecs.webp import encode_webp_yuv
+        b = y.shape[0]
+        outs: List[Optional[bytes]] = [None] * b
+        opts = self._webp_options()
+
+        def one(i: int):
+            icc = (iccs[i] if iccs is not None else b"") or None
+            outs[i] = encode_webp_yuv(y[i], u[i], v[i], opts, icc)
+
+        _tmap(one, range(b), workers if workers is not None
+              else min(8, os.cpu_count() or 1))
         return outs  # type: ignore[return-value]
 
     def _encode_outputs(self, arrs: Sequence[np.ndarray],
@@ -633,6 +703,8 @@ class _ServingPipelineBase:
         """Dispatch the host encode stage by output format."""
         if self.output_format == ".jpeg":
             return self.encode_entropy(*arrs, iccs=iccs)
+        if self.output_format == ".webp" and len(arrs) == 3:
+            return self.encode_yuv(*arrs, iccs=iccs)  # yuv420 emit
         return self.encode_pixels(arrs[0], iccs=iccs)
 
     # -- end to end -----------------------------------------------------------
@@ -751,10 +823,13 @@ class JpegTranscodePipeline(_ServingPipelineBase):
     dct_scale 2 or 4 with "direct" (a reduced decode from the top-left kxk
     coefficients, which the host alone ships). output_format ".jpeg" (the
     device re-encodes to quantized coefficients, the host Huffman-codes
-    them) or ".png" (the device emits packed BGRA pixels at the
+    them), ".png" (the device emits packed BGRA pixels at the
     destination size, the host filters and deflates them; encode_options
-    may set PNG_COMPRESSION). .webp output and optimize_coding raise
-    NotImplementedError.
+    may set PNG_COMPRESSION) or ".webp" (lossy: the device emits libwebp's
+    YUV420 planes, the host encodes them; lossless, WEBP_QUALITY > 100:
+    BGRA pixels; the host encode raises HostLibraryMissingError where
+    libwebp is absent, the construction and the device step need none).
+    optimize_coding raises NotImplementedError.
 
     device: the torch device of the dense stages, "cuda" by default; the
     CPU runs only when asked for (device="cpu"), with the decode kernels'
@@ -779,8 +854,6 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             # AREA-matrix form (grayscale's coercion below must not slip
             # past it)
             raise ValueError("dct_scale>1 requires method=AREA")
-        if fmt == ".webp":
-            _not_ported("output_format='.webp'", "item 4.7b")
         if optimize_coding:
             _not_ported("optimize_coding (optimal Huffman tables)",
                         "item 2, host encode")
@@ -1046,7 +1119,8 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         """One batch through the dense stages; returns a tuple of device
         tensors, asynchronously on CUDA: for JPEG output the quantized
         coefficients, int16, (yq, cbq, crq) or (yq,) for grayscale; for PNG
-        output (packed,), the (B, dst_h, dst_w) BGRA int32 pixels. Takes
+        and lossless WebP output (packed,), the (B, dst_h, dst_w) BGRA int32
+        pixels; for lossy WebP the u8 planes (y, u, v) of them. Takes
         decode_entropy's output: colour pipelines (ys, cbs, crs, qty,
         qtc), grayscale (ys, qty); the tables may be any numeric dtype
         (fold_qtables converts them on the device).
@@ -1054,29 +1128,30 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         instead of the kernels (the direct mode runs none)."""
         g = self.geom
         emit = self._emit
+        fused = _fused_emit(emit)
         if self.ncomp == 1:
             qty = cbs  # the (ys, qty) calling convention
-            return _fused_jpeg_fit_gray_impl(
+            return _emit_post(_fused_jpeg_fit_gray_impl(
                 self._to_device(ys), self._to_device(qty),
                 self.enc_qt_y, src_w=g.width, src_h=g.height,
                 dst_w=self.dst_w, dst_h=self.dst_h,
                 window=self.window_static, orientation=self.orientation,
                 method=self.method, dct_scale=self.dct_scale, plain=plain,
-                emit=emit)
+                emit=fused), emit)
         args = (self._to_device(ys), self._to_device(cbs),
                 self._to_device(crs),
                 self._to_device(qty), self._to_device(qtc),
                 self.enc_qt_y, self.enc_qt_c)
         if self.chroma_mode == "direct":
-            return _fused_jpeg_fit_ycc_impl(
+            return _emit_post(_fused_jpeg_fit_ycc_impl(
                 *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
                 dst_h=self.dst_h, window=self.window_static,
-                dct_scale=self.dct_scale, emit=emit)
-        return _fused_jpeg_fit_impl(
+                dct_scale=self.dct_scale, emit=fused), emit)
+        return _emit_post(_fused_jpeg_fit_impl(
             *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
             dst_h=self.dst_h, window=self.window_static, h2=g.h2, v2=g.v2,
             orientation=self.orientation, method=self.method, plain=plain,
-            emit=emit)
+            emit=fused), emit)
 
     # -- end to end --------------------------------------------------------------
 
@@ -1095,21 +1170,24 @@ def _synthetic_still(fmt: str, w: int, h: int, channels: int = 3) -> bytes:
     """Zero-pixel sample of a still format and geometry: the warm() input
     of the pixel-domain pipelines, as codecs.jpeg.synthetic_jpeg is of the
     JPEG ones. The channel count is part of the serving signature (the PNG
-    colour type), so it is written faithfully."""
+    colour type, the WebP alpha flag), so it is written faithfully."""
     arr = np.zeros((h, w, channels), np.uint8)
     if fmt == "png":
         from .codecs.png import encode_png_pixels
         return encode_png_pixels(arr, 1)
     if fmt == "webp":
-        _not_ported("a synthesized .webp warm-up sample (the WebP encoder)",
-                    "item 4.7b")
+        from .codecs.webp import encode_webp_pixels
+        from .framebuffer import WEBP_QUALITY
+        # quality > 100 is lossless, which keeps a 4th channel's alpha
+        # flag in the container deterministically
+        return encode_webp_pixels(arr, {WEBP_QUALITY: 101})
     raise ValueError(f"unsupported warm still format {fmt!r}")
 
 
 class StillTranscodePipeline(_ServingPipelineBase):
     """Batched Fit transcoder for same-signature NON-JPEG still sources
-    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, JPEG 2000: anything
-    the port's new_decoder reads but JPEG). A JPEG 2000 source's CPU
+    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, WebP, JPEG 2000:
+    anything the port's new_decoder reads but JPEG). A JPEG 2000 source's CPU
     decoder runs its Tier-2 and Tier-1 on the host and its wavelet and
     colour transforms as torch ops on the host CPU.
 
@@ -1121,13 +1199,15 @@ class StillTranscodePipeline(_ServingPipelineBase):
     _host_cpu_device), into one pinned (B, H, W, C) u8 array. One device
     step then orients, crops, resizes and encodes the batch
     (_fused_still_fit_impl, torch ops: no kernel), and the host
-    Huffman-codes or PNG-encodes each output.
+    Huffman-codes, PNG-encodes or WebP-encodes each output.
 
-    Gray (1-channel) sources give 1-component JPEGs and gray PNGs;
-    4-channel sources keep alpha in .png output (JPEG output drops it).
-    Animated sources transcode their first frame, what the reference's
-    Transform emits for animated input with still output. .webp output
-    (item 4.7b) and optimize_coding (item 2) raise NotImplementedError.
+    Gray (1-channel) sources give 1-component JPEGs and gray PNGs (3
+    channels in WebP); 4-channel sources keep alpha in .png and .webp
+    output (JPEG output drops it), and take the BGRA pixel emit for .webp,
+    where opaque sources take the yuv420 emit. Animated sources transcode
+    their first frame, what the reference's Transform emits for animated
+    input with still output. optimize_coding (item 2) raises
+    NotImplementedError.
 
     Usage:
         pipe = StillTranscodePipeline(sample_png, 256, 256, quality=85)
@@ -1147,8 +1227,6 @@ class StillTranscodePipeline(_ServingPipelineBase):
                 "JPEG sources: use JpegTranscodePipeline (the "
                 "coefficient-domain path) or MultiGeometryPipeline")
         fmt = _normalize_output_format(output_format)
-        if fmt == ".webp":
-            _not_ported("output_format='.webp'", "item 4.7b")
         if optimize_coding:
             _not_ported("optimize_coding (optimal Huffman tables)",
                         "item 2, host encode")
@@ -1258,25 +1336,30 @@ class StillTranscodePipeline(_ServingPipelineBase):
         batch, iccs = self.decode_pixels(bufs, pool=True, errors=errors)
         return (batch,), iccs
 
-    def _pixel_channels(self) -> int:
-        """Alpha and gray survive .png output."""
+    def _pixel_channels(self, fmt: str) -> int:
+        """Alpha survives .png and .webp output, gray .png output (libwebp
+        takes 3 or 4 channels only)."""
+        if self.channels == 1 and fmt != ".png":
+            return 3
         return self.channels
 
     # -- device stage ---------------------------------------------------------
 
     def device_step(self, px):
         """One H2D copy of the pixel batch (non-blocking) and the fused
-        still tail on the pipeline's device (no kernel); returns a tuple
-        of device tensors, as JpegTranscodePipeline.device_step."""
-        return _fused_still_fit_impl(
+        still tail on the pipeline's device (no kernel), then the yuv420
+        emit's conversion where it applies; returns a tuple of device
+        tensors, as JpegTranscodePipeline.device_step."""
+        emit = self._emit
+        return _emit_post(_fused_still_fit_impl(
             self._to_device(px), self.enc_qt_y, self.enc_qt_c,
             src_w=self.src_w, src_h=self.src_h, dst_w=self.dst_w,
             dst_h=self.dst_h, method=self.method,
-            orientation=self.orientation, emit=self._emit)
+            orientation=self.orientation, emit=_fused_emit(emit)), emit)
 
 
 # ---------------------------------------------------------------------------
-# animated GIF -> GIF: transcode_gif, transcode_gif_batch and
+# animated GIF and WebP: transcode_gif(_batch), transcode_webp(_batch) and
 # AnimatedTranscodePipeline
 # ---------------------------------------------------------------------------
 
@@ -1291,10 +1374,6 @@ def _anim_crop_resize(frames: torch.Tensor, crop, dst_w: int, dst_h: int):
 
 #: quantize_animation's per-frame inputs in a plan, in argument order
 _PLAN_KEYS = ("palettes", "counts", "trans", "clear", "use_prev")
-
-#: what GIF -> .webp needs (JAX: _gif_emit_webp) and its ROADMAP item
-_GIF_TO_WEBP = ("GIF -> .webp (the WebP encoder, _gif_emit_webp)",
-                "item 4.7b")
 
 
 def transcode_gif(buf: bytes, dst_w: int, dst_h: int, fit: bool = False,
@@ -1349,6 +1428,33 @@ def _gif_group_plans(prepped, members, nb: int, bb: int):
     inert = _gif_quantize_plan(None, [], nb)
     return encs, plans, {k: np.stack(v + [inert[k]] * (bb - len(members)))
                          for k, v in stacked.items()}
+
+
+def _host_frame(px: np.ndarray, duration_ms: float):
+    """A host frame as a CPU Framebuffer for the host encoders."""
+    from .framebuffer import Framebuffer
+    fb = Framebuffer(torch.from_numpy(np.ascontiguousarray(px)))
+    fb.duration = duration_ms / 1000.0
+    return fb
+
+
+def _gif_emit_webp(dec, metas, host_frames: np.ndarray) -> bytes:
+    """GIF -> WebP: one libwebp animation encoder fed the composited and
+    resized host frames with GIF's disposal mapped onto WebP's, every
+    frame NO_BLEND (the JAX package's _gif_emit_webp)."""
+    from .codecs.webp import WebpEncoder
+    from .framebuffer import BlendMethod, DisposeMethod
+    enc = WebpEncoder(dec)
+    try:
+        for i, m in enumerate(metas):
+            fb = _host_frame(host_frames[i], m.delay_cs * 10)
+            fb.blend = BlendMethod.NO_BLEND
+            fb.dispose = (DisposeMethod.DISPOSE_TO_BACKGROUND_COLOR
+                          if m.disposal == 2 else DisposeMethod.NO_DISPOSE)
+            enc.encode(fb, {})
+        return enc.encode(None, {})
+    finally:
+        enc.close()
 
 
 def _gif_emit_frames(enc, metas, plans, idx_np: np.ndarray,
@@ -1426,24 +1532,23 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
 
     Animations are grouped by (canvas, frame bucket); each group (in
     chunks of at most _MAX_ANIM_LANES) pads its animation count to
-    ops.palette.frame_bucket and runs one composite + resize + quantize
-    over a (B, N, H, W, ...) stack on `device`. Each animation's bytes
-    equal its own call's: the batched ops apply the same exact ops per
-    animation, and the host LZW encode is per animation. Host LZW
-    decode/encode and the input assembly run on a thread pool (the C++
-    codec releases the GIL).
+    ops.palette.frame_bucket and runs one composite + resize (+ quantize
+    for .gif output) over a (B, N, H, W, ...) stack on `device`. Each
+    animation's bytes equal its own call's: the batched ops apply the same
+    exact ops per animation, and the host encode is per animation. Host
+    LZW decode, the host encode (LZW, or libwebp for .webp) and the input
+    assembly run on a thread pool (the C++ codecs release the GIL).
 
     stage_times, when a dict, gets the ms of each stage appended under
     its name: "lzw_decode" (host LZW and scatter, once per call), then
-    per group "stack", "h2d", "composite", "resize", "plan", "quantize",
-    "d2h" and "lzw_encode" (see utils.StageClock)."""
+    per group "stack", "h2d", "composite", "resize", then for .gif
+    "plan", "quantize", "d2h" and "lzw_encode", for .webp "d2h" and
+    "webp_encode" (see utils.StageClock)."""
     from .codecs.gif import GifDecoder
 
     if file_type not in (".gif", ".webp"):
         raise DecodingFailedError(
             f"GIF batch transcode encodes to .gif/.webp, not {file_type}")
-    if file_type == ".webp":
-        _not_ported(*_GIF_TO_WEBP)
     _check_mesh(mesh)
     dev = resolve_device(device)
     n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
@@ -1476,6 +1581,19 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
         with clock("resize", device=True):
             resized = _anim_crop_resize(comp, crop, dst_w, dst_h)
         del inputs, comp  # the quantizer's transient gets their memory
+        if file_type == ".webp":
+            with clock("d2h"):
+                host_px = resized[:len(members)].cpu().numpy()
+
+            def emit_webp(k: int) -> bytes:
+                dec, _, metas = prepped[members[k]]
+                return _gif_emit_webp(dec, metas, host_px[k])
+
+            with clock("webp_encode"):
+                results = _tmap(emit_webp, range(len(members)), n_workers)
+            for k, i in enumerate(members):
+                out[i] = results[k]
+            continue
         with clock("plan"):
             encs, plans_list, stacked = _gif_group_plans(prepped, members,
                                                          nb, bb)
@@ -1497,23 +1615,178 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     return out  # type: ignore[return-value]
 
 
+def _rect_mask(x: int, y: int, w: int, h: int, cw: int, ch: int):
+    """(ch, cw) bool mask of a frame rect clipped to the canvas: a negative
+    offset shrinks the extent by the clipped-off margin (GifDecoder's
+    _clip_rect), so the mask and the copied slice agree. Returns (mask,
+    (x2, y2, w2, h2)) with w2 or h2 <= 0 for a rect off the canvas."""
+    x2, y2 = max(x, 0), max(y, 0)
+    w2 = min(w - (x2 - x), cw - x2)
+    h2 = min(h - (y2 - y), ch - y2)
+    m = np.zeros((ch, cw), bool)
+    if w2 > 0 and h2 > 0:
+        m[y2:y2 + h2, x2:x2 + w2] = True
+    return m, (x2, y2, w2, h2)
+
+
+def _webp_anim_inputs(buf: bytes):
+    """Host assembly for the WebP composite: decode every frame's BGRA
+    pixels, scatter each to canvas shape with its drawn mask and the
+    previous frame's rect and disposal, pad the frame axis to
+    ops.palette.frame_bucket (inert frames draw nothing). Returns
+    (decoder, inputs for composite_animation_rgba, durations_ms): the unit
+    transcode_webp_batch stacks over a leading animation axis. The decoder
+    hands out no frame tensor here (next_frame reads on the host), so it
+    is a CPU one."""
+    from .codecs.webp import WebpDecoder
+    dec = WebpDecoder(buf, device="cpu")
+    cw, ch = dec._w, dec._hgt
+    frames, drawn, blends, pdisp, prects, durations = [], [], [], [], [], []
+    prev_rect = None
+    prev_disposal = 0
+    while True:
+        frame = dec.next_frame(4)
+        if frame is None:
+            break
+        px, (x, y, w, h, dur_ms, dispose, blend, _) = frame
+        full = np.zeros((ch, cw, 4), np.uint8)
+        dm, (x2, y2, w2, h2) = _rect_mask(x, y, w, h, cw, ch)
+        if w2 > 0 and h2 > 0:
+            full[y2:y2 + h2, x2:x2 + w2] = px[y2 - y:y2 - y + h2,
+                                              x2 - x:x2 - x + w2]
+        pm = (np.zeros((ch, cw), bool) if prev_rect is None
+              else _rect_mask(*prev_rect, cw, ch)[0])
+        frames.append(full)
+        drawn.append(dm)
+        blends.append(blend)
+        pdisp.append(prev_disposal)
+        prects.append(pm)
+        durations.append(dur_ms)
+        prev_rect = (x, y, w, h)
+        prev_disposal = dispose
+    if not frames:
+        raise DecodingFailedError("webp has no frames")
+    for _ in range(len(frames), P.frame_bucket(len(frames))):
+        frames.append(np.zeros((ch, cw, 4), np.uint8))
+        drawn.append(np.zeros((ch, cw), bool))
+        blends.append(1)
+        pdisp.append(0)
+        prects.append(np.zeros((ch, cw), bool))
+    inputs = dict(frames=np.stack(frames), drawn=np.stack(drawn),
+                  blends=np.array(blends, np.int32),
+                  pdisp=np.array(pdisp, np.int32), prects=np.stack(prects))
+    return dec, inputs, durations
+
+
+def _webp_emit(dec, host_frames: np.ndarray, durations,
+               encode_options) -> bytes:
+    """The host animation encode of one animation's resized frames."""
+    from .codecs.webp import WebpEncoder
+    enc = WebpEncoder(dec)
+    try:
+        for i, dur in enumerate(durations):
+            enc.encode(_host_frame(host_frames[i], dur),
+                       encode_options or {})
+        return enc.encode(None, encode_options or {})
+    finally:
+        enc.close()
+
+
+_WEBP_INPUTS = ("frames", "drawn", "blends", "pdisp", "prects")
+
+
+def _webp_batch_to_pixels(frames, drawn, blends, pdisp, prects, crop,
+                          dst_w: int, dst_h: int) -> torch.Tensor:
+    """composite_animation_rgba + Fit crop + exact AREA resize of a batch
+    of WebP-class animations (leading axis = animation)."""
+    comp = P.composite_animation_rgba(frames, drawn, blends, pdisp, prects)
+    return _anim_crop_resize(comp, crop, dst_w, dst_h)
+
+
+def transcode_webp(buf: bytes, dst_w: int, dst_h: int, fit: bool = False,
+                   encode_options=None, device="cuda") -> bytes:
+    """Whole-animation transcode of one WebP: transcode_webp_batch of the
+    one animation. Host libwebp frame decode, the alpha-blend and dispose
+    composite of every frame on `device`, one crop + AREA resize, the host
+    animation encode; its bytes equal the streaming ImageOps.transform's."""
+    return transcode_webp_batch([buf], dst_w, dst_h, fit=fit,
+                                encode_options=encode_options,
+                                device=device)[0]
+
+
+def transcode_webp_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
+                         fit: bool = False, encode_options=None,
+                         workers: Optional[int] = None, mesh=None,
+                         device="cuda",
+                         stage_times: Optional[Dict[str, List[float]]] = None
+                         ) -> List[bytes]:
+    """Cross-animation WebP transcode (transcode_gif_batch's counterpart
+    for WebP sources): animations grouped by (canvas, frame bucket), in
+    chunks of at most _MAX_ANIM_LANES, the animation count padded to a
+    bucket, one composite + crop + resize and one D2H per group, each
+    animation's bytes equal to its own transcode_webp's. Host libwebp
+    decode and encode on a thread pool.
+
+    stage_times, when a dict, gets the ms of "webp_decode" (host decode
+    and scatter, once per call), then per group "stack", "h2d",
+    "composite", "resize", "d2h" and "webp_encode"."""
+    _check_mesh(mesh)
+    dev = resolve_device(device)
+    n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
+    clock = StageClock(stage_times, dev)
+    with clock("webp_decode"):
+        prepped = _tmap(_webp_anim_inputs, bufs, n_workers)
+    groups = _anim_batch_groups(
+        prepped, lambda it: (it[0]._w, it[0]._hgt, it[1]["frames"].shape[0]))
+
+    out: List[Optional[bytes]] = [None] * len(bufs)
+    for (cw, ch, _), members in [(k, c) for k, g in groups.items()
+                                 for c in _chunk_members(g)]:
+        bb = P.frame_bucket(len(members))  # animation-count bucket
+        with clock("stack"):
+            stack = _stack_group(prepped, members, _WEBP_INPUTS, bb)
+        with clock("h2d", device=True):
+            inputs = [torch.from_numpy(stack[k]).to(dev)
+                      for k in _WEBP_INPUTS]
+        with clock("composite", device=True):
+            comp = P.composite_animation_rgba(*inputs)
+        crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
+        with clock("resize", device=True):
+            resized = _anim_crop_resize(comp, crop, dst_w, dst_h)
+        del inputs, comp
+        with clock("d2h"):
+            host_px = resized[:len(members)].cpu().numpy()
+
+        def emit(k: int) -> bytes:
+            dec, _, durs = prepped[members[k]]
+            return _webp_emit(dec, host_px[k], durs, encode_options)
+
+        with clock("webp_encode"):
+            results = _tmap(emit, range(len(members)), n_workers)
+        for k, i in enumerate(members):
+            out[i] = results[k]
+    return out  # type: ignore[return-value]
+
+
 class AnimatedTranscodePipeline:
     """Serving front for ANIMATED sources whose output keeps the animation,
     what the reference's Transform does for animated input with .gif or
     .webp output (ops.go:302-374 loops every frame through the encoder).
 
-    GIF sources with .gif output ride the cross-animation batch
-    (transcode_gif_batch): same-signature animations share one device
-    composite, resize and quantize, byte-identical to per-animation
-    transcode_gif and to the streaming ImageOps path. A failed group falls
-    back to per-item transcode, so a malformed animation fails only its
-    own slot.
+    GIF sources (.gif or .webp output) ride the cross-animation batch
+    (transcode_gif_batch) and WebP sources (.webp output)
+    transcode_webp_batch: same-signature animations share one device
+    composite and resize (and quantize for .gif), byte-identical to
+    per-animation transcode_gif / transcode_webp and to the streaming
+    ImageOps path. A failed group falls back to per-item transcode, so a
+    malformed animation fails only its own slot.
 
     output_format: ".gif" (GIF sources; the GIF encoder reuses the source
-    palette), ".webp" or ".avif", as in the JAX package. Not ported yet:
-    .webp output of GIF sources (item 4.7b), WebP sources (item 6.2), AVIF
-    sources (item 6.5) and a mesh (item 9); each raises
-    NotImplementedError naming its item (per item for the first three).
+    palette), ".webp" (GIF and WebP sources) or ".avif", as in the JAX
+    package. The .webp host encode raises HostLibraryMissingError where
+    libwebp is absent. Not ported yet: AVIF sources (item 6.5) and a mesh
+    (item 9); each raises NotImplementedError naming its item (AVIF per
+    item).
     """
 
     _FORMATS = (".gif", ".webp", ".avif")
@@ -1549,8 +1822,9 @@ class AnimatedTranscodePipeline:
                     ".gif output requires a GIF source (the GIF encoder "
                     "reuses the source palette)" if fmt == ".gif" else
                     f"WebP sources encode to .webp, not {fmt}")
-            _not_ported("the animated WebP transcode (transcode_webp)",
-                        "item 6.2")
+            return transcode_webp(buf, self.dst_w, self.dst_h, fit=self.fit,
+                                  encode_options=self.encode_options,
+                                  device=self.device)
         if A.is_avif(buf):
             if fmt not in (".webp", ".avif"):
                 raise DecodingFailedError(
@@ -1572,28 +1846,37 @@ class AnimatedTranscodePipeline:
         index. With return_exceptions=True the failing items' slots hold
         the exception objects; with the default False the first failure
         re-raises after the healthy items finish. stage_times goes to
-        transcode_gif_batch (the per-item path is not timed)."""
+        transcode_gif_batch and transcode_webp_batch (the per-item path is
+        not timed)."""
         from . import api as A
         out: List[Optional[bytes]] = [None] * len(bufs)
         errors: Dict[int, Exception] = {}
         rest = list(range(len(bufs)))
-        if self.output_format == ".gif":
-            members = [i for i in rest if A.is_gif(bufs[i])]
-            if len(members) > 1:
-                try:
-                    res = transcode_gif_batch(
-                        [bufs[i] for i in members], self.dst_w, self.dst_h,
-                        fit=self.fit, file_type=self.output_format,
-                        workers=self.workers, device=self.device,
-                        stage_times=stage_times)
-                except Exception:
-                    # one hostile member poisoned the group: the per-item
-                    # path below isolates the failure to its own index
-                    res = None
-                if res is not None:
-                    for i, r in zip(members, res):
-                        out[i] = r
-                    rest = [i for i in rest if out[i] is None]
+
+        def run_batch(sniff, batch_fn, **kw):
+            nonlocal rest
+            members = [i for i in rest if sniff(bufs[i])]
+            if len(members) <= 1:
+                return
+            try:
+                res = batch_fn([bufs[i] for i in members], self.dst_w,
+                               self.dst_h, fit=self.fit,
+                               workers=self.workers, device=self.device,
+                               stage_times=stage_times, **kw)
+            except Exception:
+                # one hostile member poisoned the group: the per-item
+                # path below isolates the failure to its own index
+                return
+            for i, r in zip(members, res):
+                out[i] = r
+            rest = [i for i in rest if out[i] is None]
+
+        if self.output_format in (".gif", ".webp"):
+            run_batch(A.is_gif, transcode_gif_batch,
+                      file_type=self.output_format)
+        if self.output_format == ".webp":
+            run_batch(A.is_webp, transcode_webp_batch,
+                      encode_options=self.encode_options)
         n_workers = (self.workers if self.workers is not None
                      else min(4, os.cpu_count() or 1))
 
@@ -1630,13 +1913,15 @@ class MultiGeometryPipeline:
     signature; eager torch compiles nothing, so here a "compile"
     (serving.geometry_compiles) is a pipeline built, and each pipeline
     keeps its own resize tables (ops/resize caches them per geometry).
-    Animated GIF sources with .gif output go to AnimatedTranscodePipeline.
+    Animated GIF and WebP sources with .gif (GIF only) or .webp output go
+    to AnimatedTranscodePipeline; still WebP sources to a
+    StillTranscodePipeline. Where libwebp is absent, each WebP source and
+    each .webp output fails in its own slot with HostLibraryMissingError.
 
     device: "cuda" by default (it raises without a card), passed to every
     pipeline built; device="cpu" runs the fronts on the CPU. Not ported:
-    a mesh (item 9); .webp output raises per request (item 4.7b), as do
-    sources the port cannot decode (WebP 6.2, AVIF 6.5, video 6.6),
-    each in its own slot."""
+    a mesh (item 9) and sources the port cannot decode (AVIF 6.5, video
+    6.6), which fail in their own slots."""
 
     def __init__(self, dst_w: int, dst_h: int, quality: int = 85,
                  method: str = R.AREA, max_geometries: int = 64,
@@ -1765,8 +2050,9 @@ class MultiGeometryPipeline:
         """Build (and run once) the pipelines of an expected signature set
         before traffic arrives. Each spec is a sample image (bytes), a
         JPEG geometry tuple (width, height[, subsampling[, gray]]) warmed
-        through codecs.jpeg.synthetic_jpeg, or a still tuple ("png",
-        width, height[, channels]) warmed through a zero-pixel PNG.
+        through codecs.jpeg.synthetic_jpeg, or a still tuple ("png" or
+        "webp", width, height[, channels]) warmed through a zero-pixel
+        PNG or lossless WebP.
         Animated specs run every lane bucket of the cross-animation batch
         ({1} and ops.palette.frame_bucket of 2..32 lanes) unless
         anim_lane_buckets names some. Raises ValueError when the specs

@@ -43,6 +43,11 @@ animation axis, the streaming and batched decodes, transcode_gif_batch
 (also equal to per-animation transcode_gif) and ImageOps.transform's
 .gif, .png and .thumbhash bytes.
 
+WebP (no kernel of its own): the yuv420 emit on the card equals the CPU
+over every u8 value and at odd sizes, the .webp step launches decode420
+once with planes equal to the CPU step's, and the animated composite and
+its resize equal the CPU's (0 differing values).
+
 JPEG 2000 (no kernel: the wavelet, colour transforms and decode tail are
 torch ops): decode_to and the .jp2 encode on the card equal the CPU's
 (0 differing values, equal bytes) on small lossless, 9/7, tiled and
@@ -50,6 +55,7 @@ sYCC streams, and each ops/wavelet function on the card equals the CPU
 on random int64 and float64 stacks, bit for bit."""
 
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -771,7 +777,14 @@ def test_multigeometry_on_card_equals_per_signature_pipelines():
         "dequant_idct_blocks": 1}
     assert [isinstance(g, Exception) for g in got] == [
         k == "broken" for k in labels]
-    assert "item 6.2" in str(got[bufs.index(webp)])
+    # a WebP header without a frame: not a valid WebP where libwebp is,
+    # the missing library's error where it is not
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.errors import (HostLibraryMissingError,
+                                           InvalidImageError)
+    assert isinstance(got[bufs.index(webp)], (
+        InvalidImageError if os.path.exists(binding.WEBP_HEADER)
+        else HostLibraryMissingError))
     cpu = MultiGeometryPipeline(96, 96, device="cpu").transcode(
         bufs, return_exceptions=True)
     for label in set(labels) - {"broken"}:
@@ -870,3 +883,68 @@ def test_wavelet_on_card_equals_cpu(reversible):
         for a, b in zip(getattr(W, fn)(*args),
                         getattr(W, fn)(*[a.cuda() for a in args])):
             assert torch.equal(a, b.cpu()), fn
+
+
+@pytest.mark.gpu
+def test_webp_yuv420_emit_on_card_equals_cpu():
+    """ops.color.webp_yuv420_from_packed on the card equals the CPU (atol
+    0) over every u8 value, at odd sizes and over a leading batch axis;
+    JpegTranscodePipeline(".webp")'s device step launches decode420 once
+    and its planes equal the CPU step's."""
+    _need_card()
+    from lilliput_tpu_torch.ops import color as C
+    rng = np.random.default_rng(16)
+    sweep = np.zeros((2, 512), np.int32)
+    for v in range(256):
+        sweep[:, 2 * v:2 * v + 2] = v * 0x010101
+    stacks = [sweep[None]] + [
+        rng.integers(0, 1 << 24, (b, h, w)).astype(np.int32)
+        for b, h, w in ((1, 1, 1), (1, 5, 7), (3, 33, 47), (2, 256, 256))]
+    for packed in stacks:
+        packed = torch.from_numpy(packed | np.int32(-16777216))
+        for a, b in zip(C.webp_yuv420_from_packed(packed),
+                        C.webp_yuv420_from_packed(packed.cuda())):
+            assert torch.equal(a, b.cpu())
+    with open(FIXTURE, "rb") as f:
+        buf = f.read()
+    card = JpegTranscodePipeline(buf, 96, 96, output_format=".webp")
+    cpu = JpegTranscodePipeline(buf, 96, 96, output_format=".webp",
+                                device="cpu")
+    assert card._emit == "yuv420"
+    args, _ = card._host_decode([buf] * 2)
+    DK.reset_launches()
+    got = card.device_step(*args)
+    torch.cuda.synchronize()
+    assert dict(DK.launches)["decode420"] == 1
+    assert sum(dict(DK.launches).values()) == 1
+    want = cpu.device_step(*cpu._host_decode([buf] * 2)[0])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_webp_composite_on_card_equals_cpu():
+    """ops.palette.composite_animation_rgba and the batch's crop + resize
+    on the card equal the CPU's (atol 0) over an animation axis with
+    partial alpha, both blends and both disposals."""
+    _need_card()
+    from lilliput_tpu_torch import pipeline as TP
+    from lilliput_tpu_torch.ops import palette as P
+    rng = np.random.default_rng(8)
+    n, h, w = 9, 37, 45
+    frames = rng.integers(0, 256, (3, n, h, w, 4)).astype(np.uint8)
+    frames[..., 3] = rng.choice([0, 77, 200, 255], (3, n, h, w))
+    inputs = [torch.from_numpy(a) for a in (
+        frames, rng.random((3, n, h, w)) < 0.7,
+        rng.integers(0, 2, (3, n)).astype(np.int32),
+        rng.integers(0, 2, (3, n)).astype(np.int32),
+        rng.random((3, n, h, w)) < 0.5)]
+    inputs[3][:, 0] = 0
+    cpu = P.composite_animation_rgba(*inputs)
+    gpu = P.composite_animation_rgba(*[a.cuda() for a in inputs])
+    assert torch.equal(cpu, gpu.cpu())
+    crop = TP.fit_rect(w, h, 16, 16)
+    assert torch.equal(
+        TP._webp_batch_to_pixels(*inputs, crop, 16, 16),
+        TP._webp_batch_to_pixels(*[a.cuda() for a in inputs], crop, 16,
+                                 16).cpu())

@@ -5,15 +5,16 @@ package's MultiGeometryPipeline:
   orientations and grayscale, PNGs (RGB, RGBA, gray), a GIF and broken
   buffers: the JAX package's bytes in input order, each group equal to its
   per-signature pipeline, the failures in the same slots;
-* what the JAX package decodes and the port does not (WebP, the libjpeg
+* what the JAX package decodes and the port does not (the libjpeg
   fallback of a truncated scan: ROADMAP queue 3 entry 4) fails only its
-  own slot;
+  own slot, and WebP sources equal the JAX package's outputs;
 * stats() after repeats, the LRU's order and evictions at
   max_geometries=2, the chroma_mode="direct" fallback
   (tests/test_pipeline.py:197), gray and colour together (:382), warm()'s
   counts, signatures and lane buckets and its too-many-specs ValueError
-  (:826), .gif output routing, .webp output refused per request, a mesh
-  refused naming item 9, and the default device refused without a card.
+  (:826), .gif and .webp output routing (.webp failing per request where
+  libwebp is missing), a mesh refused naming item 9, and the default
+  device refused without a card.
 
 Both packages' metric registries are process-global: each test that reads
 them resets both first. On the CPU the JAX package's upright colour JPEG
@@ -157,9 +158,10 @@ def test_jax_cpu_route_differs_where_the_port_follows_the_tpu_tail(
 
 
 def test_formats_only_jax_decodes_fail_alone():
-    """WebP decodes in the JAX package (item 6.2 in the port); a truncated
-    4:2:0 scan decodes there through libjpeg's fallback, which the port
-    lacks (queue 3 entry 4): each fails its own slot, the rest equal."""
+    """A truncated 4:2:0 scan decodes in the JAX package through libjpeg's
+    fallback, which the port lacks (queue 3 entry 4): it fails its own
+    slot, and the rest, a still WebP among them (item 6.2), equal the JAX
+    package's outputs."""
     good = [layout_jpeg(160, 120, 85, s, "420") for s in (1, 2)]
     bio = io.BytesIO()
     Image.fromarray(_smooth(64, 48, 3, 3)).save(bio, "WEBP", lossless=True)
@@ -170,12 +172,10 @@ def test_formats_only_jax_decodes_fail_alone():
     want = jm.transcode(bufs, return_exceptions=True)
     got = tm.transcode(bufs, return_exceptions=True)
     assert all(isinstance(w, bytes) for w in want)
-    assert [got[i] for i in (0, 3, 4)] == [want[i] for i in (0, 3, 4)]
-    assert isinstance(got[1], NotImplementedError)
-    assert "item 6.2" in str(got[1])
+    assert [got[i] for i in (0, 1, 3, 4)] == [want[i] for i in (0, 1, 3, 4)]
     assert isinstance(got[2], DecodingFailedError)
-    assert metrics.snapshot()["counters"]["serving.poison_isolated"] == 2
-    with pytest.raises(NotImplementedError, match="item 6.2"):
+    assert metrics.snapshot()["counters"]["serving.poison_isolated"] == 1
+    with pytest.raises(DecodingFailedError):
         tm.transcode(bufs)
 
 
@@ -256,8 +256,10 @@ def test_warm_counts_and_signatures_equal_jax():
     assert st["evictions"] == 1 and st["geometries_cached"] == 5
     with pytest.raises(ValueError, match="max_geometries"):
         tm.warm(specs + [(10, 10)])
-    with pytest.raises(NotImplementedError, match="item 4.7b"):
-        tm.warm([("webp", 16, 16)])
+    assert tm.warm([("webp", 16, 16)])["warmed"] == jm.warm(
+        [("webp", 16, 16)])["warmed"] == 1
+    assert _key(next(reversed(tm._pipes))) == _key(
+        next(reversed(jm._pipes))) == ("still", "WebpDecoder", 16, 16, 3, 1)
     with pytest.raises(ValueError, match="unsupported warm still format"):
         tm.warm([("bmp", 16, 16)])
 
@@ -334,16 +336,28 @@ def test_gif_output_routes_animations():
     assert list(times) == [(0, 2, 3)] and "lzw_decode" in times[(0, 2, 3)]
 
 
-def test_webp_output_fails_per_request():
+def test_webp_output_fails_per_request(monkeypatch):
     """.webp output (item 4.7b): an animated GIF goes to the animated
-    front and a still PNG to a still pipeline, and each fails its own slot;
-    a non-animated GIF takes the still route."""
+    front and a still PNG to a still pipeline (a non-animated GIF takes
+    the still route), and the bytes equal the JAX package's. Where libwebp
+    is missing (its header path pointed at a missing file) each request
+    fails with HostLibraryMissingError: in its slot on the animated front,
+    raised by the still group's host encode, which nothing catches."""
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
     bufs = [_gif(60, 40, 1), _png(60, 40, 3, 2), _gif(60, 40, 3, 1)]
-    _, tm = _pair((32, 32), output_format=".webp")
+    jm, tm = _pair((32, 32), output_format=".webp")
     got = tm.transcode(bufs, return_exceptions=True)
-    for g in got:
-        assert isinstance(g, NotImplementedError) and "item 4.7b" in str(g)
+    assert got == jm.transcode(bufs)
     assert isinstance(tm._anim_pipe, TP.AnimatedTranscodePipeline)
+    monkeypatch.setattr(binding, "WEBP_HEADER", "/nonexistent/webp.h")
+    for buf in bufs:
+        try:
+            got = tm.transcode([buf], return_exceptions=True)[0]
+        except HostLibraryMissingError as e:
+            got = e
+        assert isinstance(got, HostLibraryMissingError)
+        assert "libwebp" in str(got)
 
 
 def test_constructor_refusals():

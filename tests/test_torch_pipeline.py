@@ -196,20 +196,22 @@ def _exif_jpeg(orientation: int) -> bytes:
 
 def test_paths_outside_the_slice_refuse():
     src = pil_jpeg(200, 150, 85, 0)
-    for kw, item in (({"output_format": ".webp"}, "item 4.7b"),
-                     ({"optimize_coding": True}, "item 2")):
+    for kw, item in (({"optimize_coding": True}, "item 2"),):
         with pytest.raises(NotImplementedError, match=item):
             JpegTranscodePipeline(src, 64, 48, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=item):  # grayscale
             JpegTranscodePipeline(gray_jpeg(64, 48, 85, 0), 32, 32,
                                   device="cpu", **kw)
-    # .png output and encode_options are served (tests/
-    # test_torch_pipeline_pixels.py holds them against the JAX package)
+    # .png and .webp output and encode_options are served (tests/
+    # test_torch_pipeline_pixels.py and test_torch_webp_serving.py hold
+    # them against the JAX package)
     for kw in ({"output_format": ".png"},
                {"output_format": ".png", "encode_options": {16: 9}},
+               {"output_format": ".webp"},
                {"encode_options": {16: 9}}):
         assert JpegTranscodePipeline(src, 64, 48, device="cpu",
-                                     **kw).output_format in (".png", ".jpeg")
+                                     **kw).output_format in (
+            ".png", ".webp", ".jpeg")
     from PIL import Image
     # every chroma layout, grayscale, and EXIF orientations (PIL's own
     # Exif writer here) are served, in every JPEG-out mode
