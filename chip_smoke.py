@@ -4,7 +4,7 @@
 
 Needs one CUDA card; builds the host library (g++: Huffman decode and
 encode, PNG row filters, the GIF container and LZW, JPEG 2000 Tier-1;
-the WebP library only where libwebp's headers exist)
+the WebP and libjpeg libraries only where their headers exist)
 and the kernels (nvcc, sm_90a; one nvcc per
 source, all at once) from the sources in this checkout, then drives
 fourteen serving paths, each JpegTranscodePipeline(fixture -> 256x256 Fit
@@ -41,7 +41,7 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
 
 then the single-image surface (the still phase), the overlap check of
 transcode_pipelined, the still formats, GIF, the mixed serving front,
-JPEG 2000 and WebP.
+JPEG 2000, WebP, and the JPEG encode options with the libjpeg route.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -60,8 +60,11 @@ JPEG 2000 and WebP.
    the device step must agree with the same step through the plain
    version and with the CPU step (2 images, a CPU pipeline built with the
    path's keywords and environment). 4:2:0 runs 3 batches, one
-   holding a corrupt buffer that must fail only its own slot, and checks
-   that the entropy round trip is lossless; the other paths run 2 batches.
+   holding a truncated scan (jpeg_huff.cpp declines it: the libjpeg route,
+   whose slot holds HostLibraryMissingError where binding.JPEG_HEADER is
+   absent, and otherwise bytes within the step gate of the CPU front's),
+   and checks that the entropy round trip is lossless; the other paths
+   run 2 batches.
    The .png paths' outputs must decode (the port's PngDecoder on the
    CPU) to 256x256 pixels with the source's channel count, and
    their packed pixels are held to the kernel gate instead;
@@ -134,7 +137,9 @@ JPEG 2000 and WebP.
    output equals its per-signature JpegTranscodePipeline or
    StillTranscodePipeline on the card in input order, the broken slots
    and only they hold exceptions (the WebP one HostLibraryMissingError
-   where libwebp's header is absent, else InvalidImageError), stats()
+   where libwebp's header is absent, else InvalidImageError; the
+   truncated scan HostLibraryMissingError where libjpeg's header is
+   absent, else it decodes through libjpeg and is healthy), stats()
    reads one build per signature and one hit per other routed request
    (again on a second call, no eviction), max_geometries=4 counts
    evictions without changing the bytes, the .jpeg coefficients are
@@ -179,7 +184,24 @@ JPEG 2000 and WebP.
    tests/assets/anim_96x80.webp, new_encoder(".webp"), transcode_webp,
    the .webp pipeline's transcode and GIF -> .webp each raise
    HostLibraryMissingError; where it is present their card bytes equal
-   the CPU port's.
+   the CPU port's;
+12. JPEG encode options and the libjpeg decode route (phase12): (a)
+   JpegTranscodePipeline(bench_1080p.jpg -> 256x256, q85,
+   optimize_coding=True), OPT_BATCHES batch-128 steps with every launch
+   count 0 just before and read just after: decode420 once per step and
+   nothing else (those launches join the kernels line), each output the
+   coefficients of the baseline pipeline's output and no larger; the
+   encode ms of a batch with and without optimize_coding, the bytes of
+   both, transcode_pipelined images/s of both in turns; (b)
+   ImageOps.transform of the fixture to .jpeg and JpegEncoder of its
+   1080p frame on the card under each ENC_OPTIONS (progressive,
+   optimize, restart, all three): the baseline's coefficients, SOF2 or
+   DRI where due, and the 1080p encode ms of each; (c) the CLI's .jpg on
+   the card is progressive and equals -device cpu's; (d) where libjpeg's
+   header is absent (the card's machine), the truncated scan through
+   new_decoder(device="cuda") and LILLIPUT_JPEG_HUFF=libjpeg each raise
+   HostLibraryMissingError; where it is present their frames equal the
+   CPU port's under the kernel gate.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -337,13 +359,16 @@ def phase1():
     from lilliput_tpu_torch.ops import decode_kernels as DK
     t0 = time.perf_counter()
     have_webp = os.path.exists(binding.WEBP_HEADER)
-    with ThreadPoolExecutor(3) as ex:      # g++ beside the nvcc builds
+    have_jpeg = os.path.exists(binding.JPEG_HEADER)
+    with ThreadPoolExecutor(4) as ex:      # g++ beside the nvcc builds
         host = ex.submit(binding.load)
         webp = ex.submit(binding.load_webp) if have_webp else None
+        jpeg = ex.submit(binding.load_jpeg) if have_jpeg else None
         libs = DK.build()
         host.result()
-        if webp is not None:
-            webp.result()
+        for lib in (webp, jpeg):
+            if lib is not None:
+                lib.result()
     t1 = time.perf_counter()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in _build.build_log(lib).splitlines()
@@ -354,7 +379,9 @@ def phase1():
                else "absent: PNG deflates with Python zlib")
     print(f"phase 1: host library and {len(libs)} kernel libraries built "
           f"in {t1 - t0:.1f}s; libdeflate {deflate}; libwebp "
-          f"{'built' if have_webp else 'absent: WebP host calls raise HostLibraryMissingError'}",
+          f"{'built' if have_webp else 'absent: WebP host calls raise HostLibraryMissingError'}; "
+          f"libjpeg "
+          f"{'built' if have_jpeg else 'absent: the libjpeg decode route raises HostLibraryMissingError'}",
           flush=True)
 
 
@@ -615,26 +642,46 @@ def check_cpu_step(path, pipe, fixture):
 
 
 def phase3_420(pipe, fixture):
-    from lilliput_tpu_torch import binding
-    from lilliput_tpu_torch.errors import DecodingFailedError
+    import torch
+    from lilliput_tpu_torch import JpegTranscodePipeline, binding
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
     from lilliput_tpu_torch.utils import metrics
 
-    corrupt = fixture[:len(fixture) // 2]      # scan cut off mid-stream
+    # a scan cut off mid-stream: jpeg_huff.cpp declines it, so it takes
+    # the libjpeg route, which fails its slot where libjpeg is absent
+    corrupt = fixture[:len(fixture) // 2]
+    have_jpeg = os.path.exists(binding.JPEG_HEADER)
     batches = [[fixture] * BATCH for _ in range(3)]
     batches[1][5] = corrupt
     pipe.transcode([fixture] * 2)              # warm: pools, tables, cuBLAS
     metrics.reset()
     res, counts = run_main_path("420", pipe, batches)
-    check(isinstance(res[1][5], DecodingFailedError),
-          f"corrupt buffer gave {type(res[1][5]).__name__}")
-    check_outputs("420", res, skip={(1, 5)})
     poisoned = metrics.snapshot()["counters"].get("serving.poison_isolated")
-    check(poisoned == 1, f"serving.poison_isolated={poisoned}")
-    check(res[1][4] == res[0][4], "a healthy slot next to the corrupt one "
-          "changed")
+    if have_jpeg:
+        check_outputs("420", res)
+        check(not poisoned, f"serving.poison_isolated={poisoned}")
+        cpu = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                    device="cpu").transcode([corrupt])[0]
+        mx, nd, n = diff_stats(
+            [torch.from_numpy(a) for a in jpeg_coefs(res[1][5])],
+            [torch.from_numpy(a) for a in jpeg_coefs(cpu)])
+        check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+              f"the truncated scan's output differs from the CPU front's: "
+              f"max {mx}, {nd}/{n} coefficients")
+        slot = (f"truncated scan decoded through libjpeg, coefficients "
+                f"within the step gate of the CPU front's (max {mx}, "
+                f"{nd}/{n})")
+    else:
+        check(isinstance(res[1][5], HostLibraryMissingError),
+              f"the truncated scan gave {res[1][5]!r}")
+        check_outputs("420", res, skip={(1, 5)})
+        check(poisoned == 1, f"serving.poison_isolated={poisoned}")
+        slot = (f"truncated scan's slot holds HostLibraryMissingError "
+                f"(serving.poison_isolated={poisoned})")
+    check(res[1][4] == res[0][4], "a healthy slot next to the truncated "
+          "one changed")
     print(f"phase 3: 420 {sum(len(b) for b in res)} outputs are 256x256 "
-          f"3-component JPEGs; corrupt slot isolated "
-          f"(serving.poison_isolated={poisoned})", flush=True)
+          f"3-component JPEGs; {slot}", flush=True)
 
     # entropy round trip and device step vs its plain version
     step = check_plain_step("420", pipe, batches[0])
@@ -1581,9 +1628,13 @@ def phase9(card, kernels):
     from lilliput_tpu_torch.ops import decode_kernels as DK
     from lilliput_tpu_torch.utils import metrics
     t0 = time.perf_counter()
+    from lilliput_tpu_torch import binding
     sources, labels, bufs, groups = mix_inputs()
     by_group = _mix_groups(groups)
-    broken = [i for i, k in enumerate(labels) if k.startswith("broken")]
+    # the truncated scan decodes through libjpeg where libjpeg exists
+    have_jpeg = os.path.exists(binding.JPEG_HEADER)
+    broken = [i for i, k in enumerate(labels) if k.startswith("broken")
+              and not (have_jpeg and k == "broken_jpeg")]
     n_ok = len(bufs) - len(broken)
     print(f"phase 9: {len(bufs)} requests of {len(by_group)} signatures and "
           f"{len(broken)} broken inputs built in "
@@ -1610,7 +1661,6 @@ def phase9(card, kernels):
     # the broken slots, and only they, hold exceptions
     failed = [i for i, o in enumerate(outs) if not isinstance(o, bytes)]
     check(failed == broken, f"failed slots {failed}, broken {broken}")
-    from lilliput_tpu_torch import binding
     from lilliput_tpu_torch.errors import (HostLibraryMissingError,
                                            InvalidImageError)
     webp = outs[labels.index("broken_webp")]
@@ -1618,9 +1668,13 @@ def phase9(card, kernels):
                      if os.path.exists(binding.WEBP_HEADER)
                      else HostLibraryMissingError),
           f"the WebP slot holds {webp!r}")
+    cut = outs[labels.index("broken_jpeg")]
+    check(isinstance(cut, bytes) if have_jpeg
+          else isinstance(cut, HostLibraryMissingError),
+          f"the truncated scan's slot holds {cut!r}")
     print(f"phase 9: broken slots: "
-          f"{[(labels[i], type(outs[i]).__name__) for i in broken]}",
-          flush=True)
+          f"{[(labels[i], type(outs[i]).__name__) for i in broken]}; the "
+          f"truncated scan's: {type(cut).__name__}", flush=True)
 
     # stats: one build per signature, a hit per other routed request. The
     # WebP header fails routing; so does the truncated PNG if it comes
@@ -2335,6 +2389,232 @@ def phase11(card, kernels):
           flush=True)
 
 
+#: phase 12's JpegEncoder options: each alone and the three together
+#: (keys JPEG_PROGRESSIVE 2, JPEG_OPTIMIZE 3, JPEG_RST_INTERVAL 4 of
+#: lilliput_tpu_torch/framebuffer.py)
+ENC_OPTIONS = {"baseline": {}, "progressive": {2: 1}, "optimize": {3: 1},
+               "restart": {4: 1}, "all three": {2: 1, 3: 1, 4: 1}}
+#: phase 12 (a)'s main-path run: batches of BATCH
+OPT_BATCHES = 2
+
+
+def _markers(buf: bytes):
+    """(SOF2 present, DRI present) among a JPEG's header segments (up to
+    its first SOS, which every DRI of ours precedes)."""
+    seen = set()
+    i = 2
+    while i + 4 <= len(buf) and buf[i] == 0xFF and buf[i + 1] != 0xDA:
+        seen.add(buf[i + 1])
+        i += 2 + int.from_bytes(buf[i + 2:i + 4], "big")
+    return 0xC2 in seen, 0xDD in seen
+
+
+def distinct_sources(fixture: bytes, n: int):
+    """n distinct JPEGs of the fixture's geometry and layout: the fixture
+    itself, then its frame rolled and brightened per slot and encoded by
+    the port's JpegEncoder on DEVICE at qualities 71..95 (4:2:0), so that
+    every slot of a batch has an answer of its own."""
+    import torch
+    from lilliput_tpu_torch import Framebuffer, new_decoder
+    from lilliput_tpu_torch.codecs.jpeg import JpegEncoder
+    fb = Framebuffer()
+    new_decoder(fixture, device=DEVICE).decode_to(fb)
+    encoder = JpegEncoder()
+    out = [fixture]
+    for i in range(1, n):
+        px = torch.roll(fb.array, 17 * i, dims=1).to(torch.int16) + i % 24
+        out.append(encoder.encode(Framebuffer.from_array(
+            px.clamp(0, 255).to(torch.uint8)), {1: 71 + i % 25}))
+    return out
+
+
+def phase12(card, kernels):
+    """JPEG encode options and the libjpeg decode route (ROADMAP queue 1
+    item 2).
+
+    (a) JpegTranscodePipeline(bench_1080p.jpg, DST, DST, q85,
+    optimize_coding=True).transcode_pipelined of OPT_BATCHES batches of
+    BATCH distinct sources (distinct_sources; the second batch the first
+    rotated by one slot), every launch count 0 just before and read just
+    after: decode420 once per step and no other kernel (the launches join
+    the kernels line); each output decodes (jpeg_huff.cpp) to exactly the
+    coefficients of the baseline pipeline's output of the same slot of the
+    same batch, and is no larger. Prints the encode ms of one batch of BATCH with and
+    without optimize_coding on the encode threads, the bytes of both, and
+    transcode_pipelined images/s of both in turns.
+    (b) ImageOps.transform of the fixture to .jpeg (Fit DST) and
+    JpegEncoder of its 1080p frame on the card, under each ENC_OPTIONS:
+    the coefficients of the baseline bytes of the same frame, SOF2 where
+    progressive, a DRI where restart; the 1080p encode ms of each.
+    (c) the CLI's .jpg on the card: SOF2, the bytes of -device cpu's.
+    (d) where binding.JPEG_HEADER is absent (the H100 machine), the
+    truncated scan through new_decoder(..., device="cuda") and the
+    fixture under LILLIPUT_JPEG_HUFF=libjpeg each raise
+    HostLibraryMissingError; where it is present, their frames equal the
+    CPU port's under the kernel gate."""
+    import torch
+    from lilliput_tpu_torch import (Framebuffer, ImageOps, ImageOptions,
+                                    JpegTranscodePipeline, ResizeMethod,
+                                    binding, new_decoder)
+    from lilliput_tpu_torch.codecs.jpeg import JpegEncoder
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    t_phase = time.perf_counter()
+    have_jpeg = os.path.exists(binding.JPEG_HEADER)
+    print(f"phase 12: {binding.JPEG_HEADER} "
+          f"{'present' if have_jpeg else 'absent'}", flush=True)
+    with open(os.path.join(ASSETS, "bench_1080p.jpg"), "rb") as f:
+        fixture = f.read()
+    bufs = distinct_sources(fixture, BATCH)
+    check(len(set(bufs)) == BATCH, "the phase 12 sources are not distinct")
+    batches = [bufs, bufs[1:] + bufs[:1]][:OPT_BATCHES]
+
+    # (a) optimize_coding on the main path
+    opt = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                optimize_coding=True, device=DEVICE)
+    base = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                 device=DEVICE)
+    opt.transcode(bufs[:2])                    # warm: pools, tables, cuBLAS
+    DK.reset_launches()
+    res = opt.transcode_pipelined(batches)
+    counts = dict(DK.launches)
+    print(f"phase 12: optimize_coding transcode_pipelined "
+          f"{OPT_BATCHES}x{BATCH}: launches={counts}", flush=True)
+    check(counts == {k: OPT_BATCHES * (k == "decode420") for k in counts},
+          "decode420 did not launch once per device step of the "
+          "optimize_coding path (or another kernel launched)")
+    kernels["decode420"]["launches"] += counts["decode420"]
+    kernels["decode420"]["optimize_coding_launches"] = counts["decode420"]
+    for bi, (outs, batch) in enumerate(zip(res, batches)):
+        base_out = base.transcode(batch)
+        check(len(set(base_out)) == BATCH, f"batch {bi}: the baseline "
+              "outputs of distinct sources are not distinct")
+        for i, (o, b) in enumerate(zip(outs, base_out)):
+            check(all(np.array_equal(x, y) for x, y in
+                      zip(jpeg_coefs(o), jpeg_coefs(b))),
+                  f"optimize_coding output {bi}/{i}: other coefficients "
+                  "than the baseline output's")
+            check(len(o) <= len(b), f"optimize_coding output {bi}/{i} is "
+                  f"larger than the baseline's ({len(o)} > {len(b)})")
+    step = [t.cpu().numpy() for t in base.device_step(
+        *base.decode_entropy(bufs))]
+    enc = {}
+    for name, pipe in (("baseline", base), ("optimize_coding", opt),
+                       ("optimize_coding ", opt), ("baseline ", base)):
+        t0 = time.perf_counter()
+        out = pipe.encode_entropy(*step)
+        enc.setdefault(name.strip(), []).append(
+            1e3 * (time.perf_counter() - t0))
+        enc[name.strip() + " bytes"] = sum(len(o) for o in out)
+    workers = min(8, os.cpu_count() or 1)
+    print(f"phase 12: encode of {BATCH} {DST}x{DST} outputs on {workers} "
+          f"threads: baseline {enc['baseline']!r} ms, {enc['baseline bytes']}"
+          f" bytes; optimize_coding {enc['optimize_coding']!r} ms, "
+          f"{enc['optimize_coding bytes']} bytes [{card}]", flush=True)
+    ips = {"baseline": [], "optimize_coding": []}
+    runs = [batches[i % OPT_BATCHES] for i in range(4)]
+    for name in ("baseline", "optimize_coding", "optimize_coding",
+                 "baseline"):
+        pipe = base if name == "baseline" else opt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.transcode_pipelined(runs)
+        ips[name].append(len(runs) * BATCH / (time.perf_counter() - t0))
+    print(f"phase 12: transcode_pipelined {len(runs)}x{BATCH} images/s "
+          f"(turns baseline, optimize, optimize, baseline): {ips!r} "
+          f"[{card}]", flush=True)
+    del opt, base, step, res
+
+    # (b) every JpegEncoder option, through ImageOps and on a 1080p frame
+    def transform(opts):
+        return ImageOps(8192).transform(
+            new_decoder(fixture, device=DEVICE), ImageOptions(
+                file_type=".jpeg", width=DST, height=DST,
+                resize_method=ResizeMethod.FIT,
+                encode_options={1: 85, **opts}))
+    fb = Framebuffer()
+    new_decoder(fixture, device=DEVICE).decode_to(fb)
+    frame_ref = None
+    lines = []
+    for name, opts in ENC_OPTIONS.items():
+        small = transform(opts)
+        encoder = JpegEncoder()
+        big = encoder.encode(fb, {1: 85, **opts})
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = encoder.encode(fb, {1: 85, **opts})
+            ms.append(1e3 * (time.perf_counter() - t0))
+            check(again == big, f"{name}: two encodes of the frame differ")
+        if frame_ref is None:
+            frame_ref = jpeg_coefs(small), jpeg_coefs(big)
+        for out, ref in ((small, frame_ref[0]), (big, frame_ref[1])):
+            check(all(np.array_equal(x, y)
+                      for x, y in zip(jpeg_coefs(out), ref)),
+                  f"{name}: other coefficients than the baseline bytes'")
+            sof2, dri = _markers(out)
+            check(sof2 == (2 in opts) and dri == (4 in opts),
+                  f"{name}: SOF2 {sof2}, DRI {dri}")
+        lines.append(f"{name} {sum(ms) / len(ms)!r} ms {len(big)} B")
+    print(f"phase 12: JpegEncoder of the 1920x1080 frame on {DEVICE} "
+          f"(mean of 3; same coefficients, SOF2/DRI where due; the 256x256 "
+          f"transform too): {'; '.join(lines)} [{card}]", flush=True)
+
+    # (c) the CLI's .jpg
+    import tempfile
+    from lilliput_tpu_torch import cli
+    outs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase12_") as d:
+        src = os.path.join(d, "in.jpg")
+        with open(src, "wb") as f:
+            f.write(fixture)
+        for dev in (DEVICE, "cpu"):
+            dst = os.path.join(d, f"out_{dev}.jpg")
+            rc = cli.main(["-input", src, "-output", dst, "-width",
+                           str(DST), "-height", str(DST), "-device", dev])
+            check(rc == 0, f"the CLI on {dev} exited {rc}")
+            with open(dst, "rb") as f:
+                outs[dev] = f.read()
+    check(_markers(outs[DEVICE])[0], "the CLI's .jpg is not progressive")
+    check(outs[DEVICE] == outs["cpu"], "the CLI's .jpg on the card differs "
+          "from -device cpu's")
+    print(f"phase 12: the CLI's .jpg on {DEVICE} is progressive (SOF2), "
+          f"{len(outs[DEVICE])} bytes, equal to -device cpu's", flush=True)
+
+    # (d) the libjpeg decode route
+    cut = fixture[:len(fixture) // 2]
+    calls = {"truncated scan": (cut, {}),
+             "LILLIPUT_JPEG_HUFF=libjpeg": (
+                 fixture, {"LILLIPUT_JPEG_HUFF": "libjpeg"})}
+    for name, (buf, env) in calls.items():
+        with path_env(env):
+            if not have_jpeg:
+                try:
+                    new_decoder(buf, device=DEVICE).decode_to(Framebuffer())
+                except HostLibraryMissingError as e:
+                    check("libjpeg" in str(e), f"{name}: {e}")
+                else:
+                    raise SmokeFailure(f"{name} did not raise "
+                                       "HostLibraryMissingError")
+                continue
+            frames = []
+            for dev in (DEVICE, "cpu"):
+                fbd = Framebuffer()
+                new_decoder(buf, device=dev).decode_to(fbd)
+                frames.append(fbd.array.to("cpu"))
+        if have_jpeg:
+            mx, nd, n = diff_stats([frames[0]], [frames[1]])
+            check(mx <= KERNEL_MAX_DIFF and nd <= KERNEL_MAX_SHARE * n,
+                  f"{name}: the card's frame differs from the CPU port's: "
+                  f"max {mx}, {nd}/{n}")
+    print(f"phase 12: libjpeg route {list(calls)}: "
+          f"{'frames equal the CPU port' if have_jpeg else 'each raised HostLibraryMissingError'}",
+          flush=True)
+    print(f"phase 12: phase took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -2400,6 +2680,7 @@ def main() -> int:
     phase9(card, kernels)
     phase10(card)
     phase11(card, kernels)
+    phase12(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -7,16 +7,23 @@ libwebp and ffmpeg): the port needs the Huffman decoder
 helpers (``csrc/host/png_filter.cpp``) and the GIF container and LZW
 codec (``csrc/host/gif_codec.cpp``) and the JPEG 2000 Tier-1 coder
 (``csrc/host/jp2_t1.cpp``), byte-for-byte copies of the JAX package's
-``native/src`` files held equal by tests, and the port's
-baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``). None needs libjpeg,
-so the library builds on machines without it.
+``native/src`` files held equal by tests, and the port's own JPEG
+entropy encoder (``csrc/host/jpeg_enc.cpp``: libjpeg's bytes for every
+option of ``lp_jpeg_encode_coefs``, baseline, optimized, progressive and
+restart markers). None needs libjpeg, so the library builds on machines
+without it.
 
-WebP's shim (``csrc/host/webp_shim.cpp``, a byte-for-byte copy of the JAX
-package's) includes libwebp's headers unconditionally, so it is a library
-of its own (``load_webp``), built and linked with ``-lwebp -lwebpmux
--lwebpdemux`` only where ``WEBP_HEADER`` exists, as
-``lilliput_tpu/native/Makefile`` gates it; elsewhere ``load_webp`` raises
-``errors.HostLibraryMissingError`` and nothing takes another route. ``png_filter.cpp`` uses
+Two shims include a library's headers unconditionally, so each is a
+library of its own, built only where its header exists, as
+``lilliput_tpu/native/Makefile`` gates them: libjpeg's
+(``csrc/host/jpeg_shim.cpp``, ``load_jpeg``, linked with ``-ljpeg``: the
+decode of the streams jpeg_huff.cpp declines, and the restart-marker
+slicer) where ``JPEG_HEADER`` exists, and WebP's
+(``csrc/host/webp_shim.cpp``, ``load_webp``, ``-lwebp -lwebpmux
+-lwebpdemux``) where ``WEBP_HEADER`` exists. Both are byte-for-byte
+copies of the JAX package's. Elsewhere ``load_jpeg`` and ``load_webp``
+raise ``errors.HostLibraryMissingError`` and nothing takes another
+route. ``png_filter.cpp`` uses
 libdeflate where ``libdeflate.h`` exists; the build then links
 ``-ldeflate``, the decision of ``lilliput_tpu/native/Makefile``, and
 elsewhere ``lp_zlib_fast_available()`` is 0 and the PNG encoder deflates
@@ -42,14 +49,29 @@ HOST_SOURCES = (
 )
 #: the header whose presence compiles png_filter.cpp's libdeflate route
 LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
+JPEG_SOURCES = (os.path.join(_build.CSRC_DIR, "host", "jpeg_shim.cpp"),)
+#: the header whose presence builds the libjpeg library (the JAX package's
+#: Makefile needs it for jpeg_shim.cpp)
+JPEG_HEADER = "/usr/include/jpeglib.h"
 WEBP_SOURCES = (os.path.join(_build.CSRC_DIR, "host", "webp_shim.cpp"),)
 #: the header whose presence builds the WebP library (the JAX package's
 #: Makefile gate)
 WEBP_HEADER = "/usr/include/webp/encode.h"
 
+_i32p = ctypes.POINTER(ctypes.c_int32)
+#: lp_jpeg_encode_coefs's signature, which lpt_jpeg_encode_coefs shares
+_ENCODE_ARGS = [
+    ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, _i32p, _i32p,
+    ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)),
+    ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint16),
+    ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
+    ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]
+
 _lock = threading.Lock()
 _lib = None
 _webp_lib = None
+_jpeg_lib = None
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -62,10 +84,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.lp_jpeg_decode_coefs_win.argtypes = [
         u8p, c.c_size_t, c.POINTER(i16p), u16p, c.c_int32, i32p]
     lib.lp_jpeg_decode_coefs_win.restype = c.c_int
-    lib.lpt_jpeg_encode_baseline.argtypes = [
-        c.c_int32, c.c_int32, c.c_int32, i32p, i32p, c.POINTER(i16p),
-        u16p, u16p, u8p, c.c_int32, u8p, c.c_size_t]
-    lib.lpt_jpeg_encode_baseline.restype = c.c_long
+    lib.lpt_jpeg_encode_coefs.argtypes = _ENCODE_ARGS
+    lib.lpt_jpeg_encode_coefs.restype = c.c_long
     lib.lp_png_filter.argtypes = [u8p, u8p, c.c_int64, c.c_int64, c.c_int32]
     lib.lp_png_filter.restype = None
     lib.lp_png_unfilter.argtypes = [u8p, u8p, c.c_int64, c.c_int64,
@@ -82,6 +102,22 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.lp_zlib_decompress.restype = c.c_int64
     _configure_gif(lib, u8p, i32p)
     _configure_jp2(lib, u8p, i32p)
+
+
+def _configure_jpeg(lib: ctypes.CDLL) -> None:
+    """The libjpeg entry points of jpeg_shim.cpp the port calls, with the
+    signatures of the JAX package's binding.py."""
+    c = ctypes
+    u8p, i16p, u16p = (c.POINTER(c.c_uint8), c.POINTER(c.c_int16),
+                       c.POINTER(c.c_uint16))
+    lib.lp_jpeg_decode_coefs.argtypes = [u8p, c.c_size_t, c.POINTER(i16p),
+                                         u16p, u8p, c.c_int32]
+    lib.lp_jpeg_decode_coefs.restype = c.c_int
+    lib.lp_jpeg_decode_coefs_parallel.argtypes = [
+        u8p, c.c_size_t, c.POINTER(i16p), u16p, c.c_int32]
+    lib.lp_jpeg_decode_coefs_parallel.restype = c.c_int
+    lib.lp_jpeg_encode_coefs.argtypes = _ENCODE_ARGS
+    lib.lp_jpeg_encode_coefs.restype = c.c_long
 
 
 def _configure_gif(lib: ctypes.CDLL, u8p, i32p) -> None:
@@ -189,6 +225,45 @@ def _require_webp_header() -> None:
             "missing), so the WebP host codec (csrc/host/webp_shim.cpp) "
             "cannot be built: WebP decode and encode need libwebp, "
             "libwebpmux and libwebpdemux")
+
+
+def _require_jpeg_header() -> None:
+    from .errors import HostLibraryMissingError
+    if not os.path.exists(JPEG_HEADER):
+        raise HostLibraryMissingError(
+            f"libjpeg is not installed on this machine ({JPEG_HEADER} is "
+            "missing), so the libjpeg host route (csrc/host/jpeg_shim.cpp) "
+            "cannot be built: decoding a JPEG stream that jpeg_huff.cpp "
+            "declines needs libjpeg")
+
+
+def build_jpeg() -> str:
+    """Build (or find) the libjpeg library; returns its path. Raises
+    HostLibraryMissingError where libjpeg's headers are absent."""
+    _require_jpeg_header()
+    return _build.build_shared("liblilliput_torch_jpeg", JPEG_SOURCES,
+                               lambda out: [
+                                   "g++", "-O3", "-fPIC", "-std=c++20",
+                                   "-march=native", "-shared", "-pthread",
+                                   "-Wl,--no-undefined", "-o", out,
+                                   *JPEG_SOURCES, "-ljpeg"])
+
+
+def load_jpeg() -> ctypes.CDLL:
+    """The libjpeg library (lp_jpeg_decode_coefs, its restart-parallel
+    form, and lp_jpeg_encode_coefs for the tests), built at first use.
+    Raises HostLibraryMissingError where JPEG_HEADER is absent, checked on
+    every call, so no libjpeg call runs on a machine without its headers."""
+    global _jpeg_lib
+    _require_jpeg_header()
+    if _jpeg_lib is not None:
+        return _jpeg_lib
+    with _lock:
+        if _jpeg_lib is None:
+            lib = ctypes.CDLL(build_jpeg())
+            _configure_jpeg(lib)
+            _jpeg_lib = lib
+    return _jpeg_lib
 
 
 def build_webp() -> str:

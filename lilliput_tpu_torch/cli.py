@@ -7,9 +7,9 @@ reference's examples/main.go:21-148), with its flags and output lines::
         [-max-encode-frames N] [-max-encode-duration SECONDS] \\
         [-force-sdr] [-quality Q] [-device cuda|cpu] [-stats]
 
-The frames live on ``-device``: "cuda" unless it asks for the CPU.
-``.jpg`` output is baseline where examples/main.py's is progressive (see
-the encode options below); every other output is its bytes.
+The frames live on ``-device``: "cuda" unless it asks for the CPU. Every
+output is examples/main.py's bytes, ``.jpg`` too, which its encode map
+makes progressive (see the encode options below).
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import sys
 import time
 
 from . import ImageOps, ImageOptions, ResizeMethod, new_decoder
-from .framebuffer import (AVIF_QUALITY, JPEG_QUALITY, PNG_COMPRESSION,
-                          WEBP_QUALITY)
+from .framebuffer import (AVIF_QUALITY, AVIF_SPEED, JPEG_QUALITY,
+                          PNG_COMPRESSION, WEBP_QUALITY)
 from .utils import metrics
 
 
@@ -84,15 +84,15 @@ def main(argv=None) -> int:
         height=args.height,
         resize_method=method,
         normalize_orientation=True,
-        # the example's defaults (examples/main.go:14-19) but AVIF_SPEED:
-        # its key (2) is JPEG_PROGRESSIVE's, so examples/main.py's map
-        # asks libjpeg for progressive .jpg output, which the port does
-        # not write (ROADMAP queue 1 item 2); its .jpg output is baseline
+        # the example's defaults (examples/main.go:14-19); AVIF_SPEED's
+        # key (2) is also JPEG_PROGRESSIVE's, so .jpg output is
+        # progressive, as examples/main.py's is
         encode_options={
             JPEG_QUALITY: args.quality,
             PNG_COMPRESSION: 7,
             WEBP_QUALITY: args.quality,
             AVIF_QUALITY: args.quality,
+            AVIF_SPEED: 10,
         },
         max_encode_frames=args.max_encode_frames,
         max_encode_duration=args.max_encode_duration,

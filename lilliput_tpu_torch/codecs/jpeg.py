@@ -10,16 +10,18 @@ reads headers through libjpeg (``lp_jpeg_get_info``) and scales tables with
 libjpeg's ``jpeg_quality_scaling`` arithmetic.
 
 ``JpegDecoder`` Huffman-decodes on the host (jpeg_huff.cpp: baseline and
-progressive) and decodes the pixels on its device: the layout's CUDA decode
+progressive; the streams it declines, truncated ones among them, through
+libjpeg as the JAX package does: ``libjpeg_decode_coefs``, a copy of its
+``jpeg_shim.cpp``, which raises HostLibraryMissingError where libjpeg is
+absent) and decodes the pixels on its device: the layout's CUDA decode
 kernel for YCbCr sources (``ops/jpeg_kernels.decode_ycc_420``), the
 ``dequant_idct_blocks`` kernel's u8 epilogue for grayscale
 (``decode_gray``), and its f32 epilogue once per plane for JCS_RGB and
 CMYK/YCCK sources (``decode_rgb``, ``decode_cmyk``). ``JpegEncoder`` runs
 the colour conversion, fDCT and quantization on the frame's device and the
-port's baseline Huffman encoder (``csrc/host/jpeg_enc.cpp``) on the host.
-Without libjpeg the port has no decode route for streams jpeg_huff.cpp
-declines, and no progressive, optimized or restart-interval encode: those
-raise NotImplementedError naming ROADMAP queue 1 item 2.
+port's own Huffman encoder (``encode_coefs``, ``csrc/host/jpeg_enc.cpp``)
+on the host, which needs no libjpeg and writes libjpeg's bytes for every
+option: baseline, progressive, optimized tables and restart markers.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..errors import DecodingFailedError, InvalidImageError, not_ported
+from ..errors import DecodingFailedError, InvalidImageError
 from ..framebuffer import (JPEG_CHROMA_QUALITY, JPEG_LUMA_QUALITY,
                            JPEG_OPTIMIZE, JPEG_PROGRESSIVE, JPEG_QUALITY,
                            JPEG_RST_INTERVAL, Framebuffer, ImageHeader)
@@ -94,9 +96,33 @@ class _JpegInfo(ctypes.Structure):
 
 def use_fast_huff() -> bool:
     """Own baseline Huffman decoder (jpeg_huff.cpp) on by default;
-    LILLIPUT_JPEG_HUFF=libjpeg asks for the libjpeg path, which the port
-    does not have (its callers raise)."""
+    LILLIPUT_JPEG_HUFF=libjpeg forces the libjpeg path everywhere (the
+    escape hatch mirrors LILLIPUT_PALLAS)."""
     return os.environ.get("LILLIPUT_JPEG_HUFF", "fast") != "libjpeg"
+
+
+def libjpeg_decode_coefs(buf: np.ndarray, comps, qtables: np.ndarray, info,
+                         workers: int) -> None:
+    """The JAX package's libjpeg route (csrc/host/jpeg_shim.cpp) into
+    `comps`, each component's full-geometry int16 blocks, and `qtables`
+    ((4, 64) u16): the restart-marker slicer lp_jpeg_decode_coefs_parallel
+    where workers > 1 and the stream has a DRI and is not progressive,
+    then lp_jpeg_decode_coefs. Raises HostLibraryMissingError where
+    libjpeg is absent, DecodingFailedError where libjpeg fails."""
+    from .. import binding
+    lib = binding.load_jpeg()
+    ptrs = (_i16p * len(comps))(*[c.ctypes.data_as(_i16p) for c in comps])
+    qt = qtables.ctypes.data_as(_u16p)
+    rc = -10
+    if (workers > 1 and info.restart_interval > 0
+            and not info.progressive):
+        rc = lib.lp_jpeg_decode_coefs_parallel(_u8ptr(buf), buf.size, ptrs,
+                                               qt, workers)
+    if rc != 0:
+        rc = lib.lp_jpeg_decode_coefs(_u8ptr(buf), buf.size, ptrs, qt,
+                                      None, 0)
+    if rc != 0:
+        raise DecodingFailedError(f"JPEG entropy decode failed ({rc})")
 
 
 # ---------------------------------------------------------------------------
@@ -422,10 +448,8 @@ def synthetic_jpeg(w: int, h: int, subsampling: str = "420",
                    gray: bool = False, quality: int = 85) -> bytes:
     """Zero-coefficient baseline JPEG of an exact geometry (dims, sampling
     factors, quant tables of `quality`): the warm-up input of
-    MultiGeometryPipeline.warm(). Written by the port's baseline encoder
-    (csrc/host/jpeg_enc.cpp), whose bytes are libjpeg's for baseline,
-    non-optimized output."""
-    from .. import binding
+    MultiGeometryPipeline.warm(). Written by the port's encoder
+    (csrc/host/jpeg_enc.cpp), baseline, with libjpeg's bytes."""
     if subsampling not in _SAMP:
         raise ValueError(f"unknown subsampling {subsampling!r}")
     qt_l, qt_c = scaled_qtables(quality)
@@ -434,16 +458,36 @@ def synthetic_jpeg(w: int, h: int, subsampling: str = "420",
     comps = [np.zeros(((h * v + 8 * max_v - 1) // (8 * max_v),
                        (w * hs + 8 * max_h - 1) // (8 * max_h), 64), np.int16)
              for hs, v in zip(h_samp, v_samp)]
+    return encode_coefs(w, h, comps, h_samp, v_samp, qt_l, qt_c)
+
+
+def encode_coefs(w: int, h: int, comps, h_samp, v_samp, qt_l: np.ndarray,
+                 qt_c: np.ndarray, progressive: int = 0, optimize: int = 0,
+                 restart_rows: int = 0, icc: bytes = b"",
+                 out: Optional[np.ndarray] = None) -> bytes:
+    """Huffman-code quantized coefficients on the host with the port's
+    lpt_jpeg_encode_coefs (csrc/host/jpeg_enc.cpp), which writes the bytes
+    of the JAX package's lp_jpeg_encode_coefs (libjpeg) for every option:
+    progressive (jpeg_simple_progression's script), optimize (optimal
+    Huffman tables), restart_rows (a restart marker every that many MCU
+    rows). comps: each component's contiguous int16 (blocks_h, blocks_w,
+    64) coefficients at libjpeg's block geometry; qt_*: u16 (64,) tables;
+    out: a u8 buffer to write into (one is made when None)."""
+    from .. import binding
     nc = len(comps)
-    out = np.empty(w * h + (1 << 20), np.uint8)
-    n = binding.load().lpt_jpeg_encode_baseline(
+    if out is None:
+        out = np.empty(w * h * 4 + len(icc) + (1 << 20), np.uint8)
+    icc_arr = np.frombuffer(icc, np.uint8) if icc else None
+    n = binding.load().lpt_jpeg_encode_coefs(
         w, h, nc, (ctypes.c_int32 * nc)(*h_samp),
         (ctypes.c_int32 * nc)(*v_samp),
         (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in comps]),
-        qt_l.ctypes.data_as(_u16p), qt_c.ctypes.data_as(_u16p), None, 0,
-        out.ctypes.data_as(_u8p), out.size)
-    if n <= 0:
-        raise DecodingFailedError(f"synthetic JPEG encode failed ({n})")
+        qt_l.ctypes.data_as(_u16p), qt_c.ctypes.data_as(_u16p),
+        int(progressive), int(optimize), int(restart_rows),
+        icc_arr.ctypes.data_as(_u8p) if icc_arr is not None else None,
+        len(icc), _u8ptr(out), out.size)
+    if n < 0:
+        raise DecodingFailedError(f"JPEG entropy encode failed ({n})")
     return out[:n].tobytes()
 
 
@@ -563,23 +607,25 @@ class JpegDecoder(Decoder):
     def _decode_coefs_cached(self):
         if hasattr(self, "_coefs"):
             return
-        if not use_fast_huff():
-            not_ported("the libjpeg Huffman decode route", "item 2")
         info = self._info
         nc = info.num_components
         coefs = [np.empty((info.comp_blocks_h[c], info.comp_blocks_w[c], 64),
                           np.int16) for c in range(nc)]
         qtables = np.zeros((4, 64), np.uint16)
-        rc = self._lib.lp_jpeg_decode_coefs_fast(
-            _u8ptr(self._buf), self._buf.size,
-            (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in coefs]),
-            qtables.ctypes.data_as(_u16p), intra_decode_workers())
+        workers = intra_decode_workers()
+        rc = -10
+        if use_fast_huff():
+            rc = self._lib.lp_jpeg_decode_coefs_fast(
+                _u8ptr(self._buf), self._buf.size,
+                (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in coefs]),
+                qtables.ctypes.data_as(_u16p), workers)
         if rc != 0:
-            # jpeg_huff.cpp declines (arithmetic coding, non-interleaved
-            # baseline scans, ...) where the JAX package falls back to
-            # libjpeg, which the port does not have
-            not_ported(f"decoding this JPEG stream (jpeg_huff.cpp "
-                       f"declined it, {rc}) through libjpeg", "item 2")
+            # jpeg_huff.cpp declines (truncated scans, arithmetic coding,
+            # non-interleaved baseline scans, ...): libjpeg, as the JAX
+            # package decodes them; the restart slicer only without an
+            # ICC profile, as there
+            libjpeg_decode_coefs(self._buf, coefs, qtables, info,
+                                 workers if info.icc_length == 0 else 1)
         self._coefs = coefs
         self._qtables = qtables
 
@@ -651,13 +697,13 @@ class JpegDecoder(Decoder):
 # ---------------------------------------------------------------------------
 
 class JpegEncoder(Encoder):
-    """Single-frame baseline encoder: colour conversion, fDCT and
-    quantization on the frame's device, Huffman coding on the host."""
+    """Single-frame encoder: colour conversion, fDCT and quantization on
+    the frame's device, Huffman coding on the host (encode_coefs: baseline,
+    JPEG_PROGRESSIVE, JPEG_OPTIMIZE and JPEG_RST_INTERVAL, as the JAX
+    package's libjpeg writes them)."""
 
     def __init__(self, decoded_by: Optional[Decoder] = None,
                  icc_override: Optional[bytes] = None):
-        from .. import binding
-        self._lib = binding.load()
         self._icc = icc_override
         if self._icc is None and decoded_by is not None:
             try:
@@ -670,13 +716,11 @@ class JpegEncoder(Encoder):
             raise DecodingFailedError("JPEG encoder cannot flush without a frame")
         opts = opts or {}
         check_encode_options(opts, _JPEG_ENCODE_KEYS, "jpeg")
-        for key, what in ((JPEG_PROGRESSIVE, "progressive JPEG encode"),
-                          (JPEG_OPTIMIZE, "optimized Huffman tables"),
-                          (JPEG_RST_INTERVAL, "restart-interval encode")):
-            if int(opts.get(key, 0)) > 0:
-                not_ported(f"{what} (needs libjpeg)", "item 2")
         quality = int(opts.get(JPEG_QUALITY, 95))
         quality = min(max(quality, 1), 100)
+        progressive = 1 if opts.get(JPEG_PROGRESSIVE, 0) else 0
+        optimize = 1 if opts.get(JPEG_OPTIMIZE, 0) else 0
+        rst_rows = max(int(opts.get(JPEG_RST_INTERVAL, 0)), 0)
         # per-table quality: LUMA_QUALITY overrides the overall quality for
         # the luma table; CHROMA_QUALITY defaults to LUMA_QUALITY and is
         # ignored without it (cv2's own gate)
@@ -710,20 +754,9 @@ class JpegEncoder(Encoder):
             exp_bh = (h * v_samp[i] + 8 * max_v - 1) // (8 * max_v)
             comps[i] = np.ascontiguousarray(
                 comps[i][:exp_bh, :exp_bw].cpu().numpy())
-        nc = len(comps)
-        icc = self._icc or b""
-        icc_arr = np.frombuffer(icc, np.uint8) if icc else None
-        out = np.empty(w * h * 4 + len(icc) + (1 << 20), np.uint8)
-        n = self._lib.lpt_jpeg_encode_baseline(
-            w, h, nc, (ctypes.c_int32 * nc)(*h_samp),
-            (ctypes.c_int32 * nc)(*v_samp),
-            (_i16p * nc)(*[c.ctypes.data_as(_i16p) for c in comps]),
-            qt_l.ctypes.data_as(_u16p), qt_c.ctypes.data_as(_u16p),
-            icc_arr.ctypes.data_as(_u8p) if icc_arr is not None else None,
-            len(icc), _u8ptr(out), out.size)
-        if n < 0:
-            raise DecodingFailedError(f"JPEG entropy encode failed ({n})")
-        return out[:n].tobytes()
+        return encode_coefs(w, h, comps, h_samp, v_samp, qt_l, qt_c,
+                            progressive, optimize, rst_rows,
+                            self._icc or b"")
 
 
 def _u8ptr(arr: np.ndarray):

@@ -35,7 +35,8 @@ Five stages:
    first); opaque lossy .webp then converts them to libwebp's exact
    YUV420 planes on the device (the "yuv420" emit,
    ``ops/color.webp_yuv420_from_packed``), 1.5 B/px to the host;
-5. host encode: Huffman (``encode_entropy``, csrc/host/jpeg_enc.cpp), PNG
+5. host encode: Huffman (``encode_entropy``, csrc/host/jpeg_enc.cpp, with
+   optimal tables under optimize_coding), PNG
    row filters and deflate (``encode_pixels``, codecs/png.py), or libwebp
    (``encode_yuv``, ``encode_pixels``; codecs/webp.py, built where
    libwebp's headers exist, raising HostLibraryMissingError elsewhere).
@@ -44,9 +45,12 @@ Stages 2-4 run on the pipeline's torch device, and the host threads run
 the serial stages. ``transcode_pipelined`` overlaps them: the end of each
 device step queues its outputs' copies into pinned host arrays and records
 a CUDA event, and the host waits on that event alone, so it encodes batch
-i-1 and decodes batch i+1 while step i runs. Everything outside the port
-(optimize_coding, the libjpeg decode route, AVIF) raises
-NotImplementedError naming its ROADMAP queue 1 item; nothing falls back.
+i-1 and decodes batch i+1 while step i runs. A JPEG stream jpeg_huff.cpp
+declines (a truncated upload, arithmetic coding, ...) takes the JAX
+package's libjpeg route (csrc/host/jpeg_shim.cpp), which raises
+HostLibraryMissingError where libjpeg is absent. Everything outside the
+port (AVIF, the mesh) raises NotImplementedError naming its ROADMAP queue
+1 item; nothing falls back.
 
 Non-JPEG stills (``StillTranscodePipeline``): host decode of each source
 to pixels (decoders on the CPU, threaded) into one pinned batch, one H2D
@@ -76,6 +80,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence
@@ -596,9 +601,8 @@ class _ServingPipelineBase:
         gray = self.ncomp == 1
         b = yq.shape[0]
         outs: List[Optional[bytes]] = [None] * b
-        nc = 1 if gray else 3
-        hs = (ctypes.c_int32 * nc)(*([1] if gray else [2, 1, 1]))
-        vs = (ctypes.c_int32 * nc)(*([1] if gray else [2, 1, 1]))
+        hs = vs = [1] if gray else [2, 1, 1]
+        opt = 1 if self.optimize_coding else 0
         cap = w * h * 4 + (1 << 20)
         if iccs is not None:
             cap += max((len(p or b"") for p in iccs), default=0) + (1 << 12)
@@ -606,26 +610,16 @@ class _ServingPipelineBase:
         def one(i: int, out_buf=None):
             if out_buf is None:
                 out_buf = np.empty(cap, np.uint8)
-            y = np.ascontiguousarray(yq[i][:yb[0], :yb[1]])
-            if gray:
-                ptrs = (_i16p * 1)(y.ctypes.data_as(_i16p))
-            else:
-                cbx = np.ascontiguousarray(cbq[i][:cbb[0], :cbb[1]])
-                crx = np.ascontiguousarray(crq[i][:cbb[0], :cbb[1]])
-                ptrs = (_i16p * 3)(y.ctypes.data_as(_i16p),
-                                   cbx.ctypes.data_as(_i16p),
-                                   crx.ctypes.data_as(_i16p))
-            icc = (iccs[i] if iccs is not None else b"") or b""
-            icc_arr = np.frombuffer(icc, np.uint8) if icc else None
-            n = self._lib.lpt_jpeg_encode_baseline(
-                w, h, nc, hs, vs, ptrs,
-                self.enc_qt_y_np.ctypes.data_as(_u16p),
-                self.enc_qt_c_np.ctypes.data_as(_u16p),
-                icc_arr.ctypes.data_as(_u8p) if icc_arr is not None else None,
-                len(icc), out_buf.ctypes.data_as(_u8p), out_buf.size)
-            if n < 0:
-                raise DecodingFailedError(f"JPEG entropy encode failed ({n})")
-            outs[i] = out_buf[:n].tobytes()
+            comps = [np.ascontiguousarray(yq[i][:yb[0], :yb[1]])]
+            if not gray:
+                comps += [np.ascontiguousarray(a[i][:cbb[0], :cbb[1]])
+                          for a in (cbq, crq)]
+            # as lilliput_tpu/pipeline.py asks libjpeg: baseline scan,
+            # optimal tables with optimize_coding
+            outs[i] = J.encode_coefs(
+                w, h, comps, hs, vs, self.enc_qt_y_np, self.enc_qt_c_np,
+                optimize=opt, icc=(iccs[i] if iccs is not None else b"")
+                or b"", out=out_buf)
 
         n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
         if n_workers <= 1 or b <= 1:
@@ -829,7 +823,8 @@ class JpegTranscodePipeline(_ServingPipelineBase):
     YUV420 planes, the host encodes them; lossless, WEBP_QUALITY > 100:
     BGRA pixels; the host encode raises HostLibraryMissingError where
     libwebp is absent, the construction and the device step need none).
-    optimize_coding raises NotImplementedError.
+    optimize_coding=True codes JPEG output with optimal Huffman tables (the
+    port's jpeg_enc.cpp, libjpeg's bytes).
 
     device: the torch device of the dense stages, "cuda" by default; the
     CPU runs only when asked for (device="cpu"), with the decode kernels'
@@ -854,9 +849,6 @@ class JpegTranscodePipeline(_ServingPipelineBase):
             # AREA-matrix form (grayscale's coercion below must not slip
             # past it)
             raise ValueError("dct_scale>1 requires method=AREA")
-        if optimize_coding:
-            _not_ported("optimize_coding (optimal Huffman tables)",
-                        "item 2, host encode")
         self.device = resolve_device(device)
         self.encode_options = dict(encode_options or {})
         self._lib = binding.load()
@@ -1000,11 +992,15 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         raises on the first bad buffer.
 
         The decoder is jpeg_huff.cpp (bit-identical to libjpeg for the
-        streams it accepts). The port has no libjpeg to fall back to, so a
-        stream it declines (arithmetic coding, non-interleaved baseline
-        scans, ...) fails its item."""
-        if not J.use_fast_huff():
-            _not_ported("the libjpeg Huffman decode route", "item 2")
+        streams it accepts), straight into the window. A stream it declines
+        (truncated scans, arithmetic coding, non-interleaved baseline scans,
+        ...), and every stream under LILLIPUT_JPEG_HUFF=libjpeg, takes the
+        JAX package's libjpeg route (csrc/host/jpeg_shim.cpp): the
+        restart-marker slicer when intra > 1 and the stream has a DRI and
+        is not progressive, then the serial decode, into full-geometry
+        per-thread scratch in window mode, the window copied out. Where
+        libjpeg is absent that route raises HostLibraryMissingError
+        (binding.load_jpeg), in the item's slot under errors=."""
         g = self.geom
         b = len(bufs)
         gray = self.ncomp == 1
@@ -1067,18 +1063,40 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         # small batches underfill the pool: split each image's scan at its
         # restart markers across the idle threads (byte-identical output)
         intra = max(1, n_workers // max(b, 1)) if b < n_workers else 1
+        tls = threading.local()
+
+        def scratch():
+            # the libjpeg route's full-geometry arrays in window mode, one
+            # set per thread; luma zeros for the MCU pad row nothing writes
+            s = getattr(tls, "s", None)
+            if s is None:
+                ybh, ybw = g.blocks[0]
+                ypad = ybh % 2 if (not gray and g.v2) else 0
+                s = (np.zeros((ybh + ypad, ybw, 64), np.int16),) + tuple(
+                    np.empty(bl + (64,), np.int16) for bl in g.blocks[1:])
+                tls.s = s
+            return s
 
         def one(i: int):
             info = self._validate_header(bufs[i])
             arr = np.frombuffer(bufs[i], np.uint8)
             qtables = np.zeros((4, 64), np.uint16)
-            ptrs = (_i16p * len(arrs))(
-                *[a[i].ctypes.data_as(_i16p) for a in arrs])
-            rc = self._lib.lp_jpeg_decode_coefs_win(
-                arr.ctypes.data_as(_u8p), arr.size, ptrs,
-                qtables.ctypes.data_as(_u16p), intra, win_p)
+            rc = -10
+            if J.use_fast_huff():
+                ptrs = (_i16p * len(arrs))(
+                    *[a[i].ctypes.data_as(_i16p) for a in arrs])
+                rc = self._lib.lp_jpeg_decode_coefs_win(
+                    arr.ctypes.data_as(_u8p), arr.size, ptrs,
+                    qtables.ctypes.data_as(_u16p), intra, win_p)
             if rc != 0:
-                raise DecodingFailedError(f"JPEG entropy decode failed ({rc})")
+                comps = ([a[i] for a in arrs] if win is None
+                         else scratch())
+                J.libjpeg_decode_coefs(arr, comps, qtables, info, intra)
+                if win is not None:
+                    _, _, _, _, yr, ycs, crr, ccs = win
+                    arrs[0][i] = comps[0][yr, ycs]
+                    for a, c in zip(arrs[1:], comps[1:]):
+                        a[i] = c[crr, ccs]
             qty[i] = qtables[info.comp_quant_tbl[0]]
             if not gray:
                 qtc[i] = qtables[info.comp_quant_tbl[1]]
@@ -1206,8 +1224,8 @@ class StillTranscodePipeline(_ServingPipelineBase):
     output (JPEG output drops it), and take the BGRA pixel emit for .webp,
     where opaque sources take the yuv420 emit. Animated sources transcode
     their first frame, what the reference's Transform emits for animated
-    input with still output. optimize_coding (item 2) raises
-    NotImplementedError.
+    input with still output. optimize_coding=True codes JPEG output with
+    optimal Huffman tables.
 
     Usage:
         pipe = StillTranscodePipeline(sample_png, 256, 256, quality=85)
@@ -1227,9 +1245,6 @@ class StillTranscodePipeline(_ServingPipelineBase):
                 "JPEG sources: use JpegTranscodePipeline (the "
                 "coefficient-domain path) or MultiGeometryPipeline")
         fmt = _normalize_output_format(output_format)
-        if optimize_coding:
-            _not_ported("optimize_coding (optimal Huffman tables)",
-                        "item 2, host encode")
         self.device = resolve_device(device)
         self._lib = binding.load()
         self._pool: dict = {}

@@ -63,12 +63,9 @@ def _untimed(lines):
 @pytest.mark.parametrize("ext", [".jpg", ".png", ".thumbhash"])
 @pytest.mark.parametrize("src", ["png", "cmyk"])
 def test_cli_equal_examples_main(tmp_path, capsys, src, ext, extra):
-    """.png and .thumbhash: examples/main.py's bytes and lines. .jpg:
-    examples/main.py's map sets key 2 (AVIF_SPEED, which is also
-    JPEG_PROGRESSIVE), so it writes a progressive JPEG, which the port
-    cannot (no libjpeg); the port's .jpg equals the JAX package's
-    ImageOps.transform with the same options less that key (baseline),
-    and its lines equal examples/main.py's but the byte count."""
+    """examples/main.py's bytes and lines (but the timing). Its encode map
+    sets key 2 (AVIF_SPEED, which is also JPEG_PROGRESSIVE), so .jpg is a
+    progressive JPEG, which the port's own encoder writes too."""
     path = _inputs(tmp_path)[src]
     outs = {}
     for who, run in (("jax", _jax_cli), ("port", _port_cli)):
@@ -83,22 +80,9 @@ def test_cli_equal_examples_main(tmp_path, capsys, src, ext, extra):
             [ln.replace(str(out), "OUT") for ln in lines]))
     assert outs["port"][1][0] == ("file type: PNG" if src == "png"
                                   else "file type: JPEG")
-    if ext != ".jpg":
-        assert outs["port"] == outs["jax"]
-        return
-    import lilliput_tpu as L
-    from lilliput_tpu.framebuffer import JPEG_QUALITY, PNG_COMPRESSION
-    assert b"\xff\xc2" in outs["jax"][0][:700]          # SOF2: progressive
-    q = int(extra[1]) if extra[:1] == ["-quality"] else 85
-    want = L.ImageOps(8192).transform(
-        L.new_decoder(path.read_bytes()), L.ImageOptions(
-            file_type=".jpg", width=40, height=32,
-            resize_method=(L.ResizeMethod.RESIZE if extra == ["-stretch"]
-                           else L.ResizeMethod.FIT),
-            encode_options={JPEG_QUALITY: q, PNG_COMPRESSION: 7, 64: q}))
-    assert outs["port"][0] == want
-    assert outs["port"][1][:-1] == outs["jax"][1][:-1]
-    assert outs["port"][1][-1] == f"transformed -> OUT ({len(want)} bytes)"
+    assert outs["port"] == outs["jax"]
+    if ext == ".jpg":
+        assert b"\xff\xc2" in outs["port"][0][:700]    # SOF2: progressive
 
 
 def test_cli_metadata_only_and_stats(tmp_path, capsys):

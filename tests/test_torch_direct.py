@@ -320,7 +320,13 @@ def test_poison_isolation_direct_and_scaled(kw):
     pipe = JpegTranscodePipeline(g1, 64, 64, quality=85, device="cpu", **kw)
     solo1 = pipe.transcode([g1])[0]
     solo2 = pipe.transcode([g2])[0]
-    for poison in (g1[:len(g1) // 2],                      # truncated scan
+    # a truncated scan decodes through libjpeg, as in the JAX package
+    # (tests/test_torch_jpeg_libjpeg.py): its slot holds its own transcode
+    cut = g1[:len(g1) // 2]
+    solo_cut = pipe.transcode([cut])[0]
+    assert isinstance(solo_cut, bytes) and solo_cut not in (solo1, solo2)
+    assert pipe.transcode([g1, cut, g2]) == [solo1, solo_cut, solo2]
+    for poison in (g1[:100],                               # truncated header
                    layout_jpeg(640, 360, 85, 14, "420"),   # other geometry
                    layout_jpeg(320, 200, 85, 15, "444"),   # other layout
                    with_orientation(g2, 6),                # other orientation

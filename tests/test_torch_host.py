@@ -2,10 +2,12 @@
 
 The port runs where libjpeg is absent, so it parses JPEG headers in Python
 (codecs/jpeg.read_info), scales tables in Python (scaled_qtables) and
-Huffman-encodes with its own baseline encoder (csrc/host/jpeg_enc.cpp).
-Each is held here to EXACT equality with the libjpeg call it replaces:
-lp_jpeg_get_info field for field, lp_jpeg_scale_qtable value for value, and
-lp_jpeg_encode_coefs(progressive=0, optimize=0, restart=0) byte for byte.
+Huffman-encodes with its own encoder (csrc/host/jpeg_enc.cpp,
+lpt_jpeg_encode_coefs). Each is held here to EXACT equality with the
+libjpeg call it replaces: lp_jpeg_get_info field for field,
+lp_jpeg_scale_qtable value for value, and lp_jpeg_encode_coefs(progressive=0,
+optimize=0, restart=0) byte for byte (tests/test_torch_jpeg_enc.py holds
+the other options).
 """
 
 import ctypes
@@ -151,9 +153,9 @@ def _encode_both(w, h, comps, hs, vs, ql, qc, icc=b""):
         w, h, nc, hsa, vsa, ptrs, ql.ctypes.data_as(_u16p),
         qc.ctypes.data_as(_u16p), 0, 0, 0, icc_p, len(icc),
         out_j.ctypes.data_as(_u8p), out_j.size)
-    nt = binding.load().lpt_jpeg_encode_baseline(
+    nt = binding.load().lpt_jpeg_encode_coefs(
         w, h, nc, hsa, vsa, ptrs, ql.ctypes.data_as(_u16p),
-        qc.ctypes.data_as(_u16p), icc_p, len(icc),
+        qc.ctypes.data_as(_u16p), 0, 0, 0, icc_p, len(icc),
         out_t.ctypes.data_as(_u8p), out_t.size)
     return out_j[:nj].tobytes(), out_t[:nt].tobytes()
 

@@ -5,9 +5,9 @@ package's MultiGeometryPipeline:
   orientations and grayscale, PNGs (RGB, RGBA, gray), a GIF and broken
   buffers: the JAX package's bytes in input order, each group equal to its
   per-signature pipeline, the failures in the same slots;
-* what the JAX package decodes and the port does not (the libjpeg
-  fallback of a truncated scan: ROADMAP queue 3 entry 4) fails only its
-  own slot, and WebP sources equal the JAX package's outputs;
+* a truncated scan (jpeg_huff.cpp declines it, both packages decode it
+  through libjpeg) and a WebP source among good ones: every slot equals
+  the JAX package's output;
 * stats() after repeats, the LRU's order and evictions at
   max_geometries=2, the chroma_mode="direct" fallback
   (tests/test_pipeline.py:197), gray and colour together (:382), warm()'s
@@ -157,11 +157,11 @@ def test_jax_cpu_route_differs_where_the_port_follows_the_tpu_tail(
     assert (int(d.max()), int((d > 0).sum()), d.size) == bound
 
 
-def test_formats_only_jax_decodes_fail_alone():
-    """A truncated 4:2:0 scan decodes in the JAX package through libjpeg's
-    fallback, which the port lacks (queue 3 entry 4): it fails its own
-    slot, and the rest, a still WebP among them (item 6.2), equal the JAX
-    package's outputs."""
+def test_truncated_scan_slot_equals_jax():
+    """A truncated 4:2:0 scan decodes through libjpeg in both packages (the
+    port's copy of jpeg_shim.cpp): its slot, and the rest, a still WebP
+    among them (item 6.2), equal the JAX package's outputs, and no slot
+    fails."""
     good = [layout_jpeg(160, 120, 85, s, "420") for s in (1, 2)]
     bio = io.BytesIO()
     Image.fromarray(_smooth(64, 48, 3, 3)).save(bio, "WEBP", lossless=True)
@@ -172,11 +172,10 @@ def test_formats_only_jax_decodes_fail_alone():
     want = jm.transcode(bufs, return_exceptions=True)
     got = tm.transcode(bufs, return_exceptions=True)
     assert all(isinstance(w, bytes) for w in want)
-    assert [got[i] for i in (0, 1, 3, 4)] == [want[i] for i in (0, 1, 3, 4)]
-    assert isinstance(got[2], DecodingFailedError)
-    assert metrics.snapshot()["counters"]["serving.poison_isolated"] == 1
-    with pytest.raises(DecodingFailedError):
-        tm.transcode(bufs)
+    assert got == want
+    assert metrics.snapshot()["counters"].get("serving.poison_isolated",
+                                              0) == 0
+    assert tm.transcode(bufs) == want
 
 
 def test_stats_after_repeats_equal_jax():

@@ -16,9 +16,9 @@ against the JAX package's JpegTranscodePipeline.
 * transcode's bytes equal the JAX encode_entropy of the JAX coefficients,
   3-component and grayscale.
 * Corrupt buffers fail only their own slots, in every layout, grayscale
-  and oriented; paths outside the slice (.webp output, optimize_coding)
-  raise NotImplementedError naming their items, .png output and
-  encode_options construct, and the
+  and oriented, and a truncated scan decodes (libjpeg, as in the JAX
+  package) into its own slot; optimize_coding's bytes equal the JAX
+  front's; .png and .webp output and encode_options construct, and the
   direct, dct_scale and LINEAR/CUBIC modes construct (their parity tests
   are tests/test_torch_direct.py and tests/test_torch_pipeline_modes.py).
 """
@@ -136,8 +136,13 @@ def _check_poison(sub):
     pipe = JpegTranscodePipeline(g1, 64, 64, quality=85, device="cpu")
     solo1 = pipe.transcode([g1])[0]
     solo2 = pipe.transcode([g2])[0]
+    # a truncated scan decodes through libjpeg, as in the JAX package
+    # (tests/test_torch_jpeg_libjpeg.py): its slot holds its own transcode
+    cut = g1[:len(g1) // 2]
+    solo_cut = pipe.transcode([cut])[0]
+    assert isinstance(solo_cut, bytes) and solo_cut not in (solo1, solo2)
+    assert pipe.transcode([g1, cut, g2]) == [solo1, solo_cut, solo2]
     for poison in (layout_jpeg(320, 200, 85, 13, sub)[:100],  # truncated
-                   g1[:len(g1) // 2],                   # truncated scan
                    layout_jpeg(640, 360, 85, 14, sub),  # other geometry
                    layout_jpeg(320, 200, 85, 15, other),  # other layout
                    b"\xff\xd8\xff\xe0garbage"):         # unparseable
@@ -194,14 +199,24 @@ def _exif_jpeg(orientation: int) -> bytes:
     return bio.getvalue()
 
 
-def test_paths_outside_the_slice_refuse():
+def test_optimize_coding_equals_jax_and_every_path_constructs():
     src = pil_jpeg(200, 150, 85, 0)
-    for kw, item in (({"optimize_coding": True}, "item 2"),):
-        with pytest.raises(NotImplementedError, match=item):
-            JpegTranscodePipeline(src, 64, 48, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=item):  # grayscale
-            JpegTranscodePipeline(gray_jpeg(64, 48, 85, 0), 32, 32,
-                                  device="cpu", **kw)
+    # optimize_coding: the JAX front's libjpeg bytes (optimal tables), in
+    # colour and grayscale, each no larger than the baseline output
+    for bufs, dst in (([src, pil_jpeg(200, 150, 60, 1)], (64, 48)),
+                      ([gray_jpeg(64, 48, 85, s) for s in (0, 1)], (32, 32))):
+        jp = JP.JpegTranscodePipeline(bufs[0], *dst, quality=85,
+                                      optimize_coding=True)
+        tp = JpegTranscodePipeline(bufs[0], *dst, quality=85,
+                                   optimize_coding=True, device="cpu")
+        coefs = [t.numpy() for t in tp.device_step(*tp.decode_entropy(bufs))]
+        iccs = [b"", b"profile"]
+        got = tp.encode_entropy(*coefs, iccs=iccs)
+        assert got == jp.encode_entropy(*coefs, iccs=iccs)
+        assert tp.transcode(bufs) == tp.encode_entropy(*coefs)
+        base = JpegTranscodePipeline(bufs[0], *dst, quality=85,
+                                     device="cpu").encode_entropy(*coefs)
+        assert all(len(o) <= len(b) for o, b in zip(got, base))
     # .png and .webp output and encode_options are served (tests/
     # test_torch_pipeline_pixels.py and test_torch_webp_serving.py hold
     # them against the JAX package)
@@ -326,9 +341,15 @@ def test_poison_isolation_gray_and_oriented(kind):
     g1, g2 = make(31), make(32)
     pipe = JpegTranscodePipeline(g1, 64, 64, quality=85, device="cpu")
     solo1, solo2 = pipe.transcode([g1])[0], pipe.transcode([g2])[0]
+    # a truncated scan decodes through libjpeg, as in the JAX package
+    # (tests/test_torch_jpeg_libjpeg.py): its slot holds its own transcode
+    cut = g1[:len(g1) // 2]
+    solo_cut = pipe.transcode([cut])[0]
+    assert isinstance(solo_cut, bytes) and solo_cut not in (solo1, solo2)
+    assert pipe.transcode([g1, cut, g2]) == [solo1, solo_cut, solo2]
     other = (layout_jpeg(320, 200, 85, 33, "420") if kind.startswith("gray")
              else gray_jpeg(320, 200, 85, 33))
-    for poison in (g1[:len(g1) // 2],                   # truncated scan
+    for poison in (g1[:100],                            # truncated header
                    make(34, 640, 360),                  # other geometry
                    with_orientation(other, 6),          # other components
                    with_orientation(make(35), 3),       # other orientation

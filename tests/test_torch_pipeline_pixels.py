@@ -206,18 +206,20 @@ def test_png_output_carries_icc_and_gray_stays_one_channel():
 def test_pipelined_equals_transcode_per_batch(fmt, kind):
     """Four batches of distinct images (the pooled input and table arrays
     are rewritten every other batch) through transcode_pipelined equal
-    transcode of each batch; a corrupt buffer fails only its own slot."""
+    transcode of each batch; a corrupt buffer fails only its own slot, and
+    a truncated scan (libjpeg's route) decodes into its own."""
     srcs = [_bufs(kind, n=3)]
     srcs += [[(gray_jpeg(200, 150, q, 10 * b + i) if kind == "gray"
                else layout_jpeg(200, 150, q, 10 * b + i, kind))
               for i, q in enumerate((50, 75, 90))] for b in range(1, 4)]
-    corrupt = srcs[2][0][:len(srcs[2][0]) // 2]
     batches = [list(b) for b in srcs]
-    batches[2][1] = corrupt
+    batches[2][1] = srcs[2][0][:len(srcs[2][0]) // 2]   # truncated scan
+    batches[3][2] = srcs[3][2][:100]                    # truncated header
     pipe = JpegTranscodePipeline(srcs[0][0], 64, 48, output_format=fmt,
                                  device="cpu")
     got = pipe.transcode_pipelined(batches, return_exceptions=True)
-    assert isinstance(got[2][1], DecodingFailedError)
+    assert isinstance(got[2][1], bytes)
+    assert isinstance(got[3][2], DecodingFailedError)
     ref = [JpegTranscodePipeline(srcs[0][0], 64, 48, output_format=fmt,
                                  device="cpu").transcode(
                                      b, return_exceptions=True)

@@ -304,9 +304,10 @@ def test_validation_errors_match_jax():
         StillTranscodePipeline(jpeg, 32, 32, device="cpu")
     assert StillTranscodePipeline(png, 32, 32, output_format=".webp",
                                   device="cpu")._emit == "yuv420"
-    with pytest.raises(NotImplementedError, match="item 2"):
-        StillTranscodePipeline(png, 32, 32, optimize_coding=True,
-                               device="cpu")
+    # optimize_coding: the JAX front's bytes (optimal Huffman tables)
+    for bufs in (_batch("png_rgb8", n=2), _batch("png_gray8", n=2)):
+        jo, to = _pair(bufs, optimize_coding=True)
+        assert to.transcode(bufs) == jo.transcode(bufs)
     with pytest.raises(ValueError, match="output_format"):
         StillTranscodePipeline(png, 32, 32, output_format=".gif",
                                device="cpu")

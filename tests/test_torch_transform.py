@@ -5,7 +5,8 @@ out, with device="cpu" (the decode kernels' plain versions).
 * Bytes equal to the JAX package's ImageOps.transform on the same input:
   Fit, stretch (RESIZE) and NO_RESIZE in the four chroma layouts and
   grayscale at an odd geometry (67x61 -> 30x17, and up to 100x90); EXIF
-  orientations 1-8; a progressive source; JPEG quality options.
+  orientations 1-8; a progressive source; JPEG quality options and the
+  progressive, optimize and restart-interval options.
 * Units: ops/blend function by function, Framebuffer.fit and resize_to,
   the animated composite helpers of ImageOps, the decoder's header.
 * Errors: new_decoder and new_encoder raise NotImplementedError naming
@@ -125,12 +126,18 @@ def test_jpeg_encode_options_equal_jax(kind, opts):
 
 @pytest.mark.parametrize("key", [JPEG_PROGRESSIVE, JPEG_OPTIMIZE,
                                  JPEG_RST_INTERVAL])
-def test_jpeg_encoder_refuses_libjpeg_options(key):
-    d = T.new_decoder(_source("420"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        T.ImageOps(8192).transform(d, T.ImageOptions(
-            file_type=".jpg", width=30, height=17, resize_method=FIT,
-            encode_options={key: 1}))
+def test_jpeg_encoder_libjpeg_options_equal_jax(key):
+    """The options the JAX package hands to libjpeg: the port's own encoder
+    (jpeg_enc.cpp) writes the same bytes, in both the colour and the gray
+    encoder, at two restart intervals."""
+    for kind in ("420", "gray"):
+        for v in (1, 2):
+            a, b = _both(_source(kind), file_type=".jpg", width=30,
+                         height=17, resize_method=FIT,
+                         encode_options={key: v, JPEG_QUALITY: 80})
+            assert a == b
+    assert (b"\xff\xc2" in a) == (key == JPEG_PROGRESSIVE)
+    assert (b"\xff\xdd" in a) == (key == JPEG_RST_INTERVAL)
 
 
 # -- the decoder ---------------------------------------------------------------
