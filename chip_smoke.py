@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; builds the host library (g++: Huffman decode and
-encode, PNG row filters, the GIF container and LZW, JPEG 2000 Tier-1;
-the WebP and libjpeg libraries only where their headers exist)
+encode, PNG row filters, the GIF container and LZW, JPEG 2000 Tier-1,
+AVIF's YUV -> BGR rows; the WebP, libjpeg and ffmpeg libraries only where
+their headers exist)
 and the kernels (nvcc, sm_90a; one nvcc per
 source, all at once) from the sources in this checkout, then drives
 fourteen serving paths, each JpegTranscodePipeline(fixture -> 256x256 Fit
@@ -41,7 +42,8 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
 
 then the single-image surface (the still phase), the overlap check of
 transcode_pipelined, the still formats, GIF, the mixed serving front,
-JPEG 2000, WebP, and the JPEG encode options with the libjpeg route.
+JPEG 2000, WebP, the JPEG encode options with the libjpeg route, and
+AVIF.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -201,7 +203,23 @@ JPEG 2000, WebP, and the JPEG encode options with the libjpeg route.
    header is absent (the card's machine), the truncated scan through
    new_decoder(device="cuda") and LILLIPUT_JPEG_HUFF=libjpeg each raise
    HostLibraryMissingError; where it is present their frames equal the
-   CPU port's under the kernel gate.
+   CPU port's under the kernel gate;
+13. AVIF (phase13; no kernel: the HDR chain and colour conversions are
+   torch ops, the AV1 codec host code), with every launch count 0 just
+   before the phase and read just after: (a) the HDR decode's device
+   half (codecs/avif.hdr_planes_to_bgr) on two 3840x2160 inputs made from
+   a seed (avif_hdr_inputs: 10-bit limited 4:2:0, BT.2020, PQ, a 10-bit
+   alpha plane; 12-bit full-range 4:2:2, P3, HLG) within the step gate
+   of the CPU port's, the alpha equal, with its H2D and device ms and
+   device events; (b) planes_to_bgr_u8 of 4K 10- and 8-bit 4:2:0 planes
+   on the host, yuv_bgr.cpp equal to the Python reference; (c)
+   bgr_to_yuv then yuv420_to_bgr of bench_1080p.jpg's pixels equal to the
+   CPU port's; (d) the committed AVIF fixtures (AVIF_FIXTURES): header,
+   duration, loop count and ICC as stated on the card and the CPU; where
+   ffmpeg's header is absent (the card's machine) decode_to, an .avif
+   encode, transcode_avif, transcode_avif_batch and the animated front's
+   .avif slot each raise HostLibraryMissingError, and where it is
+   present the card's frames and bytes equal the CPU port's.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -2615,6 +2633,239 @@ def phase12(card, kernels):
           flush=True)
 
 
+#: phase 13: the HDR device half's full-size inputs (AVIF_W x AVIF_H), the
+#: committed AVIF fixtures and what their headers must read (width,
+#: height, channels, orientation, frames; duration s; loop count; ICC)
+AVIF_W, AVIF_H = 3840, 2160
+AVIF_FIXTURES = {
+    "still_alpha_64x48.avif": ((64, 48, 4, 1, 1), 0.0, 0, "srgb"),
+    "anim_4f_48x40.avif": ((48, 40, 4, 1, 4), 0.4, 3, None),
+}
+
+
+def _gradient_plane(rng, h, w, depth, k):
+    """A smooth gradient plus noise at `depth` bits, (h, w) u16."""
+    mx = (1 << depth) - 1
+    g = 0.5 + 0.35 * (np.sin(np.arange(h) / h * 3.1 + k)[:, None]
+                      * np.cos(np.arange(w) / w * 2.3 - k)[None, :])
+    g = g * mx + rng.normal(0, mx * 0.02, (h, w))
+    return np.clip(g, 0, mx).astype(np.uint16)
+
+
+def avif_hdr_inputs():
+    """Phase 13 (a)'s two 4K inputs, made from seeds: name -> (colour
+    RawPlanes, alpha RawPlanes or None, colr CICP). "pq_420": 10-bit
+    limited-range 4:2:0, BT.2020 matrix and primaries, PQ, a 10-bit alpha
+    plane; "hlg_422": 12-bit full-range 4:2:2, P3 primaries, HLG."""
+    from lilliput_tpu_torch.codecs.av1_raw import RawPlanes
+    h, w = AVIF_H, AVIF_W
+    rng = np.random.default_rng(13)
+    out = {}
+    for name, depth, cw, full, prim, trc, alpha in (
+            ("pq_420", 10, w // 2, False, 9, 16, True),
+            ("hlg_422", 12, w // 2, True, 12, 18, False)):
+        ch = h // 2 if name.endswith("420") else h
+        rp = RawPlanes(y=_gradient_plane(rng, h, w, depth, 0.3),
+                       u=_gradient_plane(rng, ch, cw, depth, 1.1),
+                       v=_gradient_plane(rng, ch, cw, depth, 2.0),
+                       width=w, height=h, depth=depth, full_range=full,
+                       matrix=9, primaries=prim, trc=trc)
+        ap = (RawPlanes(y=_gradient_plane(rng, h, w, depth, 0.7), u=None,
+                        v=None, width=w, height=h, depth=depth,
+                        full_range=True, matrix=2, primaries=2, trc=2)
+              if alpha else None)
+        out[name] = (rp, ap, (prim, trc, 9, int(full)))
+    return out
+
+
+def phase13(card):
+    """AVIF (no kernel: the HDR chain and the colour conversions are torch
+    ops, the AV1 decode and encode host code), with every launch count 0
+    just before the phase and read just after (none may launch).
+    (a) codecs/avif.hdr_planes_to_bgr, the HDR decode's device half, on
+    avif_hdr_inputs() (AVIF_W x AVIF_H): the card's BGR(A) within
+    STEP_MAX_DIFF of the CPU port's on at most STEP_MAX_SHARE of the
+    values, the alpha channel equal; the H2D and device ms (CUDA events,
+    mean of 3), the device events of one call (device_spans), the CPU
+    port's ms on the host and the differing count.
+    (b) codecs/yuv_rgb.planes_to_bgr_u8 of 4K 10-bit and 8-bit 4:2:0
+    planes on this machine's host: the C++ row kernel (yuv_bgr.cpp)
+    equals the Python reference (LILLIPUT_YUV_RGB=py) at atol 0; the ms
+    of both (mean of 3, after a warm-up call that builds the library).
+    (c) ops/color.bgr_to_yuv, then yuv420_to_bgr, of bench_1080p.jpg's
+    pixels on the card equal the CPU port's at atol 0; their ms.
+    (d) the committed fixtures (AVIF_FIXTURES): new_decoder(...,
+    device="cuda") reads the header, duration, loop count and ICC stated
+    there, as the CPU port does. Where binding.AVFORMAT_HEADER is absent
+    (the H100 machine) decode_to, an .avif encode, transcode_avif,
+    transcode_avif_batch and AnimatedTranscodePipeline's .avif slot each
+    raise HostLibraryMissingError; where it is present the card's frames
+    and bytes equal the CPU port's."""
+    import torch
+    from lilliput_tpu_torch import (AnimatedTranscodePipeline, Framebuffer,
+                                    binding, new_decoder, new_encoder,
+                                    transcode_avif, transcode_avif_batch)
+    from lilliput_tpu_torch.codecs import yuv_rgb
+    from lilliput_tpu_torch.codecs.avif import hdr_planes_to_bgr
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
+    from lilliput_tpu_torch.ops import color as COLOR
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    t_phase = time.perf_counter()
+    have_ffmpeg = os.path.exists(binding.AVFORMAT_HEADER)
+    print(f"phase 13: {binding.AVFORMAT_HEADER} "
+          f"{'present' if have_ffmpeg else 'absent'}", flush=True)
+    DK.reset_launches()
+
+    # (a) the HDR device half at full size
+    for name, (rp, ap, cicp) in avif_hdr_inputs().items():
+        def run(dev, times=None, rp=rp, ap=ap, cicp=cicp):
+            return hdr_planes_to_bgr(rp, ap, AVIF_H, AVIF_W, cicp, dev,
+                                     stage_times=times)
+        run(DEVICE)                                  # warm
+        times = {}
+        for _ in range(3):
+            got = run(DEVICE, times)
+        t0 = time.perf_counter()
+        ref = run("cpu")
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        got = got.cpu()
+        check(got.shape == ref.shape == (AVIF_H, AVIF_W, 4 if ap else 3),
+              f"{name}: shape {tuple(got.shape)}")
+        mx, nd, n = diff_stats([got[..., :3]], [ref[..., :3]])
+        check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+              f"{name}: the card's tone map differs from the CPU port's: "
+              f"max {mx}, {nd}/{n}")
+        check(torch.equal(got[..., 3:], ref[..., 3:]),
+              f"{name}: the alpha rescale differs from the CPU port's")
+        n_ev = len(device_spans(lambda: run(DEVICE))[0])
+        h2d = sum(times["h2d"]) / 3
+        dev_ms = sum(times["device_convert"]) / 3
+        print(f"phase 13: (a) {name} {AVIF_W}x{AVIF_H} hdr_planes_to_bgr "
+              f"on {DEVICE}: H2D {h2d!r} ms, device {dev_ms!r} ms (CUDA "
+              f"events, mean of 3), {n_ev} device events; the CPU port "
+              f"{cpu_ms!r} ms on this host; vs the CPU port "
+              f"max_abs_diff={mx} differing={nd}/{n} [{card}]", flush=True)
+        del got, ref
+    torch.cuda.empty_cache()
+
+    # (b) yuv_bgr.cpp on this machine's host
+    rng = np.random.default_rng(131)
+    h, w = AVIF_H, AVIF_W
+    for depth in (10, 8):
+        dt = np.uint16 if depth > 8 else np.uint8
+        y, u, v = (rng.integers(0, 1 << depth, s).astype(dt)
+                   for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+        ms, outs = {}, {}
+        for mode in ("native", "py"):
+            with path_env({"LILLIPUT_YUV_RGB": mode}):
+                def conv(y=y, u=u, v=v, depth=depth):
+                    return yuv_rgb.planes_to_bgr_u8(y, u, v, depth, 1,
+                                                    False, h, w)
+                outs[mode] = conv()          # warm: builds the library
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    conv()
+                ms[mode] = 1e3 * (time.perf_counter() - t0) / 3
+        check(np.array_equal(outs["native"], outs["py"]),
+              f"yuv_bgr.cpp differs from the Python reference at {depth} "
+              "bits")
+        print(f"phase 13: (b) planes_to_bgr_u8 {w}x{h} {depth}-bit 4:2:0 on "
+              f"the host: C++ {ms['native']!r} ms, Python reference "
+              f"{ms['py']!r} ms (mean of 3), equal [{card}]", flush=True)
+
+    # (c) the colour ops on the 1080p fixture's pixels
+    bgr = torch.from_numpy(fixture_pixels("bench_1080p.jpg"))
+
+    def roundtrip(dev):
+        yuv = COLOR.bgr_to_yuv(bgr.to(dev))
+        return yuv, COLOR.yuv420_to_bgr(*yuv)
+    (yc, back_c), (yp, back_p) = roundtrip(DEVICE), roundtrip("cpu")
+    for a, b in zip(list(yc) + [back_c], list(yp) + [back_p]):
+        check(torch.equal(a.cpu(), b), "bgr_to_yuv/yuv420_to_bgr on the card "
+              "differ from the CPU port's")
+    fwd = cuda_ms(lambda: COLOR.bgr_to_yuv(bgr.to(DEVICE)), 5)
+    inv = cuda_ms(lambda: COLOR.yuv420_to_bgr(*yc), 5)
+    print(f"phase 13: (c) {bgr.shape[1]}x{bgr.shape[0]} bgr_to_yuv "
+          f"{fwd!r} ms (with the H2D), yuv420_to_bgr {inv!r} ms on "
+          f"{DEVICE}; equal to the CPU port [{card}]", flush=True)
+
+    # (d) the committed fixtures
+    for name, (hdr, dur, loops, icc) in AVIF_FIXTURES.items():
+        with open(os.path.join(ASSETS, name), "rb") as f:
+            buf = f.read()
+        want_icc = b""
+        if icc:
+            with open(os.path.join(ROOT, "lilliput_tpu_torch", "icc_profiles",
+                                   f"{icc}_profile.icc"), "rb") as f:
+                want_icc = f.read()
+        decs = {dev: new_decoder(buf, device=dev) for dev in (DEVICE, "cpu")}
+        for dev, d in decs.items():
+            hd = d.header()
+            got = ((hd.width, hd.height, hd.channels, int(hd.orientation),
+                    hd.num_frames), d.duration(), d.loop_count(), d.icc())
+            check(got == (hdr, dur, loops, want_icc),
+                  f"{name} on {dev}: header, duration, loops, ICC {got[:3]}")
+        frame = Framebuffer.from_array(
+            np.zeros((hdr[1], hdr[0], 3), np.uint8), device=DEVICE)
+
+        def avif_encode():
+            enc = new_encoder(".avif")
+            enc.encode(frame, {})
+            return enc.encode(None, {})
+
+        def pipeline_slot():
+            res = AnimatedTranscodePipeline(
+                32, 32, output_format=".avif", device=DEVICE).transcode(
+                [buf], return_exceptions=True)[0]
+            if isinstance(res, Exception):
+                raise res
+            return res
+        calls = {
+            "decode_to": lambda d=decs[DEVICE]: d.decode_to(Framebuffer()),
+            ".avif encode": avif_encode,
+            "transcode_avif": lambda: transcode_avif(buf, 32, 32,
+                                                     device=DEVICE),
+            "transcode_avif_batch": lambda: transcode_avif_batch(
+                [buf, buf], 32, 32, device=DEVICE),
+            "AnimatedTranscodePipeline .avif": pipeline_slot,
+        }
+        if not have_ffmpeg:
+            for what, call in calls.items():
+                try:
+                    call()
+                except HostLibraryMissingError as e:
+                    check("ffmpeg" in str(e), f"{name} {what}: {e}")
+                else:
+                    raise SmokeFailure(f"{name} {what} did not raise "
+                                       "HostLibraryMissingError")
+            print(f"phase 13: (d) {name}: header {hdr}, duration {dur}, "
+                  f"loops {loops}, ICC {len(want_icc)} B on {DEVICE} as on "
+                  f"the CPU; {list(calls)} each raised "
+                  "HostLibraryMissingError", flush=True)
+            continue
+        for _ in range(hdr[4]):
+            fbs = {dev: Framebuffer() for dev in decs}
+            for dev, d in decs.items():
+                d.decode_to(fbs[dev])
+            check(torch.equal(fbs[DEVICE].array.cpu(), fbs["cpu"].array),
+                  f"{name}: the card's frame differs from the CPU port's")
+        outs = {dev: (transcode_avif(buf, 32, 32, device=dev),
+                      transcode_avif_batch([buf, buf], 32, 32, device=dev),
+                      AnimatedTranscodePipeline(
+                          32, 32, output_format=".avif",
+                          device=dev).transcode([buf, buf]))
+                for dev in (DEVICE, "cpu")}
+        check(outs[DEVICE] == outs["cpu"], f"{name}: the card's AVIF bytes "
+              "differ from the CPU port's")
+        print(f"phase 13: (d) {name}: header {hdr}, duration {dur}, loops "
+              f"{loops}, ICC {len(want_icc)} B; frames and transcode bytes "
+              f"on {DEVICE} equal the CPU port's", flush=True)
+    launched = {k: v for k, v in DK.launches.items() if v}
+    check(not launched, f"phase 13 launched {launched}")
+    print(f"phase 13: no kernel launched; phase took "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -2681,6 +2932,7 @@ def main() -> int:
     phase10(card)
     phase11(card, kernels)
     phase12(card, kernels)
+    phase13(card)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -11,9 +11,11 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
   tier);
 * the single-image surface: JPEG (YCbCr, gray, JCS_RGB, CMYK/YCCK),
   GIF and WebP (animated too; WebP through libwebp where its headers
-  exist), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and JPEG
+  exist), PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM, JPEG
   2000 (JP2/J2K: Tier-2 and Tier-1 on the host, the wavelet and colour
-  transforms as torch ops on the device) in; those (not APNG) and
+  transforms as torch ops on the device) and AVIF (still and animated,
+  SDR and HDR: dav1d and libaom through ffmpeg where its headers exist,
+  the HDR tone map as torch ops on the device) in; those (not APNG) and
   thumbhash out::
 
       from lilliput_tpu_torch import (ImageOps, ImageOptions,
@@ -23,9 +25,10 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
           file_type=".jpeg", width=256, height=256,
           resize_method=ResizeMethod.FIT))
 
-* the animated serving path, GIF -> GIF/WebP and WebP -> WebP
-  (``AnimatedTranscodePipeline``, ``pipeline.transcode_gif(_batch)``,
-  ``transcode_webp(_batch)``), with the palette and composite ops of
+* the animated serving path, GIF -> GIF/WebP, WebP -> WebP and AVIF ->
+  AVIF/WebP (``AnimatedTranscodePipeline``,
+  ``pipeline.transcode_gif(_batch)``, ``transcode_webp(_batch)``,
+  ``transcode_avif(_batch)``), with the palette and composite ops of
   ``ops/palette.py``; .webp output of the still fronts through the
   device's libwebp-exact YUV420 emit (``ops/color.py``);
 * the still-input serving front: ``StillTranscodePipeline`` (batches of
@@ -67,7 +70,8 @@ from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401
 from .pipeline import (AnimatedTranscodePipeline,  # noqa: E402,F401
                        JpegTranscodePipeline, MultiGeometryPipeline,
-                       StillTranscodePipeline, transcode_gif,
+                       StillTranscodePipeline, transcode_avif,
+                       transcode_avif_batch, transcode_gif,
                        transcode_gif_batch, transcode_webp,
                        transcode_webp_batch)
 

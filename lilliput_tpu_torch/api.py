@@ -3,13 +3,13 @@
 The counterpart of ``lilliput_tpu/api.py`` (lilliput.go:100-202): magic-byte
 dispatch and extension-based encoder selection. The port decodes GIF,
 WebP, JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and
-JPEG 2000 (JP2 and J2K), and encodes those formats and thumbhash (not
-APNG). WebP needs libwebp: where its headers are absent, its decoder and
-encoder raise HostLibraryMissingError. AVIF and video raise
-NotImplementedError naming their ROADMAP queue 1 item, never
-InvalidImageError, so a caller can tell "not ported" from "not an image";
-bytes no decoder of the JAX package would recognize raise
-InvalidImageError as there.
+JPEG 2000 (JP2 and J2K) and AVIF, and encodes those formats and thumbhash
+(not APNG). WebP needs libwebp and AVIF's AV1 decode and encode need
+ffmpeg: where their headers are absent, those steps raise
+HostLibraryMissingError. Video raises NotImplementedError naming its
+ROADMAP queue 1 item, never InvalidImageError, so a caller can tell "not
+ported" from "not an image"; bytes no decoder of the JAX package would
+recognize raise InvalidImageError as there.
 """
 
 from __future__ import annotations
@@ -67,9 +67,6 @@ def _is_video(buf: bytes) -> bool:
 
 #: (sniffer, what, ROADMAP queue 1 item) of each decoder not ported yet,
 #: at its place in the JAX package's dispatch order
-_NOT_PORTED_FIRST = (
-    (is_avif, "the AVIF decoder", "item 6.5"),
-)
 _NOT_PORTED_LAST = (
     (_is_video, "the video first-frame decoder", "item 6.6"),
 )
@@ -113,8 +110,8 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
                 device="cuda") -> Decoder:
     """Sniff magic bytes and return the right Decoder (lilliput.go:129-164).
     The decoder's frames are tensors on `device`: "cuda" unless the caller
-    asks for the CPU (device="cpu")."""
-    del tone_mapping_enabled  # read by the AVIF decoder (item 6.5)
+    asks for the CPU (device="cpu"). tone_mapping_enabled is the AVIF
+    decoder's: HDR sources tone-map to SDR unless it is False."""
     if len(buf) == 0:
         raise InvalidImageError("empty buffer")
     if is_gif(buf):
@@ -123,9 +120,9 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
     if is_webp(buf):
         from .codecs.webp import WebpDecoder
         return WebpDecoder(buf, device=device)
-    for sniff, what, item in _NOT_PORTED_FIRST:
-        if sniff(buf):
-            not_ported(what, item)
+    if is_avif(buf):
+        from .codecs.avif import AvifDecoder
+        return AvifDecoder(buf, tone_mapping_enabled, device=device)
     cls = _still_decoder(buf)
     if cls is not None:
         return cls(buf, device=device)
@@ -133,12 +130,6 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
         if sniff(buf):
             not_ported(what, item)
     raise InvalidImageError("unrecognized image format")
-
-
-#: output extension -> (what, ROADMAP queue 1 item) of encoders not ported
-_ENCODERS_NOT_PORTED = {
-    ".avif": ("the AVIF encoder", "item 6.5"),
-}
 
 
 def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,
@@ -151,8 +142,9 @@ def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,
     if e == ".webp":
         from .codecs.webp import WebpEncoder
         return WebpEncoder(decoded_by, icc_override=icc_override)
-    if e in _ENCODERS_NOT_PORTED:
-        not_ported(*_ENCODERS_NOT_PORTED[e])
+    if e == ".avif":
+        from .codecs.avif import AvifEncoder
+        return AvifEncoder(decoded_by, icc_override=icc_override)
     if e in (".mp4", ".webm"):
         raise InvalidImageError("Encoder cannot encode into video types")
     if e == ".thumbhash":

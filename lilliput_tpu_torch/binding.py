@@ -6,24 +6,28 @@ libwebp and ffmpeg): the port needs the Huffman decoder
 (``csrc/host/jpeg_huff.cpp``), the PNG row filters with their deflate
 helpers (``csrc/host/png_filter.cpp``) and the GIF container and LZW
 codec (``csrc/host/gif_codec.cpp``) and the JPEG 2000 Tier-1 coder
-(``csrc/host/jp2_t1.cpp``), byte-for-byte copies of the JAX package's
+(``csrc/host/jp2_t1.cpp``) and AVIF's libyuv-exact YUV -> BGR row kernel
+(``csrc/host/yuv_bgr.cpp``), byte-for-byte copies of the JAX package's
 ``native/src`` files held equal by tests, and the port's own JPEG
 entropy encoder (``csrc/host/jpeg_enc.cpp``: libjpeg's bytes for every
 option of ``lp_jpeg_encode_coefs``, baseline, optimized, progressive and
 restart markers). None needs libjpeg, so the library builds on machines
 without it.
 
-Two shims include a library's headers unconditionally, so each is a
+Three shims include a library's headers unconditionally, so each is a
 library of its own, built only where its header exists, as
 ``lilliput_tpu/native/Makefile`` gates them: libjpeg's
 (``csrc/host/jpeg_shim.cpp``, ``load_jpeg``, linked with ``-ljpeg``: the
 decode of the streams jpeg_huff.cpp declines, and the restart-marker
 slicer) where ``JPEG_HEADER`` exists, and WebP's
 (``csrc/host/webp_shim.cpp``, ``load_webp``, ``-lwebp -lwebpmux
--lwebpdemux``) where ``WEBP_HEADER`` exists. Both are byte-for-byte
-copies of the JAX package's. Elsewhere ``load_jpeg`` and ``load_webp``
-raise ``errors.HostLibraryMissingError`` and nothing takes another
-route. ``png_filter.cpp`` uses
+-lwebpdemux``) where ``WEBP_HEADER`` exists, and ffmpeg's
+(``csrc/host/avformat_shim.cpp``, ``load_avformat``, ``-lavformat
+-lavcodec -lavutil -lswscale``: the AV1 decode through dav1d and the
+libaom encode of AVIF) where ``AVFORMAT_HEADER`` exists. All three are
+byte-for-byte copies of the JAX package's. Elsewhere ``load_jpeg``,
+``load_webp`` and ``load_avformat`` raise
+``errors.HostLibraryMissingError`` and nothing takes another route. ``png_filter.cpp`` uses
 libdeflate where ``libdeflate.h`` exists; the build then links
 ``-ldeflate``, the decision of ``lilliput_tpu/native/Makefile``, and
 elsewhere ``lp_zlib_fast_available()`` is 0 and the PNG encoder deflates
@@ -46,6 +50,7 @@ HOST_SOURCES = (
     os.path.join(_build.CSRC_DIR, "host", "png_filter.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "gif_codec.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "jp2_t1.cpp"),
+    os.path.join(_build.CSRC_DIR, "host", "yuv_bgr.cpp"),
 )
 #: the header whose presence compiles png_filter.cpp's libdeflate route
 LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
@@ -57,6 +62,11 @@ WEBP_SOURCES = (os.path.join(_build.CSRC_DIR, "host", "webp_shim.cpp"),)
 #: the header whose presence builds the WebP library (the JAX package's
 #: Makefile gate)
 WEBP_HEADER = "/usr/include/webp/encode.h"
+AVFORMAT_SOURCES = (os.path.join(_build.CSRC_DIR, "host",
+                                 "avformat_shim.cpp"),)
+#: the header whose presence builds the ffmpeg library (the JAX package's
+#: Makefile gate)
+AVFORMAT_HEADER = "/usr/include/x86_64-linux-gnu/libavformat/avformat.h"
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 #: lp_jpeg_encode_coefs's signature, which lpt_jpeg_encode_coefs shares
@@ -72,6 +82,7 @@ _lock = threading.Lock()
 _lib = None
 _webp_lib = None
 _jpeg_lib = None
+_avformat_lib = None
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -102,6 +113,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.lp_zlib_decompress.restype = c.c_int64
     _configure_gif(lib, u8p, i32p)
     _configure_jp2(lib, u8p, i32p)
+    i32 = c.c_int32
+    lib.lp_yuv_to_bgr.argtypes = ([u8p, i32, u8p, u8p] + [i32] * 12
+                                  + [u8p, i32, u8p, i32])
+    lib.lp_yuv_to_bgr.restype = c.c_int
 
 
 def _configure_jpeg(lib: ctypes.CDLL) -> None:
@@ -193,6 +208,34 @@ def _configure_webp(lib: ctypes.CDLL) -> None:
                                 c.c_int),
         "lp_webp_encode_yuv": ([u8p, u8p, u8p, u8p, i32, i32, i32p, i32,
                                 u8p, i32, u8p, c.c_size_t], c.c_long),
+    }
+    for name, (argtypes, restype) in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
+def _configure_avformat(lib: ctypes.CDLL) -> None:
+    """The AVIF entry points of avformat_shim.cpp (the stateless and the
+    stream AV1 decode, the libaom encodes), with the signatures the JAX
+    package's codecs/av1_raw.py and codecs/avif_enc.py register."""
+    c = ctypes
+    u8p, i32p, i64p = (c.POINTER(c.c_uint8), c.POINTER(c.c_int32),
+                       c.POINTER(c.c_int64))
+    i32, vp = c.c_int32, c.c_void_p
+    sigs = {
+        "lp_av_raw_frame_decode": ([c.c_char_p, i32, u8p, i32, u8p,
+                                    c.c_size_t, i32p], vp),
+        "lp_av_raw_frame_plane": ([vp, i32, u8p, i32, i32], c.c_int),
+        "lp_av_raw_frame_free": ([vp], None),
+        "lp_av_stream_open": ([c.c_char_p, u8p, i32], vp),
+        "lp_av_stream_next": ([vp, u8p, c.c_size_t, i32p], c.c_int),
+        "lp_av_stream_plane": ([vp, i32, u8p, i32, i32], c.c_int),
+        "lp_av_stream_free": ([vp], None),
+        "lp_av1_encode": ([u8p] + [i32] * 5 + [i64p] + [i32] * 5
+                          + [u8p, c.c_int64, i64p, i32], c.c_long),
+        "lp_av1_encode_hbd": ([u8p] + [i32] * 8 + [i64p] + [i32] * 5
+                              + [u8p, c.c_int64, i64p, i32], c.c_long),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -293,6 +336,46 @@ def load_webp() -> ctypes.CDLL:
             _configure_webp(lib)
             _webp_lib = lib
     return _webp_lib
+
+
+def _require_avformat_header() -> None:
+    from .errors import HostLibraryMissingError
+    if not os.path.exists(AVFORMAT_HEADER):
+        raise HostLibraryMissingError(
+            f"ffmpeg is not installed on this machine ({AVFORMAT_HEADER} is "
+            "missing), so the ffmpeg host codec (csrc/host/avformat_shim.cpp)"
+            " cannot be built: the AV1 decode (dav1d) and encode (libaom) of "
+            "AVIF need libavformat, libavcodec, libavutil and libswscale")
+
+
+def build_avformat() -> str:
+    """Build (or find) the ffmpeg library; returns its path. Raises
+    HostLibraryMissingError where ffmpeg's headers are absent."""
+    _require_avformat_header()
+    return _build.build_shared("liblilliput_torch_avformat",
+                               AVFORMAT_SOURCES, lambda out: [
+                                   "g++", "-O3", "-fPIC", "-std=c++20",
+                                   "-march=native", "-shared", "-pthread",
+                                   "-Wl,--no-undefined", "-o", out,
+                                   *AVFORMAT_SOURCES, "-lavformat",
+                                   "-lavcodec", "-lavutil", "-lswscale"])
+
+
+def load_avformat() -> ctypes.CDLL:
+    """The ffmpeg library (lp_av_raw_frame_*, lp_av_stream_*,
+    lp_av1_encode, lp_av1_encode_hbd), built at first use. Raises
+    HostLibraryMissingError where AVFORMAT_HEADER is absent, checked on
+    every call, so no ffmpeg call runs on a machine without its headers."""
+    global _avformat_lib
+    _require_avformat_header()
+    if _avformat_lib is not None:
+        return _avformat_lib
+    with _lock:
+        if _avformat_lib is None:
+            lib = ctypes.CDLL(build_avformat())
+            _configure_avformat(lib)
+            _avformat_lib = lib
+    return _avformat_lib
 
 
 def load() -> ctypes.CDLL:

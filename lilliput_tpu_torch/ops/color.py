@@ -1,12 +1,25 @@
-"""Colour conversions on the device: the WebP part of
-``lilliput_tpu/ops/color.py`` (``_webp_gamma_tables`` and
-``webp_yuv420_from_packed``, :257-343), libwebp's exact YUV420 import.
+"""Colour conversions on the device: ``lilliput_tpu/ops/color.py`` as torch
+ops.
 
-The rest of the JAX module (the AVIF/YUV conversions and the HDR tone map)
-belongs to AVIF and is not in the port yet. The gamma lookups are plain
-int32 tables indexed by gathers, where the JAX package selects u8 columns
-by one-hot dots (TPU gathers are slow); the arithmetic is the same int32
-throughout (``>>`` of a negative int32 is arithmetic in both).
+* AVIF's and video's YUV -> BGR: ``yuv420_to_bgr`` (8-bit planes to u8),
+  ``yuv_to_rgb_norm`` (any depth to normalized f32 R'G'B'), and the
+  forward ``bgr_to_yuv`` of the AVIF encoder;
+* the HDR -> SDR chain of the AVIF decoder (the reference's avif.cpp
+  ForceSdr math): ``pq_to_linear``, ``hlg_to_linear``,
+  ``primaries_to_bt709_matrix``, ``reinhard_tonemap`` and ``hdr_to_sdr``;
+* WebP's libwebp-exact YUV420 import (``_webp_gamma_tables`` and
+  ``webp_yuv420_from_packed``).
+
+The JAX functions run jitted, and XLA:CPU contracts their multiply-adds
+into fused multiply-adds; the port writes those fusions out
+(``jpeg_kernels._fma``) so that it equals them on the CPU bit for bit,
+and rounds half to even (``torch.round``) as ``jnp.round`` does. The HDR
+chain's ``pow``, ``exp``, ``log`` and its reductions are torch's own, so
+it is held to the JAX package at one u8 on a small share of the values.
+The WebP gamma lookups are plain int32 tables indexed by gathers, where
+the JAX package selects u8 columns by one-hot dots (TPU gathers are slow);
+the arithmetic is the same int32 throughout (``>>`` of a negative int32
+is arithmetic in both).
 """
 
 from __future__ import annotations
@@ -15,6 +28,283 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from .jpeg_kernels import _fma, upsample_chroma
+
+# BT matrix luma coefficients (Kr, Kb)
+KR_KB = {
+    "bt601": (0.299, 0.114),
+    "bt709": (0.2126, 0.0722),
+    "bt2020": (0.2627, 0.0593),
+    "smpte240": (0.212, 0.087),
+}
+
+# AVCOL_SPC_* -> coefficient family
+AVCOL_SPC = {0: "bt709", 1: "bt709", 4: "bt601", 5: "bt601", 6: "bt601",
+             7: "smpte240", 9: "bt2020", 10: "bt2020"}
+
+
+def yuv_to_bgr_coeffs(space: str):
+    kr, kb = KR_KB[space]
+    kg = 1.0 - kr - kb
+    return (2.0 * (1.0 - kr),                       # cr -> r
+            -2.0 * kb * (1.0 - kb) / kg,            # cb -> g
+            -2.0 * kr * (1.0 - kr) / kg,            # cr -> g
+            2.0 * (1.0 - kb))                       # cb -> b
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _full_res_chroma(y, u, v, out_h: int, out_w: int):
+    """f32 Y cropped to (out_h, out_w) and U, V upsampled to it: a
+    subsampled axis (chroma shorter than the output) upsamples 2x with the
+    JPEG path's triangle filter, a full-resolution axis stays 1x (4:2:2
+    has full-height chroma). Returns (yf, uf, vf, upsampled)."""
+    yf = y.to(torch.float32)
+    uf = u.to(torch.float32)
+    vf = v.to(torch.float32)
+    upsampled = tuple(uf.shape[-2:]) != (out_h, out_w)
+    if upsampled:
+        hf = 2 if uf.shape[-1] < out_w else 1
+        vfac = 2 if uf.shape[-2] < out_h else 1
+        uf = upsample_chroma(uf, hf, vfac, out_h, out_w)
+        vf = upsample_chroma(vf, hf, vfac, out_h, out_w)
+    return yf[..., :out_h, :out_w], uf, vf, upsampled
+
+
+def _matrix_rgb(yf, uf, vf, upsampled: bool, y_bias: float, y_scale,
+                c_bias: float, c_scale, space: str):
+    """r, g, b of yn + c*cr, yn + c*cb + c*cr and yn + c*cb, where
+    yn = (yf - y_bias) * y_scale, cb = (uf - c_bias) * c_scale and cr
+    likewise (a scale of None is 1), in XLA:CPU's form of the jitted JAX
+    expression: a division by a constant becomes a product by its f32
+    reciprocal (the callers pass that), the chroma scale folds into each
+    coefficient as one f32 constant, and the multiply-adds contract into
+    fused ones. Which product of yn + c*cr it fuses depends on whether yn
+    has a bias and whether the chroma was upsampled (then it comes from
+    another fusion); the JAX functions' f32 output pins each form (0
+    differing values, tests/test_torch_color.py)."""
+    cs = yuv_to_bgr_coeffs(space)
+    k_rr, k_gb, k_gr, k_bb = (
+        _f32(c) if c_scale is None else _f32(np.float32(c_scale)
+                                             * np.float32(c))
+        for c in cs)
+    ym = yf - y_bias if y_bias else yf
+    um = uf - c_bias
+    vm = vf - c_bias
+    if y_scale is None:
+        yn = ym
+        r, b = _fma(k_rr, vm, yn), _fma(k_bb, um, yn)
+        g = _fma(k_gr, vm, _fma(k_gb, um, yn))
+        return r, g, b
+    g = _fma(k_gr, vm, _fma(y_scale, ym, k_gb * um))
+    if y_bias or upsampled:
+        yn = ym * y_scale
+        r, b = _fma(k_rr, vm, yn), _fma(k_bb, um, yn)
+    else:
+        r = _fma(y_scale, ym, k_rr * vm)
+        b = _fma(y_scale, ym, k_bb * um)
+    return r, g, b
+
+
+def _recip(x: float) -> float:
+    """The f32 reciprocal XLA:CPU multiplies by in place of a division by
+    the constant x."""
+    return _f32(np.float32(1.0) / np.float32(x))
+
+
+def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  space: str = "bt601", full_range: bool = False,
+                  out_h: int = 0, out_w: int = 0) -> torch.Tensor:
+    """Planar 4:2:0 (4:2:2, or 4:4:4 when u/v match y) u8 -> (H, W, 3)
+    BGR u8, on the planes' device. Chroma is upsampled with the JPEG
+    path's separable triangle filter."""
+    out_h = out_h or y.shape[-2]
+    out_w = out_w or y.shape[-1]
+    yf, uf, vf, up = _full_res_chroma(y, u, v, out_h, out_w)
+    if full_range:
+        r, g, b = _matrix_rgb(yf, uf, vf, up, 0.0, None, 128.0, None, space)
+    else:
+        r, g, b = _matrix_rgb(yf, uf, vf, up, 16.0, _f32(255.0 / 219.0), 128.0,
+                              _f32(255.0 / 224.0), space)
+    out = torch.stack([b, g, r], dim=-1)
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+def yuv_to_rgb_norm(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    space: str = "bt2020", full_range: bool = False,
+                    depth: int = 10, out_h: int = 0,
+                    out_w: int = 0) -> torch.Tensor:
+    """Planar YUV at any bit depth (u8, or u16 values in a wider integer
+    tensor) -> (H, W, 3) normalized f32 R'G'B' in [0, 1]: the coded
+    (nonlinear) signal at full precision, for hdr_to_sdr to linearize. No
+    8-bit quantization anywhere."""
+    out_h = out_h or y.shape[-2]
+    out_w = out_w or y.shape[-1]
+    yf, uf, vf, up = _full_res_chroma(y, u, v, out_h, out_w)
+    step = float(1 << (depth - 8))
+    half = float(1 << (depth - 1))
+    maxv = float((1 << depth) - 1)
+    if full_range:
+        r, g, b = _matrix_rgb(yf, uf, vf, up, 0.0, _recip(maxv), half,
+                              _recip(maxv), space)
+    else:
+        r, g, b = _matrix_rgb(yf, uf, vf, up, 16.0 * step, _recip(219.0 * step),
+                              half, _recip(224.0 * step), space)
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
+
+
+def bgr_to_yuv(bgr: torch.Tensor, space: str = "bt601",
+               subsample: bool = True):
+    """(H, W, 3) BGR u8 -> studio-swing planar YUV u8 (the forward of
+    yuv420_to_bgr): Y on [16, 235], chroma on [16, 240] around 128;
+    subsample=True averages chroma 2x2 (4:2:0, odd edges replicate). The
+    AVIF encoder's colour conversion (codecs/avif_enc.py)."""
+    kr, kb = KR_KB[space]
+    kg = 1.0 - kr - kb
+    b = bgr[..., 0].to(torch.float32)
+    g = bgr[..., 1].to(torch.float32)
+    r = bgr[..., 2].to(torch.float32)
+    yf = _fma(kb, b, _fma(kr, r, _f32(kg) * g))
+    cb = (b - yf) / _f32(2.0 * (1.0 - kb))
+    cr = (r - yf) / _f32(2.0 * (1.0 - kr))
+    y = torch.clamp(torch.round(_fma(219.0 / 255.0, yf,
+                                     torch.full_like(yf, 16.0))), 0, 255)
+    if subsample:
+        cb = _edge_pad(cb)
+        cr = _edge_pad(cr)
+        cb = (cb[0::2, 0::2] + cb[0::2, 1::2]
+              + cb[1::2, 0::2] + cb[1::2, 1::2]) * 0.25
+        cr = (cr[0::2, 0::2] + cr[0::2, 1::2]
+              + cr[1::2, 0::2] + cr[1::2, 1::2]) * 0.25
+    u = torch.clamp(torch.round(_fma(224.0 / 255.0, cb,
+                                     torch.full_like(cb, 128.0))), 0, 255)
+    v = torch.clamp(torch.round(_fma(224.0 / 255.0, cr,
+                                     torch.full_like(cr, 128.0))), 0, 255)
+    return y.to(torch.uint8), u.to(torch.uint8), v.to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# HDR transfer functions + tone mapping (the reference's avif.cpp:88-199)
+# ---------------------------------------------------------------------------
+
+def pq_to_linear(e: torch.Tensor) -> torch.Tensor:
+    """SMPTE ST 2084 (PQ) EOTF: normalized signal -> linear (1.0 = 10000
+    nits)."""
+    m1 = 2610.0 / 16384.0
+    m2 = 2523.0 / 4096.0 * 128.0
+    c1 = 3424.0 / 4096.0
+    c2 = 2413.0 / 4096.0 * 32.0
+    c3 = 2392.0 / 4096.0 * 32.0
+    ep = torch.pow(torch.clamp(e, min=0.0), _f32(1.0 / m2))
+    num = torch.clamp(ep - _f32(c1), min=0.0)
+    den = _fma(-c3, ep, torch.full_like(ep, _f32(c2)))
+    return torch.pow(num / torch.clamp(den, min=1e-10), _f32(1.0 / m1))
+
+
+def hlg_to_linear(e: torch.Tensor) -> torch.Tensor:
+    """ARIB STD-B67 (HLG) inverse OETF (normalized to [0, 1] scene
+    light)."""
+    a, b, c = 0.17883277, 0.28466892, 0.55991073
+    # XLA:CPU divides by a constant as a product by its f32 reciprocal
+    lo = (e * e) * _recip(3.0)
+    hi = (torch.exp((e - _f32(c)) * _recip(a)) + _f32(b)) * _recip(12.0)
+    return torch.where(e <= 0.5, lo, hi)
+
+
+# RGB -> XYZ primaries matrices (D65), and BT.709's inverse: BT.2020 and
+# P3 content moves into BT.709 before the tone map (avif.cpp:121-199)
+_RGB_TO_XYZ = {
+    "bt709": np.array([[0.4124564, 0.3575761, 0.1804375],
+                       [0.2126729, 0.7151522, 0.0721750],
+                       [0.0193339, 0.1191920, 0.9503041]], np.float32),
+    "bt2020": np.array([[0.6369580, 0.1446169, 0.1688810],
+                        [0.2627002, 0.6779981, 0.0593017],
+                        [0.0000000, 0.0280727, 1.0609851]], np.float32),
+    "p3": np.array([[0.4865709, 0.2656677, 0.1982173],
+                    [0.2289746, 0.6917385, 0.0792869],
+                    [0.0000000, 0.0451134, 1.0439444]], np.float32),
+    "bt601": np.array([[0.3935891, 0.3652497, 0.1916313],
+                       [0.2124132, 0.7010437, 0.0865432],
+                       [0.0187423, 0.1119313, 0.9581563]], np.float32),
+}
+
+
+def primaries_to_bt709_matrix(src: str) -> np.ndarray:
+    xyz = _RGB_TO_XYZ[src]
+    inv709 = np.linalg.inv(_RGB_TO_XYZ["bt709"]).astype(np.float32)
+    return (inv709 @ xyz).astype(np.float32)
+
+
+def _sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of every value, accumulated in f64: XLA:CPU's and
+    torch's f32 reduction orders differ from each other and between the
+    CPU and CUDA, so the port sums exactly enough that the card and the
+    CPU agree, within one f32 rounding of XLA's sum."""
+    return x.double().sum().float()
+
+
+def reinhard_tonemap(rgb_linear: torch.Tensor, intensity: float = 0.0,
+                     light_adapt: float = 1.0,
+                     color_adapt: float = 0.0) -> torch.Tensor:
+    """Global Reinhard operator in the cv::createTonemapReinhard style
+    (the caller applies the gamma). rgb_linear: (..., 3) f32 in [0, 1];
+    the statistics are over the whole tensor. Means are sums times the f32
+    reciprocal of the count, and 0.3 + 0.7 * key**1.4 one fused
+    multiply-add, as XLA:CPU compiles the JAX function."""
+    # luminance (Rec.709 weights over RGB order)
+    lum = _fma(0.0722, rgb_linear[..., 2],
+               _fma(0.2126, rgb_linear[..., 0],
+                    _f32(0.7152) * rgb_linear[..., 1]))
+    inv_n = _recip(float(lum.numel()))
+    log_mean = torch.exp(_sum_f32(torch.log(torch.clamp(lum, min=1e-6)))
+                         * inv_n)
+    lum_mean = _sum_f32(lum) * inv_n
+    lmax = torch.log(torch.max(lum) + _f32(1e-6))
+    key = (lmax - torch.log(log_mean + _f32(1e-6))) / (
+        lmax - torch.log(torch.min(lum) + _f32(1e-6)) + _f32(1e-6))
+    map_key = _fma(0.7, torch.pow(key, _f32(1.4)), torch.full_like(key, 0.3))
+    intensity_f = _f32(float(np.exp(np.float32(-intensity))))
+    gl = lum * light_adapt + lum_mean * (1.0 - light_adapt)
+    adapt = color_adapt * rgb_linear + (1.0 - color_adapt) * gl[..., None]
+    adapt = intensity_f * torch.pow(adapt, map_key)
+    out = rgb_linear / (rgb_linear + adapt)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def hdr_to_sdr(rgb: torch.Tensor, transfer: str = "pq",
+               primaries: str = "bt2020") -> torch.Tensor:
+    """Normalized HDR R'G'B' (..., 3) -> linearize -> primaries to BT.709
+    -> Reinhard -> sRGB gamma -> u8 (the reference's ForceSdr pipeline,
+    avif.cpp:88-199), on the input's device. The 3x3 primaries product is
+    three sums of products; XLA:CPU's dot sums in an order this form does
+    not reproduce, so its low bits differ (ROADMAP queue 3)."""
+    f = rgb.to(torch.float32)
+    lin = pq_to_linear(f) if transfer == "pq" else hlg_to_linear(f)
+    if primaries != "bt709":
+        m = primaries_to_bt709_matrix(primaries)
+        x0, x1, x2 = lin[..., 0], lin[..., 1], lin[..., 2]
+        lin = torch.stack([
+            _fma(float(m[i, 2]), x2,
+                 float(m[i, 0]) * x0 + float(m[i, 1]) * x1)
+            for i in range(3)], dim=-1)
+        lin = torch.clamp(lin, min=0.0)
+    # PQ is absolute (1.0 = 10000 nits); expose around SDR white
+    if transfer == "pq":
+        lin = lin * _f32(10000.0 / 203.0)
+    mapped = reinhard_tonemap(lin)
+    srgb = torch.where(mapped <= _f32(0.0031308),
+                       _f32(12.92) * mapped,
+                       _fma(1.055, torch.pow(mapped, _f32(1.0 / 2.4)),
+                            torch.full_like(mapped, -0.055)))
+    return torch.clamp(torch.round(srgb * 255.0), 0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# libwebp-exact YUV420 conversion (the WebP still emit)
+# ---------------------------------------------------------------------------
 
 
 def _webp_gamma_tables():

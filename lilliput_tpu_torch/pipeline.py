@@ -1,5 +1,6 @@
 """Batched JPEG Fit transcode — the port's serving path — the still and
-mixed-geometry serving fronts, and the animated GIF -> GIF serving path.
+mixed-geometry serving fronts, and the animated GIF, WebP and AVIF
+serving paths.
 
 The JPEG-in half of ``lilliput_tpu/pipeline.py``: a batch of
 same-geometry JPEGs (4:2:0, 4:2:2, 4:4:0, 4:4:4 or grayscale, any EXIF
@@ -49,8 +50,8 @@ i-1 and decodes batch i+1 while step i runs. A JPEG stream jpeg_huff.cpp
 declines (a truncated upload, arithmetic coding, ...) takes the JAX
 package's libjpeg route (csrc/host/jpeg_shim.cpp), which raises
 HostLibraryMissingError where libjpeg is absent. Everything outside the
-port (AVIF, the mesh) raises NotImplementedError naming its ROADMAP queue
-1 item; nothing falls back.
+port (the mesh) raises NotImplementedError naming its ROADMAP queue 1
+item; nothing falls back.
 
 Non-JPEG stills (``StillTranscodePipeline``): host decode of each source
 to pixels (decoders on the CPU, threaded) into one pinned batch, one H2D
@@ -72,7 +73,11 @@ resized frames); the bytes equal the streaming ImageOps transform's.
 Animated WebP (``transcode_webp``, ``transcode_webp_batch``) is the same
 shape: host libwebp frame decode, the alpha-blend/dispose composite
 (``ops.palette.composite_animation_rgba``), crop and resize on the
-device, the host animation encode.
+device, the host animation encode. Animated AVIF (``transcode_avif``,
+``transcode_avif_batch``): host dav1d decode of full-canvas frames
+(codecs/avif.py over the ffmpeg shim, which raises
+HostLibraryMissingError where ffmpeg is absent), one upload, crop and
+resize on the device, one download, the host libaom or libwebp encode.
 """
 
 from __future__ import annotations
@@ -1204,10 +1209,11 @@ def _synthetic_still(fmt: str, w: int, h: int, channels: int = 3) -> bytes:
 
 class StillTranscodePipeline(_ServingPipelineBase):
     """Batched Fit transcoder for same-signature NON-JPEG still sources
-    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, WebP, JPEG 2000:
-    anything the port's new_decoder reads but JPEG). A JPEG 2000 source's CPU
-    decoder runs its Tier-2 and Tier-1 on the host and its wavelet and
-    colour transforms as torch ops on the host CPU.
+    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, WebP, JPEG 2000, AVIF:
+    anything the port's new_decoder reads but JPEG). A JPEG 2000 source's
+    CPU decoder runs its Tier-2 and Tier-1 on the host and its wavelet and
+    colour transforms as torch ops on the host CPU; an HDR AVIF's tone
+    map runs there too.
 
     JPEG sources go through JpegTranscodePipeline, in the coefficient
     domain. Every other still format decodes to pixels on the HOST, with
@@ -1693,18 +1699,68 @@ def _webp_anim_inputs(buf: bytes):
     return dec, inputs, durations
 
 
-def _webp_emit(dec, host_frames: np.ndarray, durations,
-               encode_options) -> bytes:
-    """The host animation encode of one animation's resized frames."""
-    from .codecs.webp import WebpEncoder
-    enc = WebpEncoder(dec)
-    try:
-        for i, dur in enumerate(durations):
-            enc.encode(_host_frame(host_frames[i], dur),
-                       encode_options or {})
+def _anim_emit(dec, host_frames: np.ndarray, durations_s, encode_options,
+               file_type: str) -> bytes:
+    """The host animation encode (new_encoder(file_type, dec)) of one
+    animation's resized frames, the encoder closed after its flush or
+    failure (a WebP encoder holds native memory until then)."""
+    from .api import new_encoder
+    from .framebuffer import Framebuffer
+    with new_encoder(file_type, dec) as enc:
+        for px, dur in zip(host_frames, durations_s):
+            fb = Framebuffer(torch.from_numpy(np.ascontiguousarray(px)))
+            fb.duration = dur
+            enc.encode(fb, encode_options or {})
         return enc.encode(None, encode_options or {})
-    finally:
-        enc.close()
+
+
+def _anim_transcode_batch(bufs, prep, group_key, input_keys, to_pixels,
+                          emit, dst_w: int, dst_h: int, fit: bool,
+                          workers: Optional[int], device, stage_times,
+                          decode_stage: str, encode_stage: str
+                          ) -> List[bytes]:
+    """The cross-animation loop of transcode_webp_batch and
+    transcode_avif_batch: prep(buf) -> (decoder, {name: array}, durations)
+    on a thread pool; animations grouped by group_key(prepped item), in
+    chunks of at most _MAX_ANIM_LANES, the animation count padded to a
+    bucket; per group one stack of input_keys (the first is the (N, H, W,
+    ...) frame stack, whose H and W are the canvas), one H2D,
+    to_pixels(inputs, crop, clock) -> resized (B, N, dst_h, dst_w, C) on
+    the device, one D2H, and emit(decoder, frames, durations) -> bytes per
+    animation on the thread pool. stage_times gets decode_stage once,
+    then per group "stack", "h2d", to_pixels' stages, "d2h" and
+    encode_stage."""
+    dev = resolve_device(device)
+    n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
+    clock = StageClock(stage_times, dev)
+    with clock(decode_stage):
+        prepped = _tmap(prep, bufs, n_workers)
+    groups = _anim_batch_groups(prepped, group_key)
+
+    out: List[Optional[bytes]] = [None] * len(bufs)
+    for members in [c for g in groups.values() for c in _chunk_members(g)]:
+        bb = P.frame_bucket(len(members))  # animation-count bucket
+        with clock("stack"):
+            stack = _stack_group(prepped, members, input_keys, bb)
+        with clock("h2d", device=True):
+            inputs = [torch.from_numpy(stack[k]).to(dev) for k in input_keys]
+        ch, cw = stack[input_keys[0]].shape[2:4]
+        crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
+        resized = to_pixels(inputs, crop, clock)
+        del inputs
+        with clock("d2h"):
+            host_px = resized[:len(members)].cpu().numpy()
+        del resized
+
+        def emit_one(k: int) -> bytes:
+            dec, _, durs = prepped[members[k]]
+            return emit(dec, host_px[k], durs)
+
+        with clock(encode_stage):
+            results = _tmap(emit_one, range(len(members)), n_workers)
+        for k, i in enumerate(members):
+            out[i] = results[k]
+    return out  # type: ignore[return-value]
 
 
 _WEBP_INPUTS = ("frames", "drawn", "blends", "pdisp", "prects")
@@ -1746,41 +1802,93 @@ def transcode_webp_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     and scatter, once per call), then per group "stack", "h2d",
     "composite", "resize", "d2h" and "webp_encode"."""
     _check_mesh(mesh)
-    dev = resolve_device(device)
-    n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
-    clock = StageClock(stage_times, dev)
-    with clock("webp_decode"):
-        prepped = _tmap(_webp_anim_inputs, bufs, n_workers)
-    groups = _anim_batch_groups(
-        prepped, lambda it: (it[0]._w, it[0]._hgt, it[1]["frames"].shape[0]))
 
-    out: List[Optional[bytes]] = [None] * len(bufs)
-    for (cw, ch, _), members in [(k, c) for k, g in groups.items()
-                                 for c in _chunk_members(g)]:
-        bb = P.frame_bucket(len(members))  # animation-count bucket
-        with clock("stack"):
-            stack = _stack_group(prepped, members, _WEBP_INPUTS, bb)
-        with clock("h2d", device=True):
-            inputs = [torch.from_numpy(stack[k]).to(dev)
-                      for k in _WEBP_INPUTS]
+    def to_pixels(inputs, crop, clock):
         with clock("composite", device=True):
             comp = P.composite_animation_rgba(*inputs)
-        crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
         with clock("resize", device=True):
-            resized = _anim_crop_resize(comp, crop, dst_w, dst_h)
-        del inputs, comp
-        with clock("d2h"):
-            host_px = resized[:len(members)].cpu().numpy()
+            return _anim_crop_resize(comp, crop, dst_w, dst_h)
 
-        def emit(k: int) -> bytes:
-            dec, _, durs = prepped[members[k]]
-            return _webp_emit(dec, host_px[k], durs, encode_options)
+    def emit(dec, host_frames, durations_ms):
+        return _anim_emit(dec, host_frames, [d / 1000.0 for d in durations_ms],
+                          encode_options, ".webp")
 
-        with clock("webp_encode"):
-            results = _tmap(emit, range(len(members)), n_workers)
-        for k, i in enumerate(members):
-            out[i] = results[k]
-    return out  # type: ignore[return-value]
+    return _anim_transcode_batch(
+        bufs, _webp_anim_inputs,
+        lambda it: (it[0]._w, it[0]._hgt, it[1]["frames"].shape[0]),
+        _WEBP_INPUTS, to_pixels, emit, dst_w, dst_h, fit, workers, device,
+        stage_times, "webp_decode", "webp_encode")
+
+
+def _avif_anim_inputs(buf: bytes):
+    """Host assembly for AVIF: decode every frame (avis frames are full
+    canvas, nothing to composite) on a CPU decoder, as the JAX package
+    pins this decode to its host CPU device, and pad the frame axis to
+    ops.palette.frame_bucket. Returns (decoder, {"frames": (N, H, W, C)
+    u8}, durations_s)."""
+    from .codecs.avif import AvifDecoder
+    from .framebuffer import Framebuffer
+    dec = AvifDecoder(buf, device="cpu")
+    frames, durations = [], []
+    while True:
+        fb = Framebuffer()
+        try:
+            dec.decode_to(fb)
+        except EOFError:
+            break
+        frames.append(fb.to_numpy())
+        durations.append(fb.duration)
+    if not frames:
+        raise DecodingFailedError("avif has no frames")
+    for _ in range(len(frames), P.frame_bucket(len(frames))):
+        frames.append(np.zeros_like(frames[0]))
+    return dec, dict(frames=np.stack(frames)), durations
+
+
+def transcode_avif(buf: bytes, dst_w: int, dst_h: int, fit: bool = False,
+                   encode_options=None, file_type: str = ".avif",
+                   device="cuda") -> bytes:
+    """Whole-animation transcode of one AVIF: transcode_avif_batch of the
+    one animation. Host AV1 frame decode (dav1d; an HDR source's tone map
+    on the host CPU), one upload, one crop + AREA resize of every frame on
+    `device`, one download, then the AVIF (libaom) or WebP encoder."""
+    return transcode_avif_batch([buf], dst_w, dst_h, fit=fit,
+                                encode_options=encode_options,
+                                file_type=file_type, device=device)[0]
+
+
+def transcode_avif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
+                         fit: bool = False, encode_options=None,
+                         file_type: str = ".avif",
+                         workers: Optional[int] = None, mesh=None,
+                         device="cuda",
+                         stage_times: Optional[Dict[str, List[float]]] = None
+                         ) -> List[bytes]:
+    """Cross-animation AVIF transcode: animations grouped by their frame
+    stack's signature (frame bucket, canvas, channels, dtype: RGB and
+    RGBA never share a group), in chunks of at most _MAX_ANIM_LANES, the
+    animation count padded to a bucket, one H2D, one crop + AREA resize
+    and one D2H per group; each animation's bytes equal its own
+    transcode_avif's. Host decode and encode on a thread pool.
+
+    stage_times, when a dict, gets the ms of "avif_decode" (host decode,
+    once per call), then per group "stack", "h2d", "resize", "d2h" and
+    "encode"."""
+    _check_mesh(mesh)
+
+    def to_pixels(inputs, crop, clock):
+        with clock("resize", device=True):
+            return _anim_crop_resize(inputs[0], crop, dst_w, dst_h)
+
+    def emit(dec, host_frames, durations_s):
+        return _anim_emit(dec, host_frames, durations_s, encode_options,
+                          file_type)
+
+    return _anim_transcode_batch(
+        bufs, _avif_anim_inputs,
+        lambda it: (it[1]["frames"].shape, str(it[1]["frames"].dtype)),
+        ("frames",), to_pixels, emit, dst_w, dst_h, fit, workers, device,
+        stage_times, "avif_decode", "encode")
 
 
 class AnimatedTranscodePipeline:
@@ -1796,12 +1904,14 @@ class AnimatedTranscodePipeline:
     ImageOps path. A failed group falls back to per-item transcode, so a
     malformed animation fails only its own slot.
 
+    AVIF sources ride transcode_avif_batch (.webp and .avif output).
+
     output_format: ".gif" (GIF sources; the GIF encoder reuses the source
-    palette), ".webp" (GIF and WebP sources) or ".avif", as in the JAX
-    package. The .webp host encode raises HostLibraryMissingError where
-    libwebp is absent. Not ported yet: AVIF sources (item 6.5) and a mesh
-    (item 9); each raises NotImplementedError naming its item (AVIF per
-    item).
+    palette), ".webp" (GIF, WebP and AVIF sources) or ".avif" (AVIF
+    sources), as in the JAX package. The .webp host encode raises
+    HostLibraryMissingError where libwebp is absent, and the AVIF decode
+    and .avif encode where ffmpeg is. Not ported yet: a mesh (item 9),
+    which raises NotImplementedError naming its item.
     """
 
     _FORMATS = (".gif", ".webp", ".avif")
@@ -1845,8 +1955,9 @@ class AnimatedTranscodePipeline:
                 raise DecodingFailedError(
                     ".gif output requires a GIF source (the GIF encoder "
                     "reuses the source palette)")
-            _not_ported("the animated AVIF transcode (transcode_avif)",
-                        "item 6.5")
+            return transcode_avif(buf, self.dst_w, self.dst_h, fit=self.fit,
+                                  encode_options=self.encode_options,
+                                  file_type=fmt, device=self.device)
         raise DecodingFailedError(
             "animated transcode supports GIF/WebP/AVIF sources")
 
@@ -1861,8 +1972,8 @@ class AnimatedTranscodePipeline:
         index. With return_exceptions=True the failing items' slots hold
         the exception objects; with the default False the first failure
         re-raises after the healthy items finish. stage_times goes to
-        transcode_gif_batch and transcode_webp_batch (the per-item path is
-        not timed)."""
+        transcode_gif_batch, transcode_webp_batch and transcode_avif_batch
+        (the per-item path is not timed)."""
         from . import api as A
         out: List[Optional[bytes]] = [None] * len(bufs)
         errors: Dict[int, Exception] = {}
@@ -1892,6 +2003,10 @@ class AnimatedTranscodePipeline:
         if self.output_format == ".webp":
             run_batch(A.is_webp, transcode_webp_batch,
                       encode_options=self.encode_options)
+        if self.output_format in (".webp", ".avif"):
+            run_batch(A.is_avif, transcode_avif_batch,
+                      encode_options=self.encode_options,
+                      file_type=self.output_format)
         n_workers = (self.workers if self.workers is not None
                      else min(4, os.cpu_count() or 1))
 
@@ -1928,15 +2043,16 @@ class MultiGeometryPipeline:
     signature; eager torch compiles nothing, so here a "compile"
     (serving.geometry_compiles) is a pipeline built, and each pipeline
     keeps its own resize tables (ops/resize caches them per geometry).
-    Animated GIF and WebP sources with .gif (GIF only) or .webp output go
-    to AnimatedTranscodePipeline; still WebP sources to a
-    StillTranscodePipeline. Where libwebp is absent, each WebP source and
-    each .webp output fails in its own slot with HostLibraryMissingError.
+    Animated GIF, WebP and AVIF sources with .gif (GIF only) or .webp
+    output go to AnimatedTranscodePipeline; still WebP and AVIF sources to
+    a StillTranscodePipeline. Where libwebp is absent, each WebP source
+    and each .webp output fails in its own slot with
+    HostLibraryMissingError, as each AVIF source does where ffmpeg is.
 
     device: "cuda" by default (it raises without a card), passed to every
     pipeline built; device="cpu" runs the fronts on the CPU. Not ported:
-    a mesh (item 9) and sources the port cannot decode (AVIF 6.5, video
-    6.6), which fail in their own slots."""
+    a mesh (item 9) and video sources (item 6.6), which fail in their own
+    slots."""
 
     def __init__(self, dst_w: int, dst_h: int, quality: int = 85,
                  method: str = R.AREA, max_geometries: int = 64,

@@ -52,7 +52,12 @@ JPEG 2000 (no kernel: the wavelet, colour transforms and decode tail are
 torch ops): decode_to and the .jp2 encode on the card equal the CPU's
 (0 differing values, equal bytes) on small lossless, 9/7, tiled and
 sYCC streams, and each ops/wavelet function on the card equals the CPU
-on random int64 and float64 stacks, bit for bit."""
+on random int64 and float64 stacks, bit for bit.
+
+AVIF (no kernel: torch ops): the HDR decode's device half on the card is
+within the step gate of the CPU's, its alpha equal, and the colour
+conversions (bgr_to_yuv, yuv420_to_bgr, yuv_to_rgb_norm) equal the CPU's
+bit for bit."""
 
 import functools
 import os
@@ -954,3 +959,73 @@ def test_webp_composite_on_card_equals_cpu():
         TP._webp_batch_to_pixels(*inputs, crop, 16, 16),
         TP._webp_batch_to_pixels(*[a.cuda() for a in inputs], crop, 16,
                                  16).cpu())
+
+
+def _avif_planes(rng, h, w, depth, layout):
+    """Smooth gradient plus noise u16 planes (Y, U, V) of `layout`."""
+    mx = (1 << depth) - 1
+    ch, cw = {"420": ((h + 1) // 2, (w + 1) // 2),
+              "422": (h, (w + 1) // 2)}[layout]
+
+    def plane(ph, pw, k):
+        g = 0.5 + 0.35 * (np.sin(np.arange(ph) / ph * 3.1 + k)[:, None]
+                          * np.cos(np.arange(pw) / pw * 2.3 - k)[None, :])
+        return np.clip(g * mx + rng.normal(0, mx * 0.02, (ph, pw)), 0,
+                       mx).astype(np.uint16)
+    return plane(h, w, 0.3), plane(ch, cw, 1.1), plane(ch, cw, 2.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth,layout,full,prim,trc", [
+    (10, "420", False, 9, 16), (12, "422", True, 12, 18)])
+def test_avif_hdr_device_half_on_card_equals_cpu(depth, layout, full, prim,
+                                                 trc):
+    """codecs/avif.hdr_planes_to_bgr (no kernel: torch ops) on the card is
+    within the step gate of the CPU's (CUDA's pow, exp and log against the
+    CPU's), its alpha rescale equal."""
+    _need_card()
+    from lilliput_tpu_torch.codecs.av1_raw import RawPlanes
+    from lilliput_tpu_torch.codecs.avif import hdr_planes_to_bgr
+    from lilliput_tpu_torch.ops import decode_kernels as DKL
+    rng = np.random.default_rng(depth)
+    h, w = 271, 389
+    y, u, v = _avif_planes(rng, h + 1, w + 1, depth, layout)
+    rp = RawPlanes(y=y, u=u, v=v, width=w + 1, height=h + 1, depth=depth,
+                   full_range=full, matrix=9, primaries=prim, trc=trc)
+    ap = RawPlanes(y=_avif_planes(rng, h + 1, w + 1, depth, "420")[0],
+                   u=None, v=None, width=w + 1, height=h + 1, depth=depth,
+                   full_range=True, matrix=2, primaries=2, trc=2)
+    DKL.reset_launches()
+    got = hdr_planes_to_bgr(rp, ap, h, w, None, "cuda").cpu()
+    assert not any(DKL.launches.values())
+    want = hdr_planes_to_bgr(rp, ap, h, w, None, "cpu")
+    mx, nd, n = _diff([got[..., :3]], [want[..., :3]])
+    assert mx <= 1 and nd <= 1e-3 * n
+    assert torch.equal(got[..., 3], want[..., 3])
+
+
+@pytest.mark.gpu
+def test_avif_colour_ops_on_card_equal_cpu():
+    """ops/color's bgr_to_yuv, yuv420_to_bgr and yuv_to_rgb_norm on the
+    card equal the CPU's bit for bit (their multiply-adds are written
+    out as fused ones, every rounding half to even)."""
+    _need_card()
+    from lilliput_tpu_torch.ops import color as C
+    rng = np.random.default_rng(18)
+    bgr = torch.from_numpy(rng.integers(0, 256, (67, 91, 3), np.uint8))
+    for space in ("bt601", "bt709", "bt2020"):
+        cpu = C.bgr_to_yuv(bgr, space=space)
+        gpu = C.bgr_to_yuv(bgr.cuda(), space=space)
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu())
+        for full in (False, True):
+            assert torch.equal(
+                C.yuv420_to_bgr(*cpu, space=space, full_range=full),
+                C.yuv420_to_bgr(*gpu, space=space, full_range=full).cpu())
+    y, u, v = (torch.from_numpy(p.astype(np.int32))
+               for p in _avif_planes(rng, 67, 91, 10, "420"))
+    for full in (False, True):
+        assert torch.equal(
+            C.yuv_to_rgb_norm(y, u, v, full_range=full),
+            C.yuv_to_rgb_norm(y.cuda(), u.cuda(), v.cuda(),
+                              full_range=full).cpu())

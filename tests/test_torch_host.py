@@ -227,3 +227,20 @@ def test_host_decoder_source_is_the_jax_packages():
     assert ours in binding.HOST_SOURCES[0]
     with open(ours, "rb") as f, open(theirs, "rb") as g:
         assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("name,sources", [
+    ("yuv_bgr.cpp", binding.HOST_SOURCES),
+    ("avformat_shim.cpp", binding.AVFORMAT_SOURCES)])
+def test_avif_host_sources_are_the_jax_packages(name, sources):
+    """AVIF's host sources are copies: yuv_bgr.cpp (the libyuv-exact row
+    kernel, in the host library) and avformat_shim.cpp (dav1d and libaom
+    through ffmpeg, a library of its own), byte-identical to the JAX
+    package's, so both packages decode and encode alike."""
+    import os
+    ours = [s for s in sources if os.path.basename(s) == name]
+    assert len(ours) == 1
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(ours[0], "rb") as f, open(os.path.join(
+            root, "lilliput_tpu", "native", "src", name), "rb") as g:
+        assert f.read() == g.read()
