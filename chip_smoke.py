@@ -42,8 +42,8 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
 
 then the single-image surface (the still phase), the overlap check of
 transcode_pipelined, the still formats, GIF, the mixed serving front,
-JPEG 2000, WebP, the JPEG encode options with the libjpeg route, and
-AVIF.
+JPEG 2000, WebP, the JPEG encode options with the libjpeg route, AVIF,
+and video with the profiling tools.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -219,7 +219,29 @@ AVIF.
    ffmpeg's header is absent (the card's machine) decode_to, an .avif
    encode, transcode_avif, transcode_avif_batch and the animated front's
    .avif slot each raise HostLibraryMissingError, and where it is
-   present the card's frames and bytes equal the CPU port's.
+   present the card's frames and bytes equal the CPU port's;
+14. video and the profiling tools (phase14; no kernel of their own: the
+   YUV -> BGR conversion, the LINEAR and AREA resizes and the thumbhash
+   grids are torch ops, ffmpeg host code), with every launch count 0 just
+   before (a) and read after (c) (none may launch there): (a)
+   codecs/video.frame_to_bgra on 1080p planes (VIDEO_CASES: yuv420p
+   bt709, yuvj422p full range bt601, yuv444p, 1440x1080 displayed at
+   1920x1080 through the LINEAR upscale) and bgra_to_display, each equal
+   to the CPU port's byte for byte, with H2D and device ms and device
+   events; (b) pipeline.spritesheet_tiles of 64 1920x1080 keyframes
+   (sprite_frames) to 160x90 tiles with thumbhashes, the tiles equal to
+   the CPU port's, the hashes equal but at rounding ties, each stage's
+   ms; (c) where ffmpeg's header is absent (the card's machine)
+   new_decoder, VideoDecoder and spritesheet of tests/assets/
+   tiny_vp8.webm raise HostLibraryMissingError, and where it is present
+   the first frame equals the CPU port's; random bytes raise
+   InvalidImageError; (d) utils.measure_device_stages on the 4:2:0
+   pipeline at batch 128 beside phase 4's decode420 time; traces of one
+   device_step (torch.profiler bare, utils.device_trace) and of two
+   (utils.device_trace), each trace's kernel records against its
+   launches; the two-step trace must hold a decode420_kernel event (a
+   session late in a long process may drop its first records; the
+   traces go to traces/phase14/ in the checkout).
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -2866,6 +2888,278 @@ def phase13(card):
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
 
 
+VIDEO_W, VIDEO_H = 1920, 1080
+#: phase 14 (a)'s planar inputs: name -> (AVPixelFormat, AVCOL_SPC,
+#: AVCOL_RANGE, coded (w, h)); each is displayed at VIDEO_W x VIDEO_H
+VIDEO_CASES = {
+    "yuv420p_bt709": (0, 1, 1, (1920, 1080)),
+    "yuvj422p_bt601": (13, 5, 2, (1920, 1080)),
+    "yuv444p": (5, 2, 1, (1920, 1080)),
+    "yuv420p_sar_1440": (0, 1, 1, (1440, 1080)),
+}
+SPRITE_FRAMES, SPRITE_TILE = 64, (160, 90)
+#: the batch of phase 14 (d)'s measure_device_stages
+PROFILE_BATCH = 128
+
+
+def video_planes(rng, fmt: int, w: int, h: int):
+    """Y, U, V u8 planes of a gradient plus noise for AVPixelFormat fmt at
+    coded size w x h (the chroma size of its subsampling)."""
+    from lilliput_tpu_torch.codecs.video import _PLANAR_YUV
+    sx, sy = _PLANAR_YUV[fmt]
+    return tuple(_gradient_plane(rng, ph, pw, 8, k).astype(np.uint8)
+                 for ph, pw, k in ((h, w, 0.4), (-(-h // sy), -(-w // sx),
+                                                 1.3),
+                                   (-(-h // sy), -(-w // sx), 2.2)))
+
+
+def sprite_frames():
+    """Phase 14 (b)'s SPRITE_FRAMES 1920x1080 BGRA keyframes in one pinned
+    array: bench_1080p.jpg's pixels rolled and brightened by seeded
+    amounts, alpha 255, as a clip's keyframes differ."""
+    import torch
+    bgr = fixture_pixels("bench_1080p.jpg")[:VIDEO_H, :VIDEO_W]
+    rng = np.random.default_rng(14)
+    out = torch.empty((SPRITE_FRAMES, VIDEO_H, VIDEO_W, 4),
+                      dtype=torch.uint8, pin_memory=True).numpy()
+    for i in range(SPRITE_FRAMES):
+        dx, dy, lift = (int(v) for v in (rng.integers(0, VIDEO_W),
+                                         rng.integers(0, VIDEO_H),
+                                         rng.integers(0, 48)))
+        out[i, ..., :3] = np.roll(bgr, (dy, dx), axis=(0, 1))
+        np.add(out[i, ..., :3], lift, out=out[i, ..., :3],
+               casting="unsafe", where=out[i, ..., :3] < 255 - lift)
+        out[i, ..., 3] = 255
+    return out
+
+
+def phase14(card, kernels):
+    """Video and the profiling tools (no kernel of their own: the YUV ->
+    BGR conversion, the LINEAR and AREA resizes and the thumbhash grids
+    are torch ops; ffmpeg is host code). The launch counts are set to 0
+    just before (a) and read after (c): nothing may launch there.
+    (a) codecs/video.frame_to_bgra, the device half of a frame's decode,
+    on VIDEO_CASES (1920x1080 planes: yuv420p limited bt709, yuvj422p
+    full bt601, yuv444p with an unlisted matrix, and 1440x1080 planes
+    displayed at 1920x1080 through the LINEAR upscale) and bgra_to_display
+    on a 1920x1080 BGRA frame (the shim's sws route): each equal to the
+    CPU port's byte for byte; H2D and device ms (CUDA events, mean of 3)
+    and the device events of one call.
+    (b) pipeline.spritesheet_tiles of SPRITE_FRAMES 1920x1080 BGRA
+    keyframes (sprite_frames, pinned) to 160x90 tiles with thumbhashes:
+    the tiles equal the CPU port's byte for byte, the grids within
+    THUMB_GRID_ATOL, the hashes equal but where an AC sits on a rounding
+    tie (thumbhash.order_dependent, ROADMAP queue 3 entry 12); each
+    stage's ms (CUDA events, mean of 3) and the device events of one call.
+    (c) Where binding.AVFORMAT_HEADER is absent (the H100 machine),
+    new_decoder, VideoDecoder and spritesheet of tests/assets/tiny_vp8.webm
+    each raise HostLibraryMissingError naming ffmpeg; where it is present
+    the card's first frame equals the CPU port's. new_decoder of random
+    bytes raises InvalidImageError either way.
+    (d) utils.measure_device_stages on the 4:2:0 pipeline at
+    PROFILE_BATCH, printed beside phase 4's decode420 time for the same
+    window; torch.profiler opened bare around one device_step, and
+    utils.device_trace around one and around two device_steps, each
+    trace's kernel records printed against its kernel launches; the
+    two-step trace must hold an event of decode420_kernel, the
+    __global__ function behind lpt_decode420 (csrc/decode420.cu:233).
+    Late in a long process a torch.profiler session may drop its first
+    device records (tools/torch_profiler_drops.py), which can take the
+    first step's decode420 record, never the second's."""
+    import torch
+    from lilliput_tpu_torch import (Framebuffer, JpegTranscodePipeline,
+                                    binding, new_decoder, spritesheet)
+    from lilliput_tpu_torch.codecs import thumbhash as TH
+    from lilliput_tpu_torch.codecs import video as V
+    from lilliput_tpu_torch.errors import (HostLibraryMissingError,
+                                           InvalidImageError)
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    from lilliput_tpu_torch.pipeline import spritesheet_tiles
+    from lilliput_tpu_torch.utils import (Metrics, device_trace,
+                                          measure_device_stages)
+    t_phase = time.perf_counter()
+    have_ffmpeg = os.path.exists(binding.AVFORMAT_HEADER)
+    print(f"phase 14: {binding.AVFORMAT_HEADER} "
+          f"{'present' if have_ffmpeg else 'absent'}", flush=True)
+    DK.reset_launches()
+
+    # (a) the video device half at 1080p
+    rng = np.random.default_rng(141)
+    calls = {}
+    for name, (fmt, spc, rng_, (w, h)) in VIDEO_CASES.items():
+        planes = video_planes(rng, fmt, w, h)
+        calls[name] = (sum(p.nbytes for p in planes),
+                       lambda dev, times=None, planes=planes, fmt=fmt,
+                       spc=spc, r=rng_: V.frame_to_bgra(
+                           *planes, spc=spc, rng=r, fmt=fmt,
+                           display_w=VIDEO_W, display_h=VIDEO_H, device=dev,
+                           stage_times=times))
+    px = np.concatenate([video_planes(rng, 5, VIDEO_W, VIDEO_H)[0][..., None]
+                         .repeat(3, -1), np.full((VIDEO_H, VIDEO_W, 1), 255,
+                                                 np.uint8)], -1)
+    calls["bgra"] = (px.nbytes, lambda dev, times=None: V.bgra_to_display(
+        px, display_w=VIDEO_W, display_h=VIDEO_H, device=dev,
+        stage_times=times))
+    for name, (nbytes, run) in calls.items():
+        run(DEVICE)                                  # warm
+        times = {}
+        for _ in range(3):
+            got = run(DEVICE, times)
+        ref = run("cpu")
+        check(tuple(got.shape) == (VIDEO_H, VIDEO_W, 4)
+              and torch.equal(got.cpu(), ref),
+              f"{name}: the card's frame differs from the CPU port's")
+        n_ev = len(device_spans(lambda: run(DEVICE))[0])
+        print(f"phase 14: (a) {name} -> {VIDEO_W}x{VIDEO_H} BGRA on "
+              f"{DEVICE}: H2D of {nbytes} B {sum(times['h2d']) / 3!r} ms, "
+              f"device {sum(times['device_convert']) / 3!r} ms (CUDA events, "
+              f"mean of 3), {n_ev} device events; equal to the CPU port "
+              f"[{card}]", flush=True)
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # (b) the spritesheet's device half
+    frames = sprite_frames()
+    tw, th = SPRITE_TILE
+    spritesheet_tiles(frames, tw, th, True, DEVICE)     # warm
+    times = {}
+    for _ in range(3):
+        tiles, hashes = spritesheet_tiles(frames, tw, th, True, DEVICE,
+                                          stage_times=times)
+    n_ev = len(device_spans(
+        lambda: spritesheet_tiles(frames, tw, th, True, DEVICE))[0])
+    t0 = time.perf_counter()
+    ref, ref_hashes = spritesheet_tiles(frames, tw, th, True, "cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    check(tiles.shape == (SPRITE_FRAMES, th, tw, 4)
+          and np.array_equal(tiles, ref),
+          "spritesheet_tiles on the card differ from the CPU port's")
+    grids, _ = TH.batch_grids(ref, device=DEVICE)
+    ref_grids, sums = TH.batch_grids(ref, device="cpu")
+    err = max(float(np.abs(g - r).max()) for g, r in zip(grids, ref_grids))
+    check(err <= THUMB_GRID_ATOL, "spritesheet thumbhash grids on the card "
+          "are not within THUMB_GRID_ATOL of the CPU's")
+    ties = [TH.order_dependent(TH.hash_fields(ref_grids, sums, i, tw, th),
+                               err) for i in range(SPRITE_FRAMES)]
+    nd = sum(a != b for a, b in zip(hashes, ref_hashes))
+    bad = sum(a != b and not t for a, b, t in zip(hashes, ref_hashes, ties))
+    check(bad == 0, "spritesheet thumbhashes on the card differ from the "
+          "CPU's on a tile without a rounding tie")
+    stages = ", ".join(f"{k} {sum(v) / 3!r}" for k, v in times.items())
+    print(f"phase 14: (b) spritesheet_tiles of {SPRITE_FRAMES} {VIDEO_W}x"
+          f"{VIDEO_H} BGRA keyframes ({frames.nbytes} B pinned) -> "
+          f"{tw}x{th} tiles + thumbhashes on {DEVICE}: ms {stages} (CUDA "
+          f"events, mean of 3), {n_ev} device events; tiles equal to the "
+          f"CPU port's ({cpu_ms!r} ms there), grids max_abs_diff={err!r}, "
+          f"{nd} hashes differ, {bad} off a tie ({sum(ties)} ties) "
+          f"[{card}]", flush=True)
+    del frames
+    torch.cuda.empty_cache()
+
+    # (c) the host half
+    with open(os.path.join(ASSETS, "tiny_vp8.webm"), "rb") as f:
+        webm = f.read()
+    host_calls = {
+        "new_decoder": lambda: new_decoder(webm, device=DEVICE),
+        "VideoDecoder": lambda: V.VideoDecoder(webm, device=DEVICE),
+        "spritesheet": lambda: spritesheet(webm, tw, th, device=DEVICE),
+    }
+    if not have_ffmpeg:
+        for what, call in host_calls.items():
+            try:
+                call()
+            except HostLibraryMissingError as e:
+                check("ffmpeg" in str(e), f"{what}: {e}")
+            else:
+                raise SmokeFailure(f"{what} of tiny_vp8.webm did not raise "
+                                   "HostLibraryMissingError")
+        done = f"{list(host_calls)} each raised HostLibraryMissingError"
+    else:
+        fbs = {dev: Framebuffer() for dev in (DEVICE, "cpu")}
+        for dev, fb in fbs.items():
+            new_decoder(webm, device=dev).decode_to(fb)
+        check(torch.equal(fbs[DEVICE].array.cpu(), fbs["cpu"].array),
+              "tiny_vp8.webm's first frame on the card differs from the "
+              "CPU port's")
+        done = "the first frame on the card equals the CPU port's"
+    noise = np.random.default_rng(142).integers(0, 256, 4096,
+                                                np.uint8).tobytes()
+    try:
+        new_decoder(noise, device=DEVICE)
+    except InvalidImageError:
+        pass
+    else:
+        raise SmokeFailure("new_decoder of random bytes did not raise "
+                           "InvalidImageError")
+    launched = {k: v for k, v in DK.launches.items() if v}
+    check(not launched, f"phase 14 (a)-(c) launched {launched}")
+    print(f"phase 14: (c) tiny_vp8.webm: {done}; random bytes raised "
+          "InvalidImageError; no kernel launched in (a)-(c)", flush=True)
+
+    # (d) the profiling tools on the 4:2:0 pipeline
+    with open(os.path.join(ASSETS, "bench_1080p.jpg"), "rb") as f:
+        fixture = f.read()
+    pipe = JpegTranscodePipeline(fixture, DST, DST, quality=85,
+                                 device=DEVICE)
+    bufs = [fixture] * PROFILE_BATCH
+    reg = Metrics()
+    stages = measure_device_stages(pipe, bufs, iters=3, registry=reg)
+    counts = {k: v["count"] for k, v in reg.snapshot()["stages"].items()}
+    check(counts == {"device.decode": 1, "device.full_step": 1,
+                     "device.dispatch": 1, "device.fetch": 1},
+          f"measure_device_stages registry {counts}")
+    print(f"phase 14: (d) measure_device_stages 4:2:0 x{PROFILE_BATCH}: "
+          f"{stages}; phase 4's decode420 kernel "
+          f"{kernels['decode420']['ms']!r} ms on the same window [{card}]",
+          flush=True)
+    coefs = pipe.decode_entropy(bufs)
+    log_dir = os.path.join(ROOT, "traces", "phase14")
+
+    def step():
+        pipe._to_host(pipe._fetch(pipe.device_step(*coefs)))
+
+    def traced(what, path):
+        """(decode420_kernel events, kernels, kernel launches) of a trace."""
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        hits = [e for e in kern if "decode420_kernel" in e["name"]]
+        launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                       and "LaunchKernel" in e["name"])
+        print(f"phase 14: (d) {what}: {path} ({os.path.getsize(path)} B), "
+              f"{len(kern)} kernel events of {launches} kernel launches, "
+              f"{len(hits)} decode420_kernel event(s) "
+              f"{[e.get('dur') for e in hits]!r} us", flush=True)
+        return hits
+
+    # torch.profiler opened bare, for comparison with device_trace's
+    # synchronized first op (tools/torch_profiler_drops.py)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    os.makedirs(log_dir, exist_ok=True)
+    bare = os.path.join(log_dir, "bare_profile.pt.trace.json")
+    prof.export_chrome_trace(bare)
+    traced("torch.profiler opened bare around one device_step", bare)
+    with device_trace(log_dir) as tr:
+        step()
+    traced("device_trace of one device_step", tr.path)
+    # a session that drops records drops its first ones (17-27 late in
+    # this run), fewer than the ~100 that part the two steps' launches of
+    # decode420, so the second one's record is always kept
+    with device_trace(log_dir) as tr2:
+        step()
+        step()
+    hits = traced("device_trace of two device_steps", tr2.path)
+    check(bool(hits), f"the trace {tr2.path} holds no decode420_kernel "
+          "event")
+    print(f"phase 14: phase took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -2933,6 +3227,7 @@ def main() -> int:
     phase11(card, kernels)
     phase12(card, kernels)
     phase13(card)
+    phase14(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

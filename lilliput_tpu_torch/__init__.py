@@ -15,8 +15,11 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
   2000 (JP2/J2K: Tier-2 and Tier-1 on the host, the wavelet and colour
   transforms as torch ops on the device) and AVIF (still and animated,
   SDR and HDR: dav1d and libaom through ffmpeg where its headers exist,
-  the HDR tone map as torch ops on the device) in; those (not APNG) and
-  thumbhash out::
+  the HDR tone map as torch ops on the device) in, and the first frame
+  of MP4/MOV/WebM/Matroska/AVI video (ffmpeg on the host where its
+  headers exist, the YUV -> BGR conversion on the device; audio-only
+  files probe with width 0); those (not APNG, not video) and thumbhash
+  out::
 
       from lilliput_tpu_torch import (ImageOps, ImageOptions,
                                       ResizeMethod, new_decoder)
@@ -41,7 +44,12 @@ and never ``jax`` or ``lilliput_tpu``. Ported so far:
       mg = MultiGeometryPipeline(256, 256, quality=85)   # device="cuda"
       outs = mg.transcode(list_of_image_bytes, return_exceptions=True)
 
-* the command line, ``python -m lilliput_tpu_torch`` (``cli.py``).
+* the keyframe spritesheet of a video (``pipeline.spritesheet``: host
+  keyframe decodes, one batched resize and thumbhash on the device);
+* the command line, ``python -m lilliput_tpu_torch`` (``cli.py``);
+* ``utils``: ``get_logger`` (key=value logs), ``device_trace`` (a
+  torch.profiler Chrome trace) and ``measure_device_stages`` (a serving
+  pipeline's decode, full step, dispatch and fetch times).
 
 The decode kernels are CUDA (``csrc/*.cu``); the host entropy stages are
 C++ built at first use (``binding.py``). Every entry point runs on "cuda"
@@ -70,8 +78,8 @@ from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401
 from .pipeline import (AnimatedTranscodePipeline,  # noqa: E402,F401
                        JpegTranscodePipeline, MultiGeometryPipeline,
-                       StillTranscodePipeline, transcode_avif,
-                       transcode_avif_batch, transcode_gif,
+                       StillTranscodePipeline, spritesheet,
+                       transcode_avif, transcode_avif_batch, transcode_gif,
                        transcode_gif_batch, transcode_webp,
                        transcode_webp_batch)
 

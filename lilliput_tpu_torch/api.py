@@ -4,12 +4,14 @@ The counterpart of ``lilliput_tpu/api.py`` (lilliput.go:100-202): magic-byte
 dispatch and extension-based encoder selection. The port decodes GIF,
 WebP, JPEG, PNG/APNG, BMP, PNM, PAM, Sun Raster, Radiance HDR, PFM and
 JPEG 2000 (JP2 and J2K) and AVIF, and encodes those formats and thumbhash
-(not APNG). WebP needs libwebp and AVIF's AV1 decode and encode need
+(not APNG); anything else falls through to the video and audio probe
+(``codecs/video.py``: the first frame of MP4/MOV/WebM/Matroska/AVI,
+audio-only files with width 0), as in the JAX package. WebP needs
+libwebp, and AVIF's AV1 decode and encode and the video probe need
 ffmpeg: where their headers are absent, those steps raise
-HostLibraryMissingError. Video raises NotImplementedError naming its
-ROADMAP queue 1 item, never InvalidImageError, so a caller can tell "not
-ported" from "not an image"; bytes no decoder of the JAX package would
-recognize raise InvalidImageError as there.
+HostLibraryMissingError. Then a buffer sniffed as a video container
+(ISO BMFF, Matroska) raises it too, uncaught, so a caller can tell "no
+ffmpeg here" from "not an image"; other bytes raise InvalidImageError.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from .codecs.hdr import is_hdr
 from .codecs.pfm import is_pfm
 from .codecs.pnm import is_pam, is_pnm
 from .codecs.sunras import is_sunras
-from .errors import InvalidImageError, not_ported
+from .errors import HostLibraryMissingError, InvalidImageError
 from .interfaces import Decoder, Encoder
 
 _GIF87 = b"GIF87a"
@@ -63,13 +65,6 @@ def _is_video(buf: bytes) -> bool:
     and Matroska/WebM."""
     return (is_mp4(buf) or (len(buf) >= 8 and buf[4:8] == b"ftyp")
             or buf.startswith(b"\x1a\x45\xdf\xa3"))
-
-
-#: (sniffer, what, ROADMAP queue 1 item) of each decoder not ported yet,
-#: at its place in the JAX package's dispatch order
-_NOT_PORTED_LAST = (
-    (_is_video, "the video first-frame decoder", "item 6.6"),
-)
 
 
 def _still_decoder(buf: bytes):
@@ -126,10 +121,28 @@ def new_decoder(buf: bytes, tone_mapping_enabled: bool = True,
     cls = _still_decoder(buf)
     if cls is not None:
         return cls(buf, device=device)
-    for sniff, what, item in _NOT_PORTED_LAST:
-        if sniff(buf):
-            not_ported(what, item)
-    raise InvalidImageError("unrecognized image format")
+    return _video_decoder(buf, device)
+
+
+def _video_decoder(buf: bytes, device) -> Decoder:
+    """The fallthrough to the video and audio probe (lilliput_tpu/api.py:
+    104-109): any failure to open is "unrecognized image format", except
+    a missing ffmpeg, which a sniffed video container raises and nothing
+    catches; other bytes need no ffmpeg to be refused."""
+    import os
+
+    from . import binding
+    from .codecs.video import VideoDecoder
+    from .utils import resolve_device
+    device = resolve_device(device)
+    if not (_is_video(buf) or os.path.exists(binding.AVFORMAT_HEADER)):
+        raise InvalidImageError("unrecognized image format")
+    try:
+        return VideoDecoder(buf, device=device)
+    except HostLibraryMissingError:
+        raise
+    except Exception as e:
+        raise InvalidImageError("unrecognized image format") from e
 
 
 def new_encoder(ext: str, decoded_by: Optional[Decoder] = None,

@@ -23,8 +23,8 @@ slicer) where ``JPEG_HEADER`` exists, and WebP's
 (``csrc/host/webp_shim.cpp``, ``load_webp``, ``-lwebp -lwebpmux
 -lwebpdemux``) where ``WEBP_HEADER`` exists, and ffmpeg's
 (``csrc/host/avformat_shim.cpp``, ``load_avformat``, ``-lavformat
--lavcodec -lavutil -lswscale``: the AV1 decode through dav1d and the
-libaom encode of AVIF) where ``AVFORMAT_HEADER`` exists. All three are
+-lavcodec -lavutil -lswscale``: video's demux and decode, and the AV1
+decode through dav1d and the libaom encode of AVIF) where ``AVFORMAT_HEADER`` exists. All three are
 byte-for-byte copies of the JAX package's. Elsewhere ``load_jpeg``,
 ``load_webp`` and ``load_avformat`` raise
 ``errors.HostLibraryMissingError`` and nothing takes another route. ``png_filter.cpp`` uses
@@ -216,14 +216,28 @@ def _configure_webp(lib: ctypes.CDLL) -> None:
 
 
 def _configure_avformat(lib: ctypes.CDLL) -> None:
-    """The AVIF entry points of avformat_shim.cpp (the stateless and the
-    stream AV1 decode, the libaom encodes), with the signatures the JAX
-    package's codecs/av1_raw.py and codecs/avif_enc.py register."""
+    """The entry points of avformat_shim.cpp, with the signatures the JAX
+    package registers: AVIF's (the stateless and the stream AV1 decode,
+    the libaom encodes; codecs/av1_raw.py and codecs/avif_enc.py) and
+    video's (the container probe, frame export, keyframe index and
+    stateless keyframe decode; codecs/video.py)."""
     c = ctypes
     u8p, i32p, i64p = (c.POINTER(c.c_uint8), c.POINTER(c.c_int32),
                        c.POINTER(c.c_int64))
     i32, vp = c.c_int32, c.c_void_p
     sigs = {
+        "lp_av_open": ([u8p, c.c_size_t, i32, i32], vp),
+        "lp_av_get_info": ([vp, vp], None),
+        "lp_av_decode_frame": ([vp], c.c_int),
+        "lp_av_frame_info": ([vp, i32p], None),
+        "lp_av_frame_plane": ([vp, i32, u8p, i32, i32], c.c_int),
+        "lp_av_frame_bgra": ([vp, u8p, i32, i32], c.c_int),
+        "lp_av_keyframes": ([vp, i64p, c.c_long], c.c_long),
+        "lp_av_codec_params": ([vp, i32p, u8p, i32], c.c_int),
+        "lp_av_decode_raw_keyframe": ([i32, u8p, i32, u8p, c.c_size_t, u8p,
+                                       i32, i32], c.c_int),
+        "lp_av_format_name": ([vp, c.c_char_p, i32], c.c_int),
+        "lp_av_free": ([vp], None),
         "lp_av_raw_frame_decode": ([c.c_char_p, i32, u8p, i32, u8p,
                                     c.c_size_t, i32p], vp),
         "lp_av_raw_frame_plane": ([vp, i32, u8p, i32, i32], c.c_int),
@@ -344,8 +358,9 @@ def _require_avformat_header() -> None:
         raise HostLibraryMissingError(
             f"ffmpeg is not installed on this machine ({AVFORMAT_HEADER} is "
             "missing), so the ffmpeg host codec (csrc/host/avformat_shim.cpp)"
-            " cannot be built: the AV1 decode (dav1d) and encode (libaom) of "
-            "AVIF need libavformat, libavcodec, libavutil and libswscale")
+            " cannot be built: video decode and the AV1 decode (dav1d) and "
+            "encode (libaom) of AVIF need libavformat, libavcodec, libavutil "
+            "and libswscale")
 
 
 def build_avformat() -> str:
@@ -362,8 +377,9 @@ def build_avformat() -> str:
 
 
 def load_avformat() -> ctypes.CDLL:
-    """The ffmpeg library (lp_av_raw_frame_*, lp_av_stream_*,
-    lp_av1_encode, lp_av1_encode_hbd), built at first use. Raises
+    """The ffmpeg library (video's lp_av_open ... lp_av_free, AVIF's
+    lp_av_raw_frame_*, lp_av_stream_*, lp_av1_encode, lp_av1_encode_hbd),
+    built at first use. Raises
     HostLibraryMissingError where AVFORMAT_HEADER is absent, checked on
     every call, so no ffmpeg call runs on a machine without its headers."""
     global _avformat_lib

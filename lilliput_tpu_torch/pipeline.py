@@ -78,6 +78,13 @@ device, the host animation encode. Animated AVIF (``transcode_avif``,
 (codecs/avif.py over the ffmpeg shim, which raises
 HostLibraryMissingError where ffmpeg is absent), one upload, crop and
 resize on the device, one download, the host libaom or libwebp encode.
+
+Video (``spritesheet``): the keyframe index and stateless raw keyframe
+decodes through ffmpeg on a host thread pool into one pinned stack, then
+``spritesheet_tiles`` on the device (one H2D, the AREA resize of every
+keyframe, the batched thumbhash grids, one D2H), and the sheet assembled
+on the host. The still fronts take a video's first frame
+(codecs/video.py).
 """
 
 from __future__ import annotations
@@ -1209,8 +1216,9 @@ def _synthetic_still(fmt: str, w: int, h: int, channels: int = 3) -> bytes:
 
 class StillTranscodePipeline(_ServingPipelineBase):
     """Batched Fit transcoder for same-signature NON-JPEG still sources
-    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, WebP, JPEG 2000, AVIF:
-    anything the port's new_decoder reads but JPEG). A JPEG 2000 source's
+    (PNG, BMP, PNM, PAM, Sun Raster, HDR, PFM, GIF, WebP, JPEG 2000, AVIF,
+    a video's first frame: anything the port's new_decoder reads but
+    JPEG). A JPEG 2000 source's
     CPU decoder runs its Tier-2 and Tier-1 on the host and its wavelet and
     colour transforms as torch ops on the host CPU; an HDR AVIF's tone
     map runs there too.
@@ -1891,6 +1899,83 @@ def transcode_avif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
         stage_times, "avif_decode", "encode")
 
 
+def spritesheet_tiles(frames: np.ndarray, tile_w: int, tile_h: int,
+                      with_thumbhashes: bool = False, device="cuda",
+                      stage_times: Optional[Dict[str, List[float]]] = None):
+    """The device half of spritesheet: (N, H, W, 4) u8 BGRA keyframes on
+    the host (pinned for an asynchronous copy) -> ((N, tile_h, tile_w, 4)
+    u8 tiles on the host, their thumbhashes or None). One H2D, the AREA
+    resize of every frame (_anim_crop_resize, no crop), the batched
+    thumbhash grids (codecs/thumbhash.thumbhash_batch, whose grids come
+    back in a copy of their own) and one D2H of the tiles. stage_times,
+    when a dict, gets the ms of "h2d", "resize", "thumbhash" (with
+    thumbhashes) and "d2h" (CUDA events on a card)."""
+    dev = resolve_device(device)
+    clock = StageClock(stage_times, dev)
+    with clock("h2d", device=True):
+        batch = torch.from_numpy(frames).to(dev, non_blocking=True)
+    with clock("resize", device=True):
+        tiles = _anim_crop_resize(batch, None, tile_w, tile_h)
+    hashes = None
+    if with_thumbhashes:
+        from .codecs.thumbhash import thumbhash_batch
+        with clock("thumbhash", device=True):
+            hashes = thumbhash_batch(tiles, device=dev)
+    with clock("d2h", device=True):
+        host = tiles.cpu().numpy()
+    return host, hashes
+
+
+def spritesheet(video: bytes, tile_w: int, tile_h: int,
+                max_tiles: int = 64, workers: Optional[int] = None,
+                with_thumbhashes: bool = False, device="cuda"):
+    """Keyframe spritesheet (lilliput_tpu/pipeline.py:1969-2015): the
+    keyframe index, then stateless raw keyframe decodes (ffmpeg, on a
+    thread pool of min(8, cpu_count) threads: avcodec.cpp:770-873's
+    contract) straight into one pinned (N, H, W, 4) stack, then
+    spritesheet_tiles on `device` ("cuda" unless the caller passes
+    device="cpu"), and the sheet assembled on the host, tiles in row-major
+    order on a grid of ceil(sqrt(N)) columns.
+
+    Each keyframe's packet is video[offset:offset + size] as the index
+    gives it, as in the JAX package. Where ffmpeg's headers are absent
+    the index read raises HostLibraryMissingError.
+
+    Returns (sheet (rows * tile_h, cols * tile_w, 4) BGRA np.ndarray,
+    [timestamps_us], [thumbhash bytes] or None)."""
+    from .codecs.video import VideoDecoder, decode_raw_keyframe
+    dev = resolve_device(device)
+    with VideoDecoder(video, device="cpu") as dec:
+        kf = dec.keyframes()[:max_tiles]
+        if not kf:
+            raise DecodingFailedError("no keyframes in video")
+        cid, extradata = dec.codec_params()
+        hdr = dec.header()
+    fw, fh = hdr.width, hdr.height
+    frames = torch.empty((len(kf), fh, fw, 4), dtype=torch.uint8,
+                         pin_memory=dev.type == "cuda").numpy()
+
+    def one(i: int):
+        _, off, size = kf[i]
+        decode_raw_keyframe(cid, extradata, video[off:off + size], fw, fh,
+                            out=frames[i])
+
+    n_workers = workers if workers is not None else min(8, os.cpu_count()
+                                                        or 1)
+    _tmap(one, range(len(kf)), n_workers)
+    tiles, hashes = spritesheet_tiles(frames, tile_w, tile_h,
+                                      with_thumbhashes, dev)
+    n = len(tiles)
+    cols = int(np.ceil(np.sqrt(n)))
+    rows = (n + cols - 1) // cols
+    sheet = np.zeros((rows * tile_h, cols * tile_w, 4), np.uint8)
+    for i in range(n):
+        r, c = divmod(i, cols)
+        sheet[r * tile_h:(r + 1) * tile_h,
+              c * tile_w:(c + 1) * tile_w] = tiles[i]
+    return sheet, [e[0] for e in kf], hashes
+
+
 class AnimatedTranscodePipeline:
     """Serving front for ANIMATED sources whose output keeps the animation,
     what the reference's Transform does for animated input with .gif or
@@ -2049,10 +2134,14 @@ class MultiGeometryPipeline:
     and each .webp output fails in its own slot with
     HostLibraryMissingError, as each AVIF source does where ffmpeg is.
 
+    Video sources (their first frame, decoded through ffmpeg where its
+    headers exist) group as stills of their own decoder, as in the JAX
+    package; where ffmpeg is absent each fails in its own slot with
+    HostLibraryMissingError.
+
     device: "cuda" by default (it raises without a card), passed to every
     pipeline built; device="cpu" runs the fronts on the CPU. Not ported:
-    a mesh (item 9) and video sources (item 6.6), which fail in their own
-    slots."""
+    a mesh (item 9)."""
 
     def __init__(self, dst_w: int, dst_h: int, quality: int = 85,
                  method: str = R.AREA, max_geometries: int = 64,

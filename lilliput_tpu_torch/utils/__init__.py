@@ -1,6 +1,8 @@
 import torch
 
 from .metrics import Metrics, StageClock, StageTimer, metrics  # noqa: F401
+from .logging import get_logger  # noqa: F401
+from .profiling import device_trace, measure_device_stages  # noqa: F401
 
 
 def resolve_device(device) -> torch.device:

@@ -57,7 +57,13 @@ on random int64 and float64 stacks, bit for bit.
 AVIF (no kernel: torch ops): the HDR decode's device half on the card is
 within the step gate of the CPU's, its alpha equal, and the colour
 conversions (bgr_to_yuv, yuv420_to_bgr, yuv_to_rgb_norm) equal the CPU's
-bit for bit."""
+bit for bit.
+
+Video (no kernel: torch ops): the device half of a frame's decode
+(codecs/video.frame_to_bgra on 4:2:0, 4:2:2 and 4:4:4 planes, limited and
+full range, at and off the display size; bgra_to_display) and the
+spritesheet's (pipeline.spritesheet_tiles: the tiles, the thumbhashes but
+at rounding ties) on the card equal the CPU's."""
 
 import functools
 import os
@@ -1029,3 +1035,61 @@ def test_avif_colour_ops_on_card_equal_cpu():
             C.yuv_to_rgb_norm(y, u, v, full_range=full),
             C.yuv_to_rgb_norm(y.cuda(), u.cuda(), v.cuda(),
                               full_range=full).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,spc,rng,display", [
+    (0, 1, 1, None), (13, 5, 2, None), (5, 9, 1, None), (0, 1, 1, (97, 45)),
+    (4, 6, 1, (64, 60))])
+def test_video_device_half_on_card_equals_cpu(fmt, spc, rng, display):
+    """codecs/video.frame_to_bgra (no kernel) on the card equals the CPU's
+    bit for bit, and so does bgra_to_display's LINEAR upscale."""
+    _need_card()
+    from lilliput_tpu_torch.codecs import video as V
+    from lilliput_tpu_torch.ops import decode_kernels as DKL
+    gen = np.random.default_rng(fmt * 10 + spc)
+    h, w = 45, 61
+    sx, sy = V._PLANAR_YUV[fmt]
+    y = gen.integers(0, 256, (h, w), np.uint8)
+    u, v = (gen.integers(0, 256, (-(-h // sy), -(-w // sx)), np.uint8)
+            for _ in range(2))
+    dw, dh = display or (w, h)
+    DKL.reset_launches()
+    got = V.frame_to_bgra(y, u, v, spc=spc, rng=rng, fmt=fmt, display_w=dw,
+                          display_h=dh, device="cuda").cpu()
+    assert not any(DKL.launches.values())
+    want = V.frame_to_bgra(y, u, v, spc=spc, rng=rng, fmt=fmt, display_w=dw,
+                           display_h=dh, device="cpu")
+    assert torch.equal(got, want)
+    px = gen.integers(0, 256, (h, w, 4), np.uint8)
+    assert torch.equal(
+        V.bgra_to_display(px, display_w=dw, display_h=dh,
+                          device="cuda").cpu(),
+        V.bgra_to_display(px, display_w=dw, display_h=dh, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_spritesheet_tiles_on_card_equal_cpu():
+    """pipeline.spritesheet_tiles (AREA resize and thumbhash grids, no
+    kernel) on the card: the tiles equal the CPU's, the hashes too but
+    where an AC sits on a rounding tie (ROADMAP queue 3 entry 12)."""
+    _need_card()
+    from lilliput_tpu_torch.codecs import thumbhash as TH
+    from lilliput_tpu_torch.pipeline import spritesheet_tiles
+    gen = np.random.default_rng(19)
+    frames = torch.empty((6, 90, 160, 4), dtype=torch.uint8,
+                         pin_memory=True).numpy()
+    yy, xx = np.mgrid[0:90, 0:160]
+    for i in range(6):
+        frames[i, ..., 0] = (xx * 2 + i * 9) % 256
+        frames[i, ..., 1] = (yy * 3 + i * 5) % 256
+        frames[i, ..., 2] = gen.integers(0, 256, (90, 160))
+        frames[i, ..., 3] = 255 if i % 2 else (xx + yy) % 256
+    tiles, hashes = spritesheet_tiles(frames, 40, 30, True, "cuda")
+    ref, ref_hashes = spritesheet_tiles(frames, 40, 30, True, "cpu")
+    assert np.array_equal(tiles, ref)
+    grids, sums = TH.batch_grids(ref, device="cpu")
+    for i, (a, b) in enumerate(zip(hashes, ref_hashes)):
+        if a != b:
+            assert TH.order_dependent(TH.hash_fields(grids, sums, i, 40, 30),
+                                      2.4e-5), i

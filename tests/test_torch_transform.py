@@ -9,10 +9,11 @@ out, with device="cpu" (the decode kernels' plain versions).
   progressive, optimize and restart-interval options.
 * Units: ops/blend function by function, Framebuffer.fit and resize_to,
   the animated composite helpers of ImageOps, the decoder's header.
-* Errors: new_decoder and new_encoder raise NotImplementedError naming
-  the ROADMAP queue 1 item of each format not ported (never
-  InvalidImageError), and the ported still formats fail as in the JAX
-  package on a bad header, InvalidImageError for what is no image; the
+* Errors: video containers ffmpeg cannot open fail as in the JAX package
+  where ffmpeg's header exists and raise HostLibraryMissingError where it
+  is missing (never NotImplementedError: video is ported, item 6.6), and
+  the ported still formats fail as in the JAX package on a bad header,
+  InvalidImageError for what is no image; the
   max_size, zero-dimension and force_sdr paths behave as in the JAX
   package.
 * The five .icc profiles are byte-for-byte copies of the JAX package's.
@@ -227,10 +228,11 @@ def test_decoder_without_a_card_raises():
 # -- API errors ------------------------------------------------------------------
 
 _ISO_BMFF = b"\x00\x00\x00\x18ftyp"
-NOT_PORTED_DECODERS = {
-    "mp4": (_ISO_BMFF + b"isom" + bytes(8), "item 6.6"),
-    "mov": (_ISO_BMFF + b"qt  " + bytes(8), "item 6.6"),
-    "webm": (b"\x1a\x45\xdf\xa3" + bytes(12), "item 6.6"),
+#: video container headers ffmpeg cannot open (video is item 6.6)
+VIDEO_BAD_HEADERS = {
+    "mp4": _ISO_BMFF + b"isom" + bytes(8),
+    "mov": _ISO_BMFF + b"qt  " + bytes(8),
+    "webm": b"\x1a\x45\xdf\xa3" + bytes(12),
 }
 #: headers of the formats ported in items 5.3, 6.1, 6.2, 6.3, 6.4 and 6.5
 #: that no decoder reads: each raises what the JAX package raises
@@ -250,11 +252,23 @@ PORTED_BAD_HEADERS = {
 }
 
 
-@pytest.mark.parametrize("name", list(NOT_PORTED_DECODERS))
+@pytest.mark.parametrize("name", list(VIDEO_BAD_HEADERS))
 def test_new_decoder_names_the_item(name):
-    buf, item = NOT_PORTED_DECODERS[name]
-    with pytest.raises(NotImplementedError, match=item):
+    """Video is ported (item 6.6): where ffmpeg's header exists these fail
+    as in the JAX package, with InvalidImageError; where it is missing the
+    sniffed container raises HostLibraryMissingError naming ffmpeg.
+    Never NotImplementedError."""
+    from lilliput_tpu_torch import binding
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
+    buf = VIDEO_BAD_HEADERS[name]
+    if not os.path.exists(binding.AVFORMAT_HEADER):
+        with pytest.raises(HostLibraryMissingError, match="ffmpeg"):
+            T.new_decoder(buf, device="cpu")
+        return
+    with pytest.raises(InvalidImageError, match="unrecognized"):
         T.new_decoder(buf, device="cpu")
+    with pytest.raises(L.errors.InvalidImageError, match="unrecognized"):
+        L.new_decoder(buf)
 
 
 @pytest.mark.parametrize("name", list(PORTED_BAD_HEADERS))
