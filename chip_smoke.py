@@ -43,7 +43,7 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
 then the single-image surface (the still phase), the overlap check of
 transcode_pipelined, the still formats, GIF, the mixed serving front,
 JPEG 2000, WebP, the JPEG encode options with the libjpeg route, AVIF,
-and video with the profiling tools.
+video with the profiling tools, and multi-device serving over meshes.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -241,7 +241,37 @@ and video with the profiling tools.
    (utils.device_trace), each trace's kernel records against its
    launches; the two-step trace must hold a decode420_kernel event (a
    session late in a long process may drop its first records; the
-   traces go to traces/phase14/ in the checkout).
+   traces go to traces/phase14/ in the checkout);
+15. multi-device serving (phase15; parallel/: each mesh slot runs the
+   one-device step's kernels on its own device and CUDA stream), at full
+   width on three meshes (phase15_meshes): make_mesh(), every card (one
+   slot on a one-card machine), and the first card four times, shaped
+   (4, 1) and (2, 2). (a) ShardedJpegPipeline over 4:2:0 1080p x128 ->
+   256x256 q85: each slot's input slice pinned; two batches of
+   transcode_pipelined with every launch count 0 just before and read
+   just after, decode420 once per slot per step and nothing else (those
+   launches join the kernels line); dp meshes give JpegTranscodePipeline's
+   bytes, (2, 2) (sp: rows split with explicit halos) coefficients within
+   1 of its step; each slot's device_step(plain=True) within the step
+   gate of its kernel run; in a device_trace of two (4, 1) steps the
+   slots' work (kernels and copies) runs on four streams and overlaps
+   across them (the kernels' and copies' own overlap printed);
+   device_step ms of each
+   mesh beside the one-device step's; (b) a 3840x2160 4:2:0 and a gray
+   JPEG (the port's stretch of the fixtures) x SP_BATCH on (2, 2): within
+   1 of the one-device step, the serving.sp_* counters, each shard's
+   decoded rows equal to the whole decode's; (c) ShardedStillPipeline
+   over STILL_MESH_BATCH 1080p PNG RGB8 on each mesh (dp bytes equal, sp
+   within 1); (d) phase 8's GIF lanes over (4, 1), the one-device bytes;
+   (e) MultiGeometryPipeline(mesh=) over phase 9's mix on each mesh,
+   every kernel launched once per dp slot of each group (more where
+   (2, 2) splits a group's rows; these launches join the kernels line),
+   the dp meshes' healthy bytes equal to the one-device front's, (2, 2)'s
+   .jpeg coefficients within 1, the broken slots failing alone.
+
+device_spans (the busy shares and device-event counts of phases 4-14)
+opens torch.profiler as utils.device_trace does, with a synchronized op
+first, and every busy share prints with its count of device records.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -776,25 +806,42 @@ def bound(inputs, outputs, blocks):
 
 
 def device_spans(fn):
-    """(sorted (start, end) of every device-side event, host wall us) of
-    fn() under torch.profiler."""
+    """(sorted (start, end) of every device-side event of fn(), host wall
+    us) under torch.profiler, opened as utils.device_trace opens it: a
+    synchronized op first, since a session opened late in a long process
+    may drop its first device records (tools/torch_profiler_drops.py);
+    that op's records, before fn's, are left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    return sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA), wall_us
+        with record_function("chip_smoke.device_spans"):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "chip_smoke.device_spans")
+    return sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.start >= start), wall_us
 
 
-def busy_share(fn) -> float:
+class Busy(NamedTuple):
+    """A busy share and the count of device records it was read from (a
+    session that dropped records shows fewer)."""
+    share: float
+    records: int
+
+
+def busy_share(fn) -> Busy:
     """Device busy share of fn() under torch.profiler: the union of the
-    device-side events' intervals over the host clock's window."""
+    device-side events' intervals over the host clock's window, with the
+    number of device records."""
     spans, wall_us = device_spans(fn)
     check(bool(spans), "torch.profiler recorded no device events")
     busy, lo, hi = 0.0, spans[0][0], spans[0][1]
@@ -802,7 +849,7 @@ def busy_share(fn) -> float:
         if a > hi:
             busy, lo = busy + hi - lo, a
         hi = max(hi, b)
-    return (busy + hi - lo) / wall_us
+    return Busy((busy + hi - lo) / wall_us, len(spans))
 
 
 def kernel_times(name, serving):
@@ -1084,7 +1131,7 @@ def phase6(card):
         arrs = to_host0(f)
         i = next(k for k, g in enumerate(fetches) if g is f)
         if i + 1 < len(fetches):
-            pending.append(not fetches[i + 1].event.query())
+            pending.append(not all(e.query() for e in fetches[i + 1].events))
         return arrs
     pipe._fetch, pipe._to_host = fetch, to_host
     t0 = time.perf_counter()
@@ -3160,6 +3207,287 @@ def phase14(card, kernels):
           flush=True)
 
 
+#: phase 15's meshes: every card (one slot on a one-card machine), and the
+#: first card repeated four times, shaped (4, 1) and (2, 2), each slot on
+#: a CUDA stream of its own
+MESH_SHAPES = {"all": None, "4x1": 1, "2x2": 2}
+#: phase 15 (b)'s big-image batch and (c)'s still batch
+SP_BATCH, SP_W, SP_H, STILL_MESH_BATCH = 8, 3840, 2160, 16
+
+
+def phase15_meshes():
+    from lilliput_tpu_torch.parallel import make_mesh
+    return {name: make_mesh() if sp is None else
+            make_mesh(sp=sp, devices=["cuda:0"] * 4)
+            for name, sp in MESH_SHAPES.items()}
+
+
+def stream_overlap(path, cats=("kernel",)):
+    """(streams with records of the categories `cats`, us during which
+    records of two or more streams run at once, us during which any
+    runs) of a Chrome trace."""
+    with open(path) as f:
+        recs = [e for e in json.load(f)["traceEvents"]
+                if e.get("cat") in cats]
+    edges = sorted([(e["ts"], 1, e["args"].get("stream")) for e in recs]
+                   + [(e["ts"] + e["dur"], -1, e["args"].get("stream"))
+                      for e in recs], key=lambda x: (x[0], x[1]))
+    active = collections.Counter()
+    both = busy = 0.0
+    last = None
+    for ts, step, stream in edges:
+        live = sum(1 for v in active.values() if v > 0)
+        if last is not None:
+            both += (ts - last) * (live >= 2)
+            busy += (ts - last) * (live >= 1)
+        active[stream] += step
+        last = ts
+    return len({e["args"].get("stream") for e in recs}), both, busy
+
+
+def _slot_diffs(got, ref):
+    """diff_stats of each dp slot's real rows of two _SlotOutputs."""
+    return [diff_stats([a[:r] for a in g], [b[:r] for b in p])
+            for g, p, r in zip(got.parts, ref.parts, got.rows) if r]
+
+
+def phase15(card, kernels):
+    """Multi-device serving (parallel/), at full width on three meshes:
+    make_mesh() (every card: one slot on a one-card machine) and the
+    first card four times as (4, 1) and (2, 2), each slot on its own
+    stream. (a) ShardedJpegPipeline over 4:2:0 1080p x128 -> 256x256 q85:
+    each slot's input slice pinned; transcode_pipelined of 2 batches with
+    every launch count 0 just before and read just after: decode420 once
+    per slot per step and nothing else (those launches join the kernels
+    line); on dp meshes the bytes of JpegTranscodePipeline, on (2, 2) the
+    step's coefficients within 1 of its; each slot's device_step(plain=True)
+    within the step gate of its kernel run; the (4, 1) slots' streams
+    overlapping (kernels and copies) in a device_trace; device_step ms per
+    mesh beside the one-device step's. (b) 3840x2160 4:2:0 and gray JPEGs
+    (the port's stretch of the fixtures) x SP_BATCH on (2, 2): within 1 of
+    the one-device step, the sp counters, each shard's decoded rows equal
+    to the whole decode's. (c) ShardedStillPipeline over STILL_MESH_BATCH
+    1080p PNG RGB8 on each mesh: dp bytes equal, sp coefficients within 1.
+    (d) phase 8's GIF lanes through AnimatedTranscodePipeline on (4, 1):
+    the one-device bytes. (e) MultiGeometryPipeline(mesh=) over phase 9's
+    mix with every launch count 0 just before and read after each run:
+    dp meshes' healthy bytes equal the one-device front's, every kernel
+    launched per slot (those launches join the kernels line), the broken
+    slots failing alone; on (2, 2) the .jpeg coefficients within 1."""
+    import torch
+    from lilliput_tpu_torch import (AnimatedTranscodePipeline,
+                                    JpegTranscodePipeline,
+                                    MultiGeometryPipeline,
+                                    StillTranscodePipeline)
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    from lilliput_tpu_torch.parallel import (ShardedJpegPipeline,
+                                             ShardedStillPipeline)
+    from lilliput_tpu_torch.parallel import serving as S
+    from lilliput_tpu_torch.utils import device_trace, metrics
+    t_phase = time.perf_counter()
+    meshes = phase15_meshes()
+    print(f"phase 15: meshes {meshes} on {torch.cuda.device_count()} "
+          f"card(s)", flush=True)
+
+    # (a) the 4:2:0 serving path over each mesh
+    with open(os.path.join(ASSETS, "bench_1080p.jpg"), "rb") as f:
+        fixture = f.read()
+    bufs = [fixture] * BATCH
+    one = JpegTranscodePipeline(fixture, DST, DST, quality=85, device=DEVICE)
+    args = one.decode_entropy(bufs)
+    ref_bytes = one.transcode(bufs)
+    ref_step = [t.cpu() for t in one.device_step(*args)]
+    ms = {"one device": cuda_ms(lambda: one.device_step(*args), 5)}
+    for name, mesh in meshes.items():
+        pipe = ShardedJpegPipeline(fixture, DST, DST, quality=85, mesh=mesh)
+        dp, size = mesh.shape["dp"], mesh.size
+        c = -(-BATCH // dp)
+        pinned = [torch.from_numpy(a)[i * c:(i + 1) * c].is_pinned()
+                  for a in args for i in range(dp)]
+        check(all(pinned), f"{name}: a slot's input slice is not pinned")
+        pipe.transcode(bufs[:2])              # warm: pools, tables, cuBLAS
+        DK.reset_launches()
+        res = pipe.transcode_pipelined([bufs] * 2)
+        launched = dict(DK.launches)
+        check(launched == {k: 2 * size * (k == "decode420")
+                           for k in launched},
+              f"{name}: launches {launched}, not decode420 once per slot "
+              f"per step")
+        kernels["decode420"]["launches"] += launched["decode420"]
+        step = pipe.device_step(*args)
+        mx, nd, n = diff_stats([t.cpu() for t in step.gather()], ref_step)
+        if mesh.shape["sp"] == 1:
+            bad = [(b, i) for b, outs in enumerate(res)
+                   for i, (o, r) in enumerate(zip(outs, ref_bytes)) if o != r]
+            again = diff_stats([t.cpu() for t in one.device_step(*args)],
+                               ref_step)
+            check(not bad and (mx, nd) == (0, 0),
+                  f"{name}: the bytes differ from JpegTranscodePipeline's: "
+                  f"outputs {bad[:8]} of {len(bad)}; step max {mx}, {nd}/"
+                  f"{n} differ; the one-device step again: {again}")
+            same = "bytes equal to JpegTranscodePipeline's"
+        else:
+            check(mx <= 1, f"{name}: coefficients {mx} from the one-device "
+                  "step")
+            same = (f"coefficients within 1 of the one-device step (max "
+                    f"{mx}, {nd}/{n} differ)")
+        plain = _slot_diffs(step, pipe.device_step(*args, plain=True))
+        check(all(d[0] <= STEP_MAX_DIFF and d[1] <= STEP_MAX_SHARE * d[2]
+                  for d in plain), f"{name}: a slot's kernel run is off "
+              f"its plain version: {plain}")
+        ms[name] = cuda_ms(lambda: pipe.device_step(*args), 5)
+        print(f"phase 15: (a) {name} dp={dp} sp={mesh.shape['sp']}: "
+              f"{len(res)}x{BATCH} transcode_pipelined, launches "
+              f"{launched}; {same}; each slot's plain step (max, differing, "
+              f"count) {plain}; slot inputs pinned", flush=True)
+        if name == "4x1":
+            # two steps: a session late in the run may drop its first
+            # device records (phase 14), the first step's copies among them
+            log_dir = os.path.join(ROOT, "traces", "phase15")
+            with device_trace(log_dir) as tr:
+                for _ in range(2):
+                    pipe._to_host(pipe._fetch(pipe.device_step(*args)))
+            for what, cats in (("kernels", ("kernel",)),
+                               ("copies", ("gpu_memcpy",)),
+                               ("kernels and copies",
+                                ("kernel", "gpu_memcpy", "gpu_memset"))):
+                streams, both, busy = stream_overlap(tr.path, cats)
+                print(f"phase 15: (a) 4x1 trace of two steps {tr.path}: "
+                      f"{what} on {streams} streams, {both!r} us of "
+                      f"{busy!r} us with two or more streams running them",
+                      flush=True)
+            check(streams >= 4 and both > 0, "the (4, 1) slots' streams "
+                  "did not overlap")
+        del pipe, step
+    print(f"phase 15: (a) device_step ms of 4:2:0 x{BATCH}: {ms} [{card}]",
+          flush=True)
+
+    # (b) big images over (2, 2): sp by explicit halos
+    m22 = meshes["2x2"]
+    with open(os.path.join(ASSETS, "bench_1080p_gray.jpg"), "rb") as f:
+        gray_fixture = f.read()
+    for name, src in (("4:2:0", fixture), ("gray", gray_fixture)):
+        big = _stretched_jpeg(src, SP_W, SP_H)
+        pipe = ShardedJpegPipeline(big, DST, DST, quality=85, mesh=m22)
+        ref = JpegTranscodePipeline(big, DST, DST, quality=85, device=DEVICE)
+        bargs = ref.decode_entropy([big] * SP_BATCH)
+        metrics.reset()
+        got = [t.cpu() for t in pipe.device_step(*bargs).gather()]
+        counters = {k: v for k, v in metrics.snapshot()["counters"].items()
+                    if k.startswith("serving.sp")}
+        mx, nd, n = diff_stats(got, [t.cpu()
+                                     for t in ref.device_step(*bargs)])
+        check(mx <= 1 and counters.get("serving.sp_sharded_planes"),
+              f"(b) {name}: {counters}, max {mx}")
+        t_sp = cuda_ms(lambda: pipe.device_step(*bargs), 3)
+        t_one = cuda_ms(lambda: ref.device_step(*bargs), 3)
+        geom = pipe._sp_geometry([torch.from_numpy(a) for a in bargs])
+        coefs = [torch.from_numpy(a[:2]).to(DEVICE) for a in bargs]
+        whole = S._decode_rows(geom, coefs, False)
+        rows = []
+        for p0, p1, m0, m1 in S.jpeg_shards(geom, bargs[0].shape[1], 2):
+            part = [a[:, geom.fy * m0:geom.fy * m1] if k == 0 else
+                    a[:, m0:m1] if k < pipe.ncomp else a
+                    for k, a in enumerate(coefs)]
+            rows.append([p[:, p0 - m0 * geom.mh:p1 - m0 * geom.mh]
+                         for p in S._decode_rows(geom, part, False)])
+        equal = all(torch.equal(torch.cat(ps, 1), w)
+                    for ps, w in zip(zip(*rows), whole))
+        check(equal, f"(b) {name}: the shards' decoded rows differ from "
+              "the whole decode")
+        nbytes = sum(a[0].nbytes for a in bargs[:pipe.ncomp])
+        print(f"phase 15: (b) {name} {SP_W}x{SP_H} x{SP_BATCH} on 2x2: "
+              f"{nbytes} B of coefficients per image; within 1 of the "
+              f"one-device step "
+              f"(max {mx}, {nd}/{n} differ); {counters}; shards' decoded "
+              f"rows equal the whole decode's; device_step {t_sp!r} ms on "
+              f"2x2 vs {t_one!r} ms on one device [{card}]", flush=True)
+        del pipe, ref, bargs, got, whole, rows, coefs
+        torch.cuda.empty_cache()
+
+    # (c) the still front
+    png = png_inputs(fixture_pixels("bench_1080p.jpg"),
+                     fixture_pixels("bench_1080p_gray.jpg"))["png_rgb8"]
+    pngs = [png] * STILL_MESH_BATCH
+    sone = StillTranscodePipeline(png, DST, DST, quality=85, device=DEVICE)
+    sref = sone.transcode(pngs)
+    px, _ = sone.decode_pixels(pngs)
+    sstep = [t.cpu() for t in sone.device_step(px)]
+    for name, mesh in meshes.items():
+        spipe = ShardedStillPipeline(png, DST, DST, quality=85, mesh=mesh)
+        metrics.reset()
+        out = spipe.transcode(pngs)
+        counters = {k: v for k, v in metrics.snapshot()["counters"].items()
+                    if k.startswith("serving.sp")}
+        if mesh.shape["sp"] == 1:
+            check(out == sref, f"(c) {name}: the still bytes differ")
+            same = "bytes equal to StillTranscodePipeline's"
+        else:
+            mx, nd, n = diff_stats([t.cpu() for t in spipe.device_step(
+                px).gather()], sstep)
+            check(mx <= 1 and counters.get("serving.sp_sharded_planes"),
+                  f"(c) {name}: max {mx}, {counters}")
+            same = f"coefficients within 1 (max {mx}, {nd}/{n} differ)"
+        print(f"phase 15: (c) {name} PNG RGB8 1080p x{STILL_MESH_BATCH}: "
+              f"{same}; {counters}; device_step "
+              f"{cuda_ms(lambda: spipe.device_step(px), 3)!r} ms [{card}]",
+              flush=True)
+
+    # (d) phase 8's GIF lanes over dp 4
+    anims, _ = gif_inputs()
+    gone = AnimatedTranscodePipeline(GIF_DST, GIF_DST, ".gif",
+                                     device=DEVICE).transcode(anims)
+    t0 = time.perf_counter()
+    gmesh = AnimatedTranscodePipeline(GIF_DST, GIF_DST, ".gif",
+                                      mesh=meshes["4x1"]).transcode(anims)
+    wall = time.perf_counter() - t0
+    check(gmesh == gone, "(d) the GIF lanes over dp 4 differ from the "
+          "one-device bytes")
+    print(f"phase 15: (d) {len(anims)} GIFs over 4x1: bytes equal to the "
+          f"one-device front's; {wall!r} s [{card}]", flush=True)
+
+    # (e) the mixed front over each mesh
+    _, labels, mbufs, _ = mix_inputs()
+    ref = MultiGeometryPipeline(DST, DST, quality=85, device=DEVICE)
+    want = ref.transcode(mbufs, return_exceptions=True)
+    for name, mesh in meshes.items():
+        mg = MultiGeometryPipeline(DST, DST, quality=85, mesh=mesh)
+        DK.reset_launches()
+        outs = mg.transcode(mbufs, return_exceptions=True)
+        launched = dict(DK.launches)
+        check(all(launched[k] >= n * mesh.shape["dp"]
+                  for k, n in MIX_LAUNCHES.items()),
+              f"(e) {name}: launches {launched}")
+        if name != "2x2":
+            check(launched == {k: n * mesh.shape["dp"]
+                               for k, n in MIX_LAUNCHES.items()},
+                  f"(e) {name}: launches {launched}")
+        for k, n in launched.items():
+            kernels[k]["launches"] += n
+        failed = [i for i, o in enumerate(outs) if isinstance(o, Exception)]
+        check(failed == [i for i, o in enumerate(want)
+                         if isinstance(o, Exception)],
+              f"(e) {name}: failed slots {failed}")
+        worst = 0
+        for o, w in zip(outs, want):
+            if isinstance(o, Exception):
+                continue
+            if mesh.shape["sp"] == 1:
+                check(o == w, f"(e) {name}: a healthy output differs")
+            else:
+                worst = max(worst, diff_stats(
+                    [torch.from_numpy(a) for a in jpeg_coefs(o)],
+                    [torch.from_numpy(a) for a in jpeg_coefs(w)])[0])
+        check(worst <= 1, f"(e) {name}: coefficients {worst} apart")
+        print(f"phase 15: (e) {name} mix of {len(mbufs)}: launches "
+              f"{launched}; {len(failed)} broken slots failed alone; "
+              f"healthy outputs "
+              f"{'equal' if mesh.shape['sp'] == 1 else f'within {worst}'}",
+              flush=True)
+    print(f"phase 15: phase took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -3228,6 +3556,7 @@ def main() -> int:
     phase12(card, kernels)
     phase13(card)
     phase14(card, kernels)
+    phase15(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

@@ -35,12 +35,3 @@ class HostLibraryMissingError(LilliputError):
     The code is ported; only the machine lacks the library, so this is
     neither NotImplementedError nor a reason to take another route."""
 
-
-def not_ported(what: str, item: str):
-    """Raise NotImplementedError for a part of the JAX package the port
-    does not have yet, naming its ROADMAP queue 1 item: never an
-    InvalidImageError, so a caller can tell "not ported" from "not an
-    image"."""
-    raise NotImplementedError(
-        f"{what} is not ported to lilliput_tpu_torch yet "
-        f"(ROADMAP queue 1, {item}); use lilliput_tpu")

@@ -56,14 +56,16 @@ def idct_kron_matrix() -> np.ndarray:
     return np.kron(a, a).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _idct_kron_on(device: str) -> torch.Tensor:
     return torch.from_numpy(idct_kron_matrix()).to(device)
 
 
 def idct_kron(device) -> torch.Tensor:
-    """idct_kron_matrix() resident on `device` (uploaded once)."""
-    return _idct_kron_on(str(torch.device(device)))
+    """idct_kron_matrix() resident on `device` (uploaded once per indexed
+    device: "cuda" is the current card's entry)."""
+    from ..utils import device_key
+    return _idct_kron_on(device_key(device))
 
 
 def fold_qtables(qt: torch.Tensor) -> torch.Tensor:
@@ -178,7 +180,7 @@ def scaled_coef_indices(k: int) -> np.ndarray:
     return np.array([u * 8 + v for u in range(k) for v in range(k)], np.int64)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=32)
 def _scaled_idct_on(k: int, device: str):
     """(the k*k rows of scaled_idct_kron_matrix(k) that
     scaled_coef_indices(k) names, those indices) on `device`, uploaded

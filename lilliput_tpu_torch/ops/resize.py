@@ -76,7 +76,7 @@ def _fma(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (x.double() * w.double() + c.double()).float()
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=512)
 def _linear_taps(src: int, dst: int, area_mode: bool, clamp: bool,
                  q11: bool, device: str):
     """Bilinear tables on `device`, uploaded once per geometry: (left
@@ -92,7 +92,7 @@ def _linear_taps(src: int, dst: int, area_mode: bool, clamp: bool,
             _table(a1, d))
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=512)
 def _cubic_taps(src: int, dst: int, q11: bool, device: str):
     """The 4 bicubic taps on `device` as [(indices, weights)], f32 or the
     8U path's Q11 int32 weights, uploaded once per geometry."""
@@ -206,7 +206,7 @@ def _area_fast_f32(img: torch.Tensor, dst_w: int, dst_h: int) -> torch.Tensor:
     return total * float(np.float32(1.0 / (fx * fy)))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _area_taps(src: int, dst: int, device: str):
     """area_tables(src, dst) resident on `device`, one (indices, weights)
     pair per tap, uploaded once per geometry: a fresh upload from pageable
@@ -371,7 +371,7 @@ def area_matrix_embedded(window: int, off: int, length: int, dst: int,
     return m
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _embedded_banded(window: int, off: int, length: int, dst: int,
                      force_linear: bool, device: str) -> Banded:
     """Device-resident slabs of area_matrix_embedded, built once per
@@ -400,7 +400,7 @@ def area_axis_matrix_scaled(src: int, dst: int, scale: float,
     return m.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def scaled_banded(src: int, dst: int, scale: float, offset: float,
                   device: str) -> Banded:
     """Device-resident slabs of area_axis_matrix_scaled, built once per

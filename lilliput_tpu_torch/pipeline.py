@@ -49,9 +49,15 @@ a CUDA event, and the host waits on that event alone, so it encodes batch
 i-1 and decodes batch i+1 while step i runs. A JPEG stream jpeg_huff.cpp
 declines (a truncated upload, arithmetic coding, ...) takes the JAX
 package's libjpeg route (csrc/host/jpeg_shim.cpp), which raises
-HostLibraryMissingError where libjpeg is absent. Everything outside the
-port (the mesh) raises NotImplementedError naming its ROADMAP queue 1
-item; nothing falls back.
+HostLibraryMissingError where libjpeg is absent; nothing falls back.
+
+Every front that takes ``mesh=`` (a ``parallel.Mesh`` of torch devices
+shaped (dp, sp)) runs its device work per mesh slot, each on its own
+device and CUDA stream: the JPEG and still fronts through
+``parallel/serving.py``'s ShardedJpegPipeline and ShardedStillPipeline,
+the animated batches over dp slices of the animation axis
+(``_dp_put``). ``_fetch`` copies each slot's outputs into its rows of one
+pinned host array.
 
 Non-JPEG stills (``StillTranscodePipeline``): host decode of each source
 to pixels (decoders on the CPU, threaded) into one pinned batch, one H2D
@@ -103,7 +109,6 @@ import torch
 from . import binding
 from .codecs import jpeg as J
 from .errors import DecodingFailedError
-from .errors import not_ported as _not_ported
 from .ops import color as C
 from .ops import jpeg_kernels as K
 from .ops import orient as O
@@ -448,6 +453,13 @@ def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
         cropped = gray[..., top:top + h, left:left + w, None]
         yr = R.resize(cropped, dst_w, dst_h, method)[..., 0].to(
             torch.float32)
+    return _gray_out(yr, enc_qt_y, dst_w, dst_h, emit)
+
+
+def _gray_out(yr, enc_qt_y, dst_w: int, dst_h: int, emit: str):
+    """The grayscale tails' last stage on the resized (..., dst_h, dst_w)
+    plane: 1-component encode coefficients (yq,), or gray BGRA pixels (a
+    1-tuple) for emit="pixels"."""
     if emit == "pixels":
         return (_pack_pixels(yr, yr, yr),)
     ph = (dst_h + 7) // 8 * 8
@@ -469,7 +481,6 @@ def _fused_still_fit_impl(px, enc_qt_y, enc_qt_c, src_w: int, src_h: int,
     forms) or the streaming LINEAR/CUBIC kernels. C=1 encodes a
     1-component JPEG of the rounded plane; C=3 and C=4 encode at 4:2:0
     (alpha dropped); pixels keep a C=4 source's alpha."""
-    c = px.shape[-1]
     if orientation != 1:
         px = O.orient(px, orientation)
     left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h, orientation)
@@ -478,6 +489,15 @@ def _fused_still_fit_impl(px, enc_qt_y, enc_qt_c, src_w: int, src_h: int,
         resized = R.resize_area_mxu_or_exact(cropped, dst_w, dst_h)
     else:
         resized = R.resize(cropped, dst_w, dst_h, method)
+    return _still_out(resized, enc_qt_y, enc_qt_c, dst_w, dst_h, emit)
+
+
+def _still_out(resized, enc_qt_y, enc_qt_c, dst_w: int, dst_h: int,
+               emit: str):
+    """The still tail's last stage on the resized (B, dst_h, dst_w, C)
+    pixels: packed pixels (emit="pixels", alpha kept for C=4), or JPEG
+    encode coefficients (1-component for C=1, else 4:2:0)."""
+    c = resized.shape[-1]
     chans = resized.unbind(-1)
     if emit == "pixels":
         if c == 1:
@@ -488,19 +508,47 @@ def _fused_still_fit_impl(px, enc_qt_y, enc_qt_c, src_w: int, src_h: int,
     if c == 1:
         # 1-channel sources encode as grayscale JPEG, like the reference's
         # OpenCV encoder over a 1-channel mat
-        yr = torch.clamp(torch.round(chans[0].to(torch.float32)), 0, 255)
-        ph = (dst_h + 7) // 8 * 8
-        pw = (dst_w + 7) // 8 * 8
-        return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),)
+        return _gray_out(torch.clamp(torch.round(
+            chans[0].to(torch.float32)), 0, 255), enc_qt_y, dst_w, dst_h,
+            emit)
     return K.encode_from_bgr(resized, enc_qt_y, enc_qt_c, subsample=True)
 
 
 class _Fetch(NamedTuple):
     """A device step's outputs on their way to the host: the host arrays
-    (pinned on CUDA, filled once `event` has completed; None on the CPU,
-    where they are ready)."""
+    (pinned on CUDA, filled once every one of `events` has completed, one
+    per stream that copies; none on the CPU, where they are ready)."""
     arrays: List[np.ndarray]
-    event: Optional["torch.cuda.Event"]
+    events: tuple
+
+
+class _SlotOutputs(NamedTuple):
+    """A sharded device step's outputs, left where each mesh slot made
+    them: per dp slot its output tensors, the count of its leading rows
+    that are real requests (the rest pad the batch to a multiple of dp),
+    and the (device, stream) its outputs were made on (stream None on the
+    CPU)."""
+    parts: List[tuple]
+    rows: List[int]
+    slots: List[tuple]
+
+    def gather(self) -> tuple:
+        """The real rows of every output in dp order, on the first slot's
+        device, for use on its current stream (each slot's rows copied
+        after its stream's work, the current stream waiting for the
+        first slot's)."""
+        from .parallel.mesh import join_slots, slot_context, to_slot
+        first = self.slots[0]
+        with slot_context(*first):
+            out = tuple(torch.cat([
+                to_slot(part[k][:r], slot, first)
+                for part, r, slot in zip(self.parts, self.rows, self.slots)])
+                for k in range(len(self.parts[0])))
+        join_slots([first])
+        if first[1] is not None:
+            for t in out:
+                t.record_stream(torch.cuda.current_stream(first[0]))
+        return out
 
 
 class _ServingPipelineBase:
@@ -589,11 +637,12 @@ class _ServingPipelineBase:
         slots[1] = 1 - idx
         return out
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """One host array to the pipeline's device, non-blocking (the
-        pooled arrays are pinned on CUDA)."""
+    def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
+        """One host array to `device` (the pipeline's by default),
+        non-blocking (the pooled arrays are pinned on CUDA)."""
         t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(self.device, non_blocking=True)
+        return t.to(self.device if device is None else device,
+                    non_blocking=True)
 
     # -- host encode stage ----------------------------------------------------
 
@@ -740,9 +789,15 @@ class _ServingPipelineBase:
         pool keyed by shape and dtype (_pooled), then an event recorded
         after them on the stream. Slot i is rewritten by batch i+2's copy,
         which transcode_pipelined queues only after batch i's outputs were
-        encoded. On the CPU the outputs already are host memory."""
+        encoded. On the CPU the outputs already are host memory.
+
+        A sharded step's _SlotOutputs: each slot's real rows are copied on
+        its own stream into its rows of one pooled pinned array per output,
+        and each slot's stream records its own event."""
+        if isinstance(dev, _SlotOutputs):
+            return self._fetch_slots(dev)
         if self.device.type != "cuda":
-            return _Fetch([t.numpy() for t in dev], None)
+            return _Fetch([t.numpy() for t in dev], ())
         key = ("out",) + tuple((tuple(t.shape), t.dtype) for t in dev)
         host = self._pooled(key, lambda: tuple(
             torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -751,14 +806,38 @@ class _ServingPipelineBase:
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return _Fetch([h.numpy() for h in host], event)
+        return _Fetch([h.numpy() for h in host], (event,))
+
+    def _fetch_slots(self, dev: _SlotOutputs) -> _Fetch:
+        from .parallel.mesh import slot_context
+        n = sum(dev.rows)
+        first = dev.parts[0]
+        if self.device.type != "cuda":
+            return _Fetch([torch.cat([p[k][:r] for p, r in zip(
+                dev.parts, dev.rows)]).numpy() for k in range(len(first))],
+                ())
+        key = ("out", n) + tuple((tuple(t.shape[1:]), t.dtype)
+                                 for t in first)
+        host = self._pooled(key, lambda: tuple(
+            torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        pin_memory=True) for t in first))
+        events, a = [], 0
+        for part, r, slot in zip(dev.parts, dev.rows, dev.slots):
+            if r:
+                with slot_context(*slot):
+                    for h, t in zip(host, part):
+                        h[a:a + r].copy_(t[:r], non_blocking=True)
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+            a += r
+        return _Fetch([h.numpy() for h in host], tuple(events))
 
     @staticmethod
     def _to_host(fetch: _Fetch) -> List[np.ndarray]:
-        """The fetched outputs as host arrays: waits on the fetch's event
-        alone, never on the stream (so work queued after it runs on)."""
-        if fetch.event is not None:
-            fetch.event.synchronize()
+        """The fetched outputs as host arrays: waits on the fetch's events
+        alone, never on a stream (so work queued after them runs on)."""
+        for event in fetch.events:
+            event.synchronize()
         return fetch.arrays
 
     def transcode(self, bufs: Sequence[bytes],
@@ -1156,22 +1235,25 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         (fold_qtables converts them on the device).
         plain=True runs the plain PyTorch versions of the decode kernels
         instead of the kernels (the direct mode runs none)."""
+        host = (ys, cbs) if self.ncomp == 1 else (ys, cbs, crs, qty, qtc)
+        return self._dense_step([self._to_device(a) for a in host],
+                                (self.enc_qt_y, self.enc_qt_c), plain)
+
+    def _dense_step(self, dev, enc, plain: bool = False):
+        """device_step's dense stages on tensors already on one device:
+        dev is (ys, qty) for grayscale, else (ys, cbs, crs, qty, qtc), and
+        enc the (luma, chroma) encode tables on the same device."""
         g = self.geom
         emit = self._emit
         fused = _fused_emit(emit)
         if self.ncomp == 1:
-            qty = cbs  # the (ys, qty) calling convention
             return _emit_post(_fused_jpeg_fit_gray_impl(
-                self._to_device(ys), self._to_device(qty),
-                self.enc_qt_y, src_w=g.width, src_h=g.height,
+                dev[0], dev[1], enc[0], src_w=g.width, src_h=g.height,
                 dst_w=self.dst_w, dst_h=self.dst_h,
                 window=self.window_static, orientation=self.orientation,
                 method=self.method, dct_scale=self.dct_scale, plain=plain,
                 emit=fused), emit)
-        args = (self._to_device(ys), self._to_device(cbs),
-                self._to_device(crs),
-                self._to_device(qty), self._to_device(qtc),
-                self.enc_qt_y, self.enc_qt_c)
+        args = tuple(dev) + tuple(enc)
         if self.chroma_mode == "direct":
             return _emit_post(_fused_jpeg_fit_ycc_impl(
                 *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
@@ -1379,9 +1461,15 @@ class StillTranscodePipeline(_ServingPipelineBase):
         still tail on the pipeline's device (no kernel), then the yuv420
         emit's conversion where it applies; returns a tuple of device
         tensors, as JpegTranscodePipeline.device_step."""
+        return self._dense_step(self._to_device(px),
+                                (self.enc_qt_y, self.enc_qt_c))
+
+    def _dense_step(self, px, enc):
+        """device_step's tail on a pixel batch already on its device, with
+        the (luma, chroma) encode tables there."""
         emit = self._emit
         return _emit_post(_fused_still_fit_impl(
-            self._to_device(px), self.enc_qt_y, self.enc_qt_c,
+            px, enc[0], enc[1],
             src_w=self.src_w, src_h=self.src_h, dst_w=self.dst_w,
             dst_h=self.dst_h, method=self.method,
             orientation=self.orientation, emit=_fused_emit(emit)), emit)
@@ -1538,21 +1626,84 @@ _GIF_INPUTS = ("idxs", "drawn", "luts", "counts", "trans", "pdisp",
                "prects", "bg_bgra")
 
 
-def _chunk_members(members) -> List[List[int]]:
-    """A group's members in chunks of at most _MAX_ANIM_LANES."""
+def _anim_bucket(n_members: int, mesh) -> int:
+    """Animation-count bucket (ops.palette.frame_bucket), rounded up to a
+    multiple of the mesh's dp size so the animation axis splits evenly."""
+    bb = P.frame_bucket(n_members)
+    if mesh is not None:
+        dp = mesh.shape["dp"]
+        bb = -(-bb // dp) * dp
+    return bb
+
+
+def _chunk_members(members, mesh=None) -> List[List[int]]:
+    """A group's members in chunks of at most _MAX_ANIM_LANES, the cap a
+    multiple of the mesh's dp size (dp at least) so sharded chunks keep
+    even lanes."""
     cap = _MAX_ANIM_LANES
+    if mesh is not None:
+        dp = mesh.shape["dp"]
+        cap = max(dp, cap // dp * dp)
     return [members[i:i + cap] for i in range(0, len(members), cap)]
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        _not_ported("the sharded animation batch (mesh, _dp_put)", "item 9")
+def _front_device(device, mesh):
+    """(device, mesh) of a front: without a mesh the device ("cuda" when
+    None); with one, the mesh's first device, and a ValueError when
+    device names another."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device), None
+    from .parallel.mesh import check_mesh
+    return check_mesh(mesh).front_device(device), mesh
+
+
+def _anim_slots(mesh, dev) -> List[tuple]:
+    """The (device, stream) of each dp slice of an animation batch: each
+    dp group's first mesh slot, or without a mesh the one device on its
+    current stream (stream None)."""
+    if mesh is None:
+        return [(dev, None)]
+    return [mesh.slot(i, 0) for i in range(mesh.shape["dp"])]
+
+
+def _on_slots(slots, fn, per_slot) -> list:
+    """fn(*args) for each slot's args, issued on the slot's device and
+    stream in slot order; then the first device's current stream waits for
+    every slot's (so a stage clock's events there time them all)."""
+    from .parallel.mesh import join_slots, slot_context
+    out = []
+    for slot, args in zip(slots, per_slot):
+        with slot_context(*slot):
+            out.append(fn(*args))
+    join_slots(slots)
+    return out
+
+
+def _dp_put(arrs, slots) -> List[list]:
+    """Stacked animation inputs (leading axis: the animation, a multiple
+    of the slot count long) as contiguous slices of that axis, one per
+    slot, each copied to its slot's device: animations never split, so
+    the bytes equal the one-device batch's."""
+    n = len(slots)
+    return _on_slots(slots, lambda i, d: [
+        torch.from_numpy(np.ascontiguousarray(
+            a[i * len(a) // n:(i + 1) * len(a) // n])).to(d)
+        for a in arrs], [(i, s[0]) for i, s in enumerate(slots)])
+
+
+def _lanes_to_host(slots, parts, n: int) -> np.ndarray:
+    """The first n animation lanes of per-slot device tensors (each slot
+    holding an equal share of the lanes) as one host array."""
+    lanes = parts[0].shape[0]
+    return np.concatenate(_on_slots(slots, lambda t, k: t[:k].cpu().numpy(), [
+        (t, min(max(n - i * lanes, 0), lanes))
+        for i, t in enumerate(parts)]))
 
 
 def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
                         fit: bool = False, file_type: str = ".gif",
                         workers: Optional[int] = None, mesh=None,
-                        device="cuda",
+                        device=None,
                         stage_times: Optional[Dict[str, List[float]]] = None
                         ) -> List[bytes]:
     """Whole-animation transcode of MANY GIFs with shared device work, for
@@ -1562,11 +1713,17 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     Animations are grouped by (canvas, frame bucket); each group (in
     chunks of at most _MAX_ANIM_LANES) pads its animation count to
     ops.palette.frame_bucket and runs one composite + resize (+ quantize
-    for .gif output) over a (B, N, H, W, ...) stack on `device`. Each
-    animation's bytes equal its own call's: the batched ops apply the same
-    exact ops per animation, and the host encode is per animation. Host
-    LZW decode, the host encode (LZW, or libwebp for .webp) and the input
-    assembly run on a thread pool (the C++ codecs release the GIL).
+    for .gif output) over a (B, N, H, W, ...) stack on `device` ("cuda"
+    by default). Each animation's bytes equal its own call's: the batched
+    ops apply the same exact ops per animation, and the host encode is per
+    animation. Host LZW decode, the host encode (LZW, or libwebp for
+    .webp) and the input assembly run on a thread pool (the C++ codecs
+    release the GIL).
+
+    mesh: a parallel.Mesh; each group's animation count then pads to a
+    multiple of its dp size and each dp slot runs a contiguous slice of
+    the animations on its group's first device and stream (_dp_put), the
+    same bytes; device, if given, must be the mesh's first device.
 
     stage_times, when a dict, gets the ms of each stage appended under
     its name: "lzw_decode" (host LZW and scatter, once per call), then
@@ -1578,8 +1735,8 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     if file_type not in (".gif", ".webp"):
         raise DecodingFailedError(
             f"GIF batch transcode encodes to .gif/.webp, not {file_type}")
-    _check_mesh(mesh)
-    dev = resolve_device(device)
+    dev, mesh = _front_device(device, mesh)
+    slots = _anim_slots(mesh, dev)
     n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
 
     def prep(buf: bytes):
@@ -1597,22 +1754,22 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
 
     out: List[Optional[bytes]] = [None] * len(bufs)
     for (cw, ch, nb), members in [(k, c) for k, g in groups.items()
-                                  for c in _chunk_members(g)]:
-        bb = P.frame_bucket(len(members))  # animation-count bucket
+                                  for c in _chunk_members(g, mesh)]:
+        bb = _anim_bucket(len(members), mesh)  # animation-count bucket
         with clock("stack"):
             stack = _stack_group(prepped, members, _GIF_INPUTS, bb)
         with clock("h2d", device=True):
-            inputs = [torch.from_numpy(stack[k]).to(dev)
-                      for k in _GIF_INPUTS]
+            inputs = _dp_put([stack[k] for k in _GIF_INPUTS], slots)
         with clock("composite", device=True):
-            comp = P.composite_animation(*inputs)
+            comp = _on_slots(slots, P.composite_animation, inputs)
         crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
         with clock("resize", device=True):
-            resized = _anim_crop_resize(comp, crop, dst_w, dst_h)
+            resized = _on_slots(slots, lambda c: _anim_crop_resize(
+                c, crop, dst_w, dst_h), [(c,) for c in comp])
         del inputs, comp  # the quantizer's transient gets their memory
         if file_type == ".webp":
             with clock("d2h"):
-                host_px = resized[:len(members)].cpu().numpy()
+                host_px = _lanes_to_host(slots, resized, len(members))
 
             def emit_webp(k: int) -> bytes:
                 dec, _, metas = prepped[members[k]]
@@ -1627,10 +1784,11 @@ def transcode_gif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
             encs, plans_list, stacked = _gif_group_plans(prepped, members,
                                                          nb, bb)
         with clock("quantize", device=True):
-            idxs = P.quantize_animation(resized, *(
-                torch.from_numpy(stacked[k]).to(dev) for k in _PLAN_KEYS))
+            plans = _dp_put([stacked[k] for k in _PLAN_KEYS], slots)
+            idxs = _on_slots(slots, P.quantize_animation, [
+                (r, *p) for r, p in zip(resized, plans)])
         with clock("d2h"):
-            idx_np = idxs[:len(members)].cpu().numpy()
+            idx_np = _lanes_to_host(slots, idxs, len(members))
 
         def emit_gif(k: int) -> bytes:
             _, _, metas = prepped[members[k]]
@@ -1724,21 +1882,24 @@ def _anim_emit(dec, host_frames: np.ndarray, durations_s, encode_options,
 
 def _anim_transcode_batch(bufs, prep, group_key, input_keys, to_pixels,
                           emit, dst_w: int, dst_h: int, fit: bool,
-                          workers: Optional[int], device, stage_times,
+                          workers: Optional[int], device, mesh, stage_times,
                           decode_stage: str, encode_stage: str
                           ) -> List[bytes]:
     """The cross-animation loop of transcode_webp_batch and
     transcode_avif_batch: prep(buf) -> (decoder, {name: array}, durations)
     on a thread pool; animations grouped by group_key(prepped item), in
     chunks of at most _MAX_ANIM_LANES, the animation count padded to a
-    bucket; per group one stack of input_keys (the first is the (N, H, W,
-    ...) frame stack, whose H and W are the canvas), one H2D,
-    to_pixels(inputs, crop, clock) -> resized (B, N, dst_h, dst_w, C) on
-    the device, one D2H, and emit(decoder, frames, durations) -> bytes per
-    animation on the thread pool. stage_times gets decode_stage once,
-    then per group "stack", "h2d", to_pixels' stages, "d2h" and
-    encode_stage."""
-    dev = resolve_device(device)
+    bucket (a multiple of the mesh's dp size); per group one stack of
+    input_keys (the first is the (N, H, W, ...) frame stack, whose H and W
+    are the canvas), one H2D (per dp slot with a mesh), the device stages
+    to_pixels(crop) -> [(stage name, fn)], each fn taking the previous
+    stage's outputs (first the inputs) and the last returning the resized
+    (B, N, dst_h, dst_w, C) frames, one D2H, and emit(decoder, frames,
+    durations) -> bytes per animation on the thread pool. stage_times gets
+    decode_stage once, then per group "stack", "h2d", the stages' names,
+    "d2h" and encode_stage."""
+    dev, mesh = _front_device(device, mesh)
+    slots = _anim_slots(mesh, dev)
     n_workers = workers if workers is not None else min(4, os.cpu_count() or 1)
     clock = StageClock(stage_times, dev)
     with clock(decode_stage):
@@ -1746,19 +1907,22 @@ def _anim_transcode_batch(bufs, prep, group_key, input_keys, to_pixels,
     groups = _anim_batch_groups(prepped, group_key)
 
     out: List[Optional[bytes]] = [None] * len(bufs)
-    for members in [c for g in groups.values() for c in _chunk_members(g)]:
-        bb = P.frame_bucket(len(members))  # animation-count bucket
+    for members in [c for g in groups.values()
+                    for c in _chunk_members(g, mesh)]:
+        bb = _anim_bucket(len(members), mesh)  # animation-count bucket
         with clock("stack"):
             stack = _stack_group(prepped, members, input_keys, bb)
         with clock("h2d", device=True):
-            inputs = [torch.from_numpy(stack[k]).to(dev) for k in input_keys]
+            cur = _dp_put([stack[k] for k in input_keys], slots)
         ch, cw = stack[input_keys[0]].shape[2:4]
         crop = fit_rect(cw, ch, dst_w, dst_h) if fit else None
-        resized = to_pixels(inputs, crop, clock)
-        del inputs
+        for name, fn in to_pixels(crop):
+            with clock(name, device=True):
+                cur = [(x,) for x in _on_slots(slots, fn, cur)]
         with clock("d2h"):
-            host_px = resized[:len(members)].cpu().numpy()
-        del resized
+            host_px = _lanes_to_host(slots, [x[0] for x in cur],
+                                     len(members))
+        del cur
 
         def emit_one(k: int) -> bytes:
             dec, _, durs = prepped[members[k]]
@@ -1796,7 +1960,7 @@ def transcode_webp(buf: bytes, dst_w: int, dst_h: int, fit: bool = False,
 def transcode_webp_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
                          fit: bool = False, encode_options=None,
                          workers: Optional[int] = None, mesh=None,
-                         device="cuda",
+                         device=None,
                          stage_times: Optional[Dict[str, List[float]]] = None
                          ) -> List[bytes]:
     """Cross-animation WebP transcode (transcode_gif_batch's counterpart
@@ -1804,18 +1968,15 @@ def transcode_webp_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     chunks of at most _MAX_ANIM_LANES, the animation count padded to a
     bucket, one composite + crop + resize and one D2H per group, each
     animation's bytes equal to its own transcode_webp's. Host libwebp
-    decode and encode on a thread pool.
+    decode and encode on a thread pool. mesh: as transcode_gif_batch's.
 
     stage_times, when a dict, gets the ms of "webp_decode" (host decode
     and scatter, once per call), then per group "stack", "h2d",
     "composite", "resize", "d2h" and "webp_encode"."""
-    _check_mesh(mesh)
-
-    def to_pixels(inputs, crop, clock):
-        with clock("composite", device=True):
-            comp = P.composite_animation_rgba(*inputs)
-        with clock("resize", device=True):
-            return _anim_crop_resize(comp, crop, dst_w, dst_h)
+    def to_pixels(crop):
+        return [("composite", P.composite_animation_rgba),
+                ("resize", lambda comp: _anim_crop_resize(
+                    comp, crop, dst_w, dst_h))]
 
     def emit(dec, host_frames, durations_ms):
         return _anim_emit(dec, host_frames, [d / 1000.0 for d in durations_ms],
@@ -1825,7 +1986,7 @@ def transcode_webp_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
         bufs, _webp_anim_inputs,
         lambda it: (it[0]._w, it[0]._hgt, it[1]["frames"].shape[0]),
         _WEBP_INPUTS, to_pixels, emit, dst_w, dst_h, fit, workers, device,
-        stage_times, "webp_decode", "webp_encode")
+        mesh, stage_times, "webp_decode", "webp_encode")
 
 
 def _avif_anim_inputs(buf: bytes):
@@ -1869,7 +2030,7 @@ def transcode_avif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
                          fit: bool = False, encode_options=None,
                          file_type: str = ".avif",
                          workers: Optional[int] = None, mesh=None,
-                         device="cuda",
+                         device=None,
                          stage_times: Optional[Dict[str, List[float]]] = None
                          ) -> List[bytes]:
     """Cross-animation AVIF transcode: animations grouped by their frame
@@ -1877,16 +2038,15 @@ def transcode_avif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
     RGBA never share a group), in chunks of at most _MAX_ANIM_LANES, the
     animation count padded to a bucket, one H2D, one crop + AREA resize
     and one D2H per group; each animation's bytes equal its own
-    transcode_avif's. Host decode and encode on a thread pool.
+    transcode_avif's. Host decode and encode on a thread pool. mesh: as
+    transcode_gif_batch's.
 
     stage_times, when a dict, gets the ms of "avif_decode" (host decode,
     once per call), then per group "stack", "h2d", "resize", "d2h" and
     "encode"."""
-    _check_mesh(mesh)
-
-    def to_pixels(inputs, crop, clock):
-        with clock("resize", device=True):
-            return _anim_crop_resize(inputs[0], crop, dst_w, dst_h)
+    def to_pixels(crop):
+        return [("resize", lambda frames: _anim_crop_resize(
+            frames, crop, dst_w, dst_h))]
 
     def emit(dec, host_frames, durations_s):
         return _anim_emit(dec, host_frames, durations_s, encode_options,
@@ -1896,7 +2056,7 @@ def transcode_avif_batch(bufs: Sequence[bytes], dst_w: int, dst_h: int,
         bufs, _avif_anim_inputs,
         lambda it: (it[1]["frames"].shape, str(it[1]["frames"].dtype)),
         ("frames",), to_pixels, emit, dst_w, dst_h, fit, workers, device,
-        stage_times, "avif_decode", "encode")
+        mesh, stage_times, "avif_decode", "encode")
 
 
 def spritesheet_tiles(frames: np.ndarray, tile_w: int, tile_h: int,
@@ -1995,8 +2155,13 @@ class AnimatedTranscodePipeline:
     palette), ".webp" (GIF, WebP and AVIF sources) or ".avif" (AVIF
     sources), as in the JAX package. The .webp host encode raises
     HostLibraryMissingError where libwebp is absent, and the AVIF decode
-    and .avif encode where ffmpeg is. Not ported yet: a mesh (item 9),
-    which raises NotImplementedError naming its item.
+    and .avif encode where ffmpeg is.
+
+    mesh: a parallel.Mesh; the cross-animation batches then split each
+    group's animations over its dp slots (transcode_gif_batch), the same
+    bytes, while the per-animation fallbacks stay on the one device.
+    device: "cuda" by default, or the mesh's first device (another device
+    with a mesh raises ValueError).
     """
 
     _FORMATS = (".gif", ".webp", ".avif")
@@ -2004,18 +2169,16 @@ class AnimatedTranscodePipeline:
     def __init__(self, dst_w: int, dst_h: int, output_format: str = ".webp",
                  fit: bool = True, workers: Optional[int] = None,
                  encode_options: Optional[dict] = None, mesh=None,
-                 device="cuda"):
+                 device=None):
         if output_format not in self._FORMATS:
             raise ValueError(
                 f"animated output_format must be one of {self._FORMATS}")
-        _check_mesh(mesh)
         self.dst_w, self.dst_h = dst_w, dst_h
         self.output_format = output_format
         self.fit = fit
         self.workers = workers
         self.encode_options = dict(encode_options or {})
-        self.mesh = mesh
-        self.device = resolve_device(device)
+        self.device, self.mesh = _front_device(device, mesh)
 
     def transcode_one(self, buf: bytes) -> bytes:
         from . import api as A
@@ -2072,8 +2235,9 @@ class AnimatedTranscodePipeline:
             try:
                 res = batch_fn([bufs[i] for i in members], self.dst_w,
                                self.dst_h, fit=self.fit,
-                               workers=self.workers, device=self.device,
-                               stage_times=stage_times, **kw)
+                               workers=self.workers, mesh=self.mesh,
+                               device=self.device, stage_times=stage_times,
+                               **kw)
             except Exception:
                 # one hostile member poisoned the group: the per-item
                 # path below isolates the failure to its own index
@@ -2140,20 +2304,21 @@ class MultiGeometryPipeline:
     HostLibraryMissingError.
 
     device: "cuda" by default (it raises without a card), passed to every
-    pipeline built; device="cpu" runs the fronts on the CPU. Not ported:
-    a mesh (item 9)."""
+    pipeline built; device="cpu" runs the fronts on the CPU.
+
+    mesh: a parallel.Mesh; every route then runs over it: JPEG groups
+    build ShardedJpegPipeline, other stills ShardedStillPipeline (dp
+    byte-identical, sp within one of the one-device front), the animated
+    batches split their animations over dp. device, if given with a mesh,
+    must be the mesh's first device (ValueError otherwise)."""
 
     def __init__(self, dst_w: int, dst_h: int, quality: int = 85,
                  method: str = R.AREA, max_geometries: int = 64,
                  chroma_mode: str = "rgb", dct_scale: int = 1,
                  output_format: str = ".jpeg",
                  encode_options: Optional[dict] = None, mesh=None,
-                 device="cuda"):
-        if mesh is not None:
-            _not_ported("the sharded serving fronts (mesh: "
-                        "ShardedJpegPipeline, ShardedStillPipeline)",
-                        "item 9")
-        self.device = resolve_device(device)
+                 device=None):
+        self.device, self.mesh = _front_device(device, mesh)
         self.dst_w, self.dst_h = dst_w, dst_h
         self.quality = quality
         self.method = method
@@ -2199,7 +2364,7 @@ class MultiGeometryPipeline:
             self._anim_pipe = AnimatedTranscodePipeline(
                 self.dst_w, self.dst_h, output_format=self.output_format,
                 fit=True, encode_options=self.encode_options,
-                device=self.device)
+                mesh=self.mesh, device=self.device)
         return self._anim_pipe, None
 
     def _pipe_for(self, buf: bytes):
@@ -2211,6 +2376,12 @@ class MultiGeometryPipeline:
         kw = dict(quality=self.quality, method=self.method,
                   output_format=self.output_format,
                   encode_options=self.encode_options, device=self.device)
+        jpeg_cls, still_cls = JpegTranscodePipeline, StillTranscodePipeline
+        if self.mesh is not None:
+            from .parallel import serving
+            jpeg_cls = serving.ShardedJpegPipeline
+            still_cls = serving.ShardedStillPipeline
+            kw["mesh"] = self.mesh
         if A.is_jpeg(buf):
             geom = geometry_of(J.read_info(buf))
             orientation = int(J.exif_orientation(buf))
@@ -2221,7 +2392,7 @@ class MultiGeometryPipeline:
                         and JpegTranscodePipeline.direct_eligible(
                             geom, orientation, self.dst_w, self.dst_h,
                             self.method) else "rgb")
-                return JpegTranscodePipeline(
+                return jpeg_cls(
                     buf, self.dst_w, self.dst_h, chroma_mode=mode,
                     dct_scale=self.dct_scale if mode == "direct" else 1,
                     **kw)
@@ -2235,8 +2406,7 @@ class MultiGeometryPipeline:
                    int(hdr.height), int(hdr.channels), int(hdr.orientation))
 
             def build():
-                return StillTranscodePipeline(buf, self.dst_w, self.dst_h,
-                                              **kw)
+                return still_cls(buf, self.dst_w, self.dst_h, **kw)
         pipe = self._pipes.get(key)
         if pipe is None:
             metrics.incr("serving.geometry_compiles")
@@ -2274,7 +2444,7 @@ class MultiGeometryPipeline:
         "webp", width, height[, channels]) warmed through a zero-pixel
         PNG or lossless WebP.
         Animated specs run every lane bucket of the cross-animation batch
-        ({1} and ops.palette.frame_bucket of 2..32 lanes) unless
+        ({1} and _anim_bucket of 2..32 lanes, dp multiples with a mesh) unless
         anim_lane_buckets names some. Raises ValueError when the specs
         outnumber max_geometries (the LRU would evict earlier ones).
         Returns {"warmed": n, "compiled_new": n_new, "seconds": s}."""
@@ -2287,7 +2457,7 @@ class MultiGeometryPipeline:
                 "max_geometries to cover the expected set")
         if anim_lane_buckets is None:
             anim_lane_buckets = sorted(
-                {1} | {P.frame_bucket(k)
+                {1} | {_anim_bucket(k, self.mesh)
                        for k in range(2, _MAX_ANIM_LANES + 1)})
         t0 = time.time()
         before = len(self._pipes)

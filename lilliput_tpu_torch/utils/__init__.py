@@ -14,3 +14,13 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port on the CPU")
     return dev
+
+
+def device_key(device) -> str:
+    """The string that keys a per-device cache: the device with its index,
+    so a table uploaded for "cuda" (the current card) is never handed out
+    on another card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)

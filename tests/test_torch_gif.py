@@ -490,15 +490,15 @@ def test_animated_pipeline_isolates_a_corrupt_gif():
 
 
 def test_animated_pipeline_not_ported():
-    """What the port does not have yet raises NotImplementedError naming
-    its item: a mesh (item 9) at once. GIF to .webp (item 4.7b, ported)
-    equals the JAX package's bytes, batched and alone; a broken WebP
-    header and a broken AVIF header (item 6.5, ported) fail their slots as
-    there. A GIF to .avif fails as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """A mesh that is not a parallel.Mesh raises TypeError at once (the
+    mesh itself is ported: tests/test_torch_parallel.py). GIF to .webp
+    (item 4.7b, ported) equals the JAX package's bytes, batched and alone;
+    a broken WebP header and a broken AVIF header (item 6.5, ported) fail
+    their slots as there. A GIF to .avif fails as in the JAX package."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         T.AnimatedTranscodePipeline(*DST, output_format=".gif",
                                     mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         TP.transcode_gif_batch([CASES["pan4"]], *DST, mesh=object(),
                                device="cpu")
     webp = b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(8)

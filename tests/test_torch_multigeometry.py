@@ -13,8 +13,8 @@ package's MultiGeometryPipeline:
   (tests/test_pipeline.py:197), gray and colour together (:382), warm()'s
   counts, signatures and lane buckets and its too-many-specs ValueError
   (:826), .gif and .webp output routing (.webp failing per request where
-  libwebp is missing), a mesh refused naming item 9, and the default
-  device refused without a card.
+  libwebp is missing), a mesh that is not a parallel.Mesh refused, and
+  the default device refused without a card.
 
 Both packages' metric registries are process-global: each test that reads
 them resets both first. On the CPU the JAX package's upright colour JPEG
@@ -360,7 +360,7 @@ def test_webp_output_fails_per_request(monkeypatch):
 
 
 def test_constructor_refusals():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         MultiGeometryPipeline(32, 32, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="output_format"):
         MultiGeometryPipeline(32, 32, output_format=".bmp", device="cpu")
