@@ -43,7 +43,8 @@ JPEG at q85, or PNG, batch 128), fixtures under tests/assets/:
 then the single-image surface (the still phase), the overlap check of
 transcode_pipelined, the still formats, GIF, the mixed serving front,
 JPEG 2000, WebP, the JPEG encode options with the libjpeg route, AVIF,
-video with the profiling tools, and multi-device serving over meshes.
+video with the profiling tools, multi-device serving over meshes, and
+tools/tpu_smoke.py's 13 surfaces at small, odd shapes.
 
 1. device and builds: card name and power limit, versions, build seconds;
 2. the path's kernel against its plain PyTorch version on the card at the
@@ -74,11 +75,14 @@ video with the profiling tools, and multi-device serving over meshes.
    kernel and its plain version (dequant_idct_blocks: the u8 epilogue the
    path runs, and the f32 epilogue beside torch.baddbmm, the one PyTorch
    call computing that function; the bound of each), each
-   path's H2D, device step and end-to-end rate, the 4:2:0 stage
-   breakdown (also on 420_exact, whose resize is the exact form), the
-   direct mode's three IDCTs, and the device's busy share under
-   torch.profiler; the H2D of 420_direct_s2's truncated lanes beside
-   420's;
+   path's H2D, device step and end-to-end rate, its step split by
+   utils.measure_device_stages into decode (the kernel, or the direct
+   and upright gray modes' IDCTs), resize, encode (colour + fDCT, or the
+   pixel pack), dispatch and fetch, 4:2:0's and 420_exact's D2H and host
+   decode and encode rates, and the device's busy share under
+   torch.profiler (utils.profile_complete: never from a session that
+   dropped device records); the H2D of 420_direct_s2's truncated lanes
+   beside 420's;
 5. the still phase: for each fixture, new_decoder(device="cuda") ->
    ImageOps(8192).transform to .jpeg and to .png, Fit 256x256, and one
    decode_to, with every launch count 0 just before and read after: each
@@ -236,12 +240,13 @@ video with the profiling tools, and multi-device serving over meshes.
    tiny_vp8.webm raise HostLibraryMissingError, and where it is present
    the first frame equals the CPU port's; random bytes raise
    InvalidImageError; (d) utils.measure_device_stages on the 4:2:0
-   pipeline at batch 128 beside phase 4's decode420 time; traces of one
-   device_step (torch.profiler bare, utils.device_trace) and of two
-   (utils.device_trace), each trace's kernel records against its
-   launches; the two-step trace must hold a decode420_kernel event (a
-   session late in a long process may drop its first records; the
-   traces go to traces/phase14/ in the checkout);
+   pipeline at batch 128 beside phase 4's decode420 time; Chrome traces
+   (complete_trace) of one device_step and of two, each read only from a
+   session that kept a record of every kernel launch and copy (one that
+   dropped records is thrown away and a fresh one opened; a second drop
+   fails), holding one decode420_kernel event per step, and a
+   utils.device_trace of one step, its file written and its records
+   counted (the traces go to traces/phase14/ in the checkout);
 15. multi-device serving (phase15; parallel/: each mesh slot runs the
    one-device step's kernels on its own device and CUDA stream), at full
    width on three meshes (phase15_meshes): make_mesh(), every card (one
@@ -253,7 +258,7 @@ video with the profiling tools, and multi-device serving over meshes.
    launches join the kernels line); dp meshes give JpegTranscodePipeline's
    bytes, (2, 2) (sp: rows split with explicit halos) coefficients within
    1 of its step; each slot's device_step(plain=True) within the step
-   gate of its kernel run; in a device_trace of two (4, 1) steps the
+   gate of its kernel run; in a complete_trace of two (4, 1) steps the
    slots' work (kernels and copies) runs on four streams and overlaps
    across them (the kernels' and copies' own overlap printed);
    device_step ms of each
@@ -267,11 +272,43 @@ video with the profiling tools, and multi-device serving over meshes.
    every kernel launched once per dp slot of each group (more where
    (2, 2) splits a group's rows; these launches join the kernels line),
    the dp meshes' healthy bytes equal to the one-device front's, (2, 2)'s
-   .jpeg coefficients within 1, the broken slots failing alone.
+   .jpeg coefficients within 1, the broken slots failing alone;
+16. tools/tpu_smoke.py's 13 surfaces at its small, odd shapes,
+   the inputs built here (small_bgr, layout_jpeg, tests/_torch_*_builders,
+   tests/assets/): the 100x76 JPEG in 4:2:0, gray, 4:2:2 and 4:4:4 to
+   .jpeg, .png and .webp (steps within the kernel gate of their plain
+   versions and the step gate of the CPU port's); the 47x33 and 33x47
+   still fronts; the yuv420 emit at 33x47, 1x1 and 64x64; the 14x9 GIF
+   alone and as a 3-lane group; the 20x13 WebP composite; thumbhash;
+   an 853x479 yuv420p frame; ops/resize 37x53 -> 24x17 by AREA, LINEAR
+   and CUBIC; ops/blend of a 13x11 frame into 31x29 and ops/orient 1-8;
+   a 121x81 PQ tone map (the HDR tier); a 40x30 16-bit PNG; 4 spritesheet
+   tiles (the thumbhash tie rule); each equal to the CPU port (atol 0
+   where the port is exact), and each host call of libwebp or ffmpeg
+   raising HostLibraryMissingError where the library is absent (equal to
+   the CPU port's result where present). One JSON line per surface, then
+   {"surfaces": 13, "failures": [...]}; a failure fails the phase;
+17. the batch-serving entry point, python -m lilliput_tpu_torch.serve_batch
+   (phase17: serve_batch.main, its default device the card), over 128
+   copies of the 1080p fixtures (every decode kernel's layout, gray o6
+   for dequant_idct_blocks), a 1080p RGBA PNG and a 1080p GIF, Fit
+   256x256 .jpeg, with no flag, -warm (over a quarter of each source's
+   copies: -warm refuses more than 64 requests, as the JAX example does,
+   which is checked) and -sharded (make_mesh(): every card), every
+   launch count 0 just before each run and read just after
+   (every kernel launched; these launches join the kernels line): its
+   lines, its files byte-equal across the runs and across copies of one
+   source, and their coefficients within the step gate of its files with
+   -device cpu.
 
 device_spans (the busy shares and device-event counts of phases 4-14)
-opens torch.profiler as utils.device_trace does, with a synchronized op
-first, and every busy share prints with its count of device records.
+and complete_trace (phases 14 and 15's Chrome traces) run through
+utils.profile_complete: torch.profiler opened as utils.device_trace
+opens it, with a burn-in of one-element kernels first, and read only
+from a session that kept a device record of every kernel launch and
+every memcpy/memset of the work (a fresh session after one that dropped
+records; a second drop fails the phase, naming the counts); every busy
+share prints with its count of device records.
 
 Prints one line per phase, then the kernels JSON line, the card line, and
 as its last line {"ok": true, "device": {...}}. Any failure raises, so the
@@ -347,6 +384,8 @@ STILLS = ["bench_1080p.jpg", "bench_1080p_422.jpg", "bench_1080p_440.jpg",
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 BATCH = 128
 DST = 256
+#: utils.measure_device_stages' stages, printed per path by phase 4
+STAGES = ("decode", "resize", "encode", "full_step", "dispatch", "fetch")
 CASES = [(64, 48), (67, 61), (16, 16), (130, 17), (8, 8), (24, 129)]
 #: decode420's, decode422's and decode440's band and strip edges (bands of
 #: 17 MCU rows; strips of 10, 14 and 16 MCUs), and decode444's (steps of 4
@@ -807,33 +846,53 @@ def bound(inputs, outputs, blocks):
 
 def device_spans(fn):
     """(sorted (start, end) of every device-side event of fn(), host wall
-    us) under torch.profiler, opened as utils.device_trace opens it: a
-    synchronized op first, since a session opened late in a long process
-    may drop its first device records (tools/torch_profiler_drops.py);
-    that op's records, before fn's, are left out."""
+    us) under torch.profiler, through utils.profile_complete: the session
+    opens as utils.device_trace opens it (a burn-in of one-element
+    kernels, whose records, before fn's, are left out), and one that kept
+    fewer device kernel records than fn's kernel launches (a session
+    opened late in a long process may drop its first records,
+    tools/torch_profiler_drops.py) is thrown away and fn runs again in a
+    fresh session; a second drop fails the phase, naming the counts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
+    from torch.profiler import record_function
+    from lilliput_tpu_torch.utils import RecordsDropped, profile_complete
+    wall = []
+
+    def run():
         with record_function("chip_smoke.device_spans"):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.events()
+            wall.append(1e6 * (time.perf_counter() - t0))
+    try:
+        events = profile_complete(run).profile.events()
+    except RecordsDropped as e:
+        raise SmokeFailure(str(e)) from e
     start = min(e.time_range.start for e in events
                 if e.name == "chip_smoke.device_spans")
     return sorted((e.time_range.start, e.time_range.end) for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.time_range.start >= start), wall_us
+                  and e.time_range.start >= start), wall[-1]
+
+
+def complete_trace(fn, log_dir, what):
+    """(path, events, TraceRecords) of a Chrome trace of fn() that
+    utils.profile_complete wrote to log_dir, from the first torch.profiler
+    session that kept a device record of every kernel launch and copy of
+    fn (a second session that dropped records fails the phase, naming the
+    counts)."""
+    from lilliput_tpu_torch.utils import RecordsDropped, profile_complete
+    try:
+        tr = profile_complete(fn, log_dir=log_dir)
+    except RecordsDropped as e:
+        raise SmokeFailure(f"{what}: {e}") from e
+    with open(tr.path) as f:
+        return tr.path, json.load(f)["traceEvents"], tr.records
 
 
 class Busy(NamedTuple):
-    """A busy share and the count of device records it was read from (a
-    session that dropped records shows fewer)."""
+    """A busy share and the count of device records it was read from, of
+    a session that kept a record of every kernel launch."""
     share: float
     records: int
 
@@ -896,9 +955,12 @@ def phase4(path, pipe, bufs, serving, card):
     t["h2d_ms"] = cuda_ms(lambda: [pipe._to_device(a) for a in coefs], 5)
     t["device_step_ms"] = cuda_ms(lambda: pipe.device_step(*args), 10)
     if path in ("420", "420_exact"):
-        t.update(stage_breakdown_420(pipe, bufs, args, serving))
-    if path == "420_direct":
-        t["idct_ms"] = direct_idct_ms(pipe, args)
+        t.update(stage_breakdown_420(pipe, bufs, args))
+    # the step's own decode, resize and encode stages, dispatch and fetch
+    # (CUDA events; the direct modes' decode is their IDCTs)
+    from lilliput_tpu_torch.utils import Metrics, measure_device_stages
+    t["device_stages"] = measure_device_stages(pipe, bufs, iters=3,
+                                               registry=Metrics())
     t0 = time.perf_counter()
     pipe.transcode_pipelined([bufs] * 4)
     t["pipelined_ips"] = 4 * BATCH / (time.perf_counter() - t0)
@@ -909,38 +971,10 @@ def phase4(path, pipe, bufs, serving, card):
     return t
 
 
-def direct_idct_ms(pipe, args):
-    """The direct mode's three IDCTs with their u8 rounding
-    (dequant_idct_u8 of Y, Cb and Cr, torch matmuls) on the step's
-    inputs: the part of its device step that takes the decode kernel's
-    place."""
-    from lilliput_tpu_torch.ops import jpeg_kernels as K
-    ys, cbs, crs = (pipe._to_device(a) for a in args[:3])
-    qy, qc = (pipe._to_device(q.astype(np.float32)) for q in args[3:])
-    return cuda_ms(lambda: [K.dequant_idct_u8(c, q) for c, q in
-                            ((ys, qy), (cbs, qc), (crs, qc))], 10)
-
-
-def stage_breakdown_420(pipe, bufs, args, serving):
-    import torch
-    from lilliput_tpu_torch.ops import decode_kernels as DK
-    from lilliput_tpu_torch.ops import jpeg_kernels as K
-    from lilliput_tpu_torch.ops import resize as R
-    from lilliput_tpu_torch import pipeline as P
+def stage_breakdown_420(pipe, bufs, args):
+    """4:2:0's D2H of a step's outputs, and its host entropy decode and
+    encode rates (images/s, 8 threads)."""
     t = {}
-    g = pipe.geom
-    left, top, w, h = P.fit_rect(g.width, g.height, DST, DST)
-    x0, y0 = pipe.window_static[:2]
-    planes = DK.decode420(*serving)
-
-    def resize():
-        return [torch.clamp(torch.round(R.resize_area_plane_embedded(
-            p, left - x0, w, DST, top - y0, h, DST)), 0, 255)
-            for p in planes]
-    small = resize()
-    t["resize_ms"] = cuda_ms(resize, 10)
-    t["encode_ms"] = cuda_ms(lambda: K.encode_from_bgr_planes(
-        *small, pipe.enc_qt_y, pipe.enc_qt_c), 10)
     out = pipe.device_step(*args)
     t["d2h_ms"] = cuda_ms(lambda: [o.cpu() for o in out], 5)
     t0 = time.perf_counter()
@@ -2224,7 +2258,9 @@ WEBP_CPU_CHUNK = 4
 WEBP_FIXTURE = "anim_96x80.webp"
 
 
-def webp_anim_inputs(seed: int = 11):
+def webp_anim_inputs(seed: int = 11, anims: "int | None" = None,
+                     frames: "int | None" = None,
+                     canvas: "int | None" = None):
     """Phase 11's composite inputs, made in numpy from `seed`: WEBP_ANIMS
     animations of WEBP_FRAMES // 2 + 1 to WEBP_FRAMES frames (padded to the frame bucket
     with inert frames: no-blend, nothing drawn) on a WEBP_CANVAS canvas,
@@ -2232,19 +2268,23 @@ def webp_anim_inputs(seed: int = 11):
     canvas; the others are sub-rects of bench_1080p's pixels at offsets
     that may be negative or run past the canvas (clipped as the host
     assembly clips them), with partial alpha, blend 0 or 1 and dispose 0
-    or 1. Returns the dict of stacked arrays (_WEBP_INPUTS)."""
+    or 1. anims, frames and canvas replace WEBP_ANIMS, WEBP_FRAMES and
+    WEBP_CANVAS. Returns the dict of stacked arrays (_WEBP_INPUTS)."""
     from lilliput_tpu_torch import pipeline as TP
     from lilliput_tpu_torch.ops import palette as P
+    anims = WEBP_ANIMS if anims is None else anims
+    frames = WEBP_FRAMES if frames is None else frames
     rng = np.random.default_rng(seed)
     bgr = fixture_pixels("bench_1080p.jpg")
-    c, nb = WEBP_CANVAS, P.frame_bucket(WEBP_FRAMES)
-    stack = {"frames": np.zeros((WEBP_ANIMS, nb, c, c, 4), np.uint8),
-             "drawn": np.zeros((WEBP_ANIMS, nb, c, c), bool),
-             "blends": np.ones((WEBP_ANIMS, nb), np.int32),
-             "pdisp": np.zeros((WEBP_ANIMS, nb), np.int32),
-             "prects": np.zeros((WEBP_ANIMS, nb, c, c), bool)}
-    for a in range(WEBP_ANIMS):
-        n = int(rng.integers(WEBP_FRAMES // 2 + 1, WEBP_FRAMES + 1))
+    c = WEBP_CANVAS if canvas is None else canvas
+    nb = P.frame_bucket(frames)
+    stack = {"frames": np.zeros((anims, nb, c, c, 4), np.uint8),
+             "drawn": np.zeros((anims, nb, c, c), bool),
+             "blends": np.ones((anims, nb), np.int32),
+             "pdisp": np.zeros((anims, nb), np.int32),
+             "prects": np.zeros((anims, nb, c, c), bool)}
+    for a in range(anims):
+        n = int(rng.integers(frames // 2 + 1, frames + 1))
         prev, prev_disp = None, 0
         for k in range(n):
             if k == 0:
@@ -3005,14 +3045,15 @@ def phase14(card, kernels):
     bytes raises InvalidImageError either way.
     (d) utils.measure_device_stages on the 4:2:0 pipeline at
     PROFILE_BATCH, printed beside phase 4's decode420 time for the same
-    window; torch.profiler opened bare around one device_step, and
-    utils.device_trace around one and around two device_steps, each
-    trace's kernel records printed against its kernel launches; the
-    two-step trace must hold an event of decode420_kernel, the
-    __global__ function behind lpt_decode420 (csrc/decode420.cu:233).
-    Late in a long process a torch.profiler session may drop its first
-    device records (tools/torch_profiler_drops.py), which can take the
-    first step's decode420 record, never the second's."""
+    window; complete_trace of one and of two device_steps, each read
+    only from a session that kept a device record of every kernel launch
+    and copy of its steps (late in a long process a session may drop its
+    first device records, tools/torch_profiler_drops.py: one that did is
+    thrown away and a fresh one opened, and a second drop fails the
+    phase), each holding one event of decode420_kernel per step, the
+    __global__ function behind lpt_decode420 (csrc/decode420.cu:233); a
+    utils.device_trace of one step writes its trace and counts its
+    records (no event count is read from it)."""
     import torch
     from lilliput_tpu_torch import (Framebuffer, JpegTranscodePipeline,
                                     binding, new_decoder, spritesheet)
@@ -3152,8 +3193,7 @@ def phase14(card, kernels):
     reg = Metrics()
     stages = measure_device_stages(pipe, bufs, iters=3, registry=reg)
     counts = {k: v["count"] for k, v in reg.snapshot()["stages"].items()}
-    check(counts == {"device.decode": 1, "device.full_step": 1,
-                     "device.dispatch": 1, "device.fetch": 1},
+    check(counts == {f"device.{k}": 1 for k in STAGES},
           f"measure_device_stages registry {counts}")
     print(f"phase 14: (d) measure_device_stages 4:2:0 x{PROFILE_BATCH}: "
           f"{stages}; phase 4's decode420 kernel "
@@ -3165,44 +3205,30 @@ def phase14(card, kernels):
     def step():
         pipe._to_host(pipe._fetch(pipe.device_step(*coefs)))
 
-    def traced(what, path):
-        """(decode420_kernel events, kernels, kernel launches) of a trace."""
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        kern = [e for e in events if e.get("cat") == "kernel"]
-        hits = [e for e in kern if "decode420_kernel" in e["name"]]
-        launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                       and "LaunchKernel" in e["name"])
+    def traced(what, n_steps):
+        """The decode420_kernel events of a complete_trace of n_steps
+        steps."""
+        path, events, rec = complete_trace(
+            lambda: [step() for _ in range(n_steps)], log_dir,
+            f"phase 14 (d) {what}")
+        hits = [e for e in events if e.get("cat") == "kernel"
+                and "decode420_kernel" in e["name"]]
         print(f"phase 14: (d) {what}: {path} ({os.path.getsize(path)} B), "
-              f"{len(kern)} kernel events of {launches} kernel launches, "
-              f"{len(hits)} decode420_kernel event(s) "
+              f"{rec}, {len(hits)} decode420_kernel event(s) "
               f"{[e.get('dur') for e in hits]!r} us", flush=True)
+        check(len(hits) == n_steps, f"the trace {path} holds "
+              f"{len(hits)} decode420_kernel events for {n_steps} steps")
         return hits
 
-    # torch.profiler opened bare, for comparison with device_trace's
-    # synchronized first op (tools/torch_profiler_drops.py)
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    os.makedirs(log_dir, exist_ok=True)
-    bare = os.path.join(log_dir, "bare_profile.pt.trace.json")
-    prof.export_chrome_trace(bare)
-    traced("torch.profiler opened bare around one device_step", bare)
+    traced("trace of one device_step", 1)
+    traced("trace of two device_steps", 2)
     with device_trace(log_dir) as tr:
         step()
-    traced("device_trace of one device_step", tr.path)
-    # a session that drops records drops its first ones (17-27 late in
-    # this run), fewer than the ~100 that part the two steps' launches of
-    # decode420, so the second one's record is always kept
-    with device_trace(log_dir) as tr2:
-        step()
-        step()
-    hits = traced("device_trace of two device_steps", tr2.path)
-    check(bool(hits), f"the trace {tr2.path} holds no decode420_kernel "
-          "event")
+    check(os.path.exists(tr.path) and tr.records.launches > 0,
+          f"device_trace wrote {tr.path} with {tr.records}")
+    note = "" if tr.records.complete else "; dropped records, none read"
+    print(f"phase 14: (d) utils.device_trace of one device_step: {tr.path} "
+          f"({tr.records}{note})", flush=True)
     print(f"phase 14: phase took {time.perf_counter() - t_phase:.1f}s",
           flush=True)
 
@@ -3262,7 +3288,7 @@ def phase15(card, kernels):
     line); on dp meshes the bytes of JpegTranscodePipeline, on (2, 2) the
     step's coefficients within 1 of its; each slot's device_step(plain=True)
     within the step gate of its kernel run; the (4, 1) slots' streams
-    overlapping (kernels and copies) in a device_trace; device_step ms per
+    overlapping (kernels and copies) in a complete_trace; device_step ms per
     mesh beside the one-device step's. (b) 3840x2160 4:2:0 and gray JPEGs
     (the port's stretch of the fixtures) x SP_BATCH on (2, 2): within 1 of
     the one-device step, the sp counters, each shard's decoded rows equal
@@ -3343,16 +3369,17 @@ def phase15(card, kernels):
         if name == "4x1":
             # two steps: a session late in the run may drop its first
             # device records (phase 14), the first step's copies among them
-            log_dir = os.path.join(ROOT, "traces", "phase15")
-            with device_trace(log_dir) as tr:
-                for _ in range(2):
-                    pipe._to_host(pipe._fetch(pipe.device_step(*args)))
+            path, _, rec = complete_trace(
+                lambda: [pipe._to_host(pipe._fetch(pipe.device_step(*args)))
+                         for _ in range(2)],
+                os.path.join(ROOT, "traces", "phase15"),
+                "phase 15 (a) 4x1 trace")
             for what, cats in (("kernels", ("kernel",)),
                                ("copies", ("gpu_memcpy",)),
                                ("kernels and copies",
                                 ("kernel", "gpu_memcpy", "gpu_memset"))):
-                streams, both, busy = stream_overlap(tr.path, cats)
-                print(f"phase 15: (a) 4x1 trace of two steps {tr.path}: "
+                streams, both, busy = stream_overlap(path, cats)
+                print(f"phase 15: (a) 4x1 trace of two steps {path} ({rec}): "
                       f"{what} on {streams} streams, {both!r} us of "
                       f"{busy!r} us with two or more streams running them",
                       flush=True)
@@ -3488,6 +3515,553 @@ def phase15(card, kernels):
           flush=True)
 
 
+def small_bgr(seed: int, w: int, h: int, c: int = 3) -> np.ndarray:
+    """tools/tpu_smoke.py's small smooth picture without cv2: a random
+    10x10 u8 image upscaled to w x h by the port's CUBIC resize on the
+    CPU, (h, w, c) u8."""
+    import torch
+    from lilliput_tpu_torch.ops import resize as R
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.integers(0, 256, (10, 10, c), np.uint8))
+    out = R.resize(img, w, h, R.CUBIC).to(torch.float32)
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8).numpy()
+
+
+def layout_jpeg(bgr: np.ndarray, sub: str, quality: int = 88) -> bytes:
+    """A JPEG of (h, w, 3) u8 BGR pixels in chroma layout `sub` ("420",
+    "422", "440", "444") or "gray" (channel 0), coded by the port on the
+    CPU (the card's machine has no PIL or cv2): the colour conversion and
+    fDCT of ops/jpeg_kernels, chroma averaged over its sampling factors,
+    then codecs.jpeg.encode_coefs at libjpeg's block geometry."""
+    import torch
+    from lilliput_tpu_torch.codecs import jpeg as J
+    from lilliput_tpu_torch.ops import jpeg_kernels as K
+    qt_l, qt_c = J.scaled_qtables(quality)
+    h, w = bgr.shape[:2]
+    f = torch.from_numpy(np.ascontiguousarray(bgr)).to(torch.float32)
+    if sub == "gray":
+        planes, hs, vs = [f[..., 0]], [1], [1]
+    else:
+        planes = list(K._bgr_to_ycc(f[..., 0], f[..., 1], f[..., 2]))
+        hs, vs = J._SAMP[sub]
+    mh, mv = max(hs), max(vs)
+    ph = -(-h // (8 * mv)) * 8 * mv
+    pw = -(-w // (8 * mh)) * 8 * mh
+    comps = []
+    for k, (p, sh, sv) in enumerate(zip(planes, hs, vs)):
+        p = K._pad_to(p, ph, pw)
+        fy, fx = mv // sv, mh // sh
+        p = p.reshape(ph // fy, fy, pw // fx, fx).mean((1, 3))
+        q = torch.from_numpy((qt_l if k == 0 else qt_c).astype(np.float32))
+        c = K.fdct_quant(p, q).numpy()
+        comps.append(np.ascontiguousarray(
+            c[:-(-h * sv // (8 * mv)), :-(-w * sh // (8 * mh))]))
+    return J.encode_coefs(w, h, comps, hs, vs, qt_l, qt_c)
+
+
+def _step_diff(got, ref):
+    """diff_stats of two device steps' outputs on any devices: packed
+    BGRA pixels by byte, planes and coefficients by value."""
+    import torch
+    if len(got) == 1 and got[0].dtype == torch.int32:
+        return diff_stats(got[0].cpu(), ref[0].cpu())
+    return diff_stats([g.cpu() for g in got], [r.cpu() for r in ref])
+
+
+def _host_or_missing(call, present: bool, lib: str) -> str:
+    """call(device) on the card: where the host library is present its
+    result must equal call("cpu")'s; where it is absent the call must raise
+    HostLibraryMissingError naming it."""
+    from lilliput_tpu_torch.errors import HostLibraryMissingError
+    if present:
+        def outcome(dev):
+            try:
+                return call(dev)
+            except Exception as e:  # noqa: BLE001 - compared below
+                return f"{type(e).__name__}: {e}"
+        got = outcome(DEVICE)
+        check(got == outcome("cpu"), f"the card's {lib} result differs "
+              "from the CPU port's")
+        return ("equal to the CPU port" if not isinstance(got, str)
+                else f"as the CPU port: {got}")
+    try:
+        call(DEVICE)
+    except HostLibraryMissingError as e:
+        check(lib in str(e), f"HostLibraryMissingError without {lib}: {e}")
+        return "HostLibraryMissingError"
+    raise SmokeFailure(f"no HostLibraryMissingError without {lib}")
+
+
+def phase16(card):
+    """tools/tpu_smoke.py's 13 surfaces on the card at that tool's small,
+    odd shapes, the inputs built here (that tool reads the reference
+    checkout's), each gated against the CPU port; one JSON line per
+    surface, then {"surfaces": 13, "failures": [...]}; any failure fails
+    the phase."""
+    import traceback
+    import torch
+    from lilliput_tpu_torch import (Framebuffer, ImageOps, ImageOptions,
+                                    JpegTranscodePipeline, ResizeMethod,
+                                    StillTranscodePipeline, binding,
+                                    new_decoder, new_encoder, spritesheet)
+    from lilliput_tpu_torch import pipeline as TP
+    from lilliput_tpu_torch.codecs import thumbhash as TH
+    from lilliput_tpu_torch.codecs import video as V
+    from lilliput_tpu_torch.codecs.av1_raw import RawPlanes
+    from lilliput_tpu_torch.codecs.avif import hdr_planes_to_bgr
+    from lilliput_tpu_torch.framebuffer import JPEG_QUALITY
+    from lilliput_tpu_torch.ops import blend as B
+    from lilliput_tpu_torch.ops import color as C
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    from lilliput_tpu_torch.ops import orient as O
+    from lilliput_tpu_torch.ops import resize as R
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_gif_builders import pan_gif
+    from _torch_still_builders import png_bytes
+    t_phase = time.perf_counter()
+    have_webp = os.path.exists(binding.WEBP_HEADER)
+    have_ffmpeg = os.path.exists(binding.AVFORMAT_HEADER)
+    DK.reset_launches()
+
+    def asset(name):
+        with open(os.path.join(ASSETS, name), "rb") as f:
+            return f.read()
+
+    def gate_steps(what, make, bufs, kernel=True):
+        """A pipeline's device step on the card against its plain version
+        (the kernel gate) and the CPU port's (the step gate)."""
+        pd, pc = make(DEVICE), make("cpu")
+
+        def host(p):
+            if isinstance(p, StillTranscodePipeline):
+                return (p.decode_pixels(bufs)[0],)
+            return p.decode_entropy(bufs)
+        coefs = host(pd)
+        got = pd.device_step(*coefs)
+        if kernel:
+            mx, nd, n = _step_diff(got, pd.device_step(*coefs, plain=True))
+            check(mx <= KERNEL_MAX_DIFF and nd <= KERNEL_MAX_SHARE * n,
+                  f"{what}: the step differs from its plain version "
+                  f"(max {mx}, {nd} of {n})")
+        mx, nd, n = _step_diff(got, pc.device_step(*host(pc)))
+        check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+              f"{what}: the step differs from the CPU port's (max {mx}, "
+              f"{nd} of {n})")
+        return pd, mx
+
+    def jpeg_serving():
+        img = small_bgr(0, 100, 76)
+        worst = 0
+        for sub, dst in (("420", 64), ("gray", 48), ("422", 48),
+                         ("444", 48)):
+            buf = layout_jpeg(img, sub)
+            for fmt in (".jpeg", ".png", ".webp"):
+                pipe, mx = gate_steps(
+                    f"{sub} {fmt}", lambda d: JpegTranscodePipeline(
+                        buf, dst, dst, output_format=fmt, device=d),
+                    [buf, buf], kernel=sub != "gray")
+                worst = max(worst, mx)
+                if fmt == ".webp":
+                    _host_or_missing(lambda d: JpegTranscodePipeline(
+                        buf, dst, dst, output_format=fmt,
+                        device=d).transcode([buf]), have_webp, "libwebp")
+                    continue
+                out = pipe.transcode([buf])[0]
+                check(out[:2] == b"\xff\xd8" if fmt == ".jpeg"
+                      else out[:8] == b"\x89PNG\r\n\x1a\n", f"{sub} {fmt}")
+        return {"layouts": ["420", "gray", "422", "444"], "step_max": worst}
+
+    def still_serving():
+        rgba = png_bytes(small_bgr(1, 100, 100, 4), 6)
+        pipe, mx = gate_steps("RGBA PNG -> 47x33 .jpeg",
+                              lambda d: StillTranscodePipeline(
+                                  rgba, 47, 33, device=d), [rgba, rgba],
+                              kernel=False)
+        check(all(o[:2] == b"\xff\xd8" for o in pipe.transcode([rgba] * 2)),
+              "still .jpeg")
+        ga = png_bytes(small_bgr(2, 100, 100, 2), 4)
+        outs = [StillTranscodePipeline(ga, 33, 47, output_format=".png",
+                                       device=d).transcode([ga])[0]
+                for d in (DEVICE, "cpu")]
+        check(outs[0] == outs[1] and outs[0][:8] == b"\x89PNG\r\n\x1a\n",
+              "gray+alpha PNG -> 33x47 .png differs from the CPU port's")
+        if have_webp:
+            fb = Framebuffer.from_array(small_bgr(3, 100, 100), device="cpu")
+            wb = new_encoder(".webp").encode(fb, {})
+        else:
+            wb = asset(WEBP_FIXTURE)
+        webp = _host_or_missing(lambda d: StillTranscodePipeline(
+            wb, 40, 40, device=d).transcode([wb]), have_webp, "libwebp")
+        return {"step_max": mx, "webp": webp}
+
+    def webp_yuv():
+        rng = np.random.default_rng(7)
+        for (h, w) in ((33, 47), (1, 1), (64, 64)):
+            px = rng.integers(0, 256, (h, w, 3), np.uint8).astype(np.int32)
+            packed = torch.from_numpy(
+                (px[..., 0] | (px[..., 1] << 8) | (px[..., 2] << 16)
+                 | np.int32(-16777216))[None])
+            for g, r in zip(C.webp_yuv420_from_packed(packed.to(DEVICE)),
+                            C.webp_yuv420_from_packed(packed)):
+                check(torch.equal(g.cpu(), r), f"yuv420 emit at {(h, w)}")
+        buf = layout_jpeg(small_bgr(4, 100, 76), "420")
+        _, mx = gate_steps("420 -> 48x48 .webp planes",
+                           lambda d: JpegTranscodePipeline(
+                               buf, 48, 48, output_format=".webp", device=d),
+                           [buf])
+        lib = _host_or_missing(lambda d: binding.load_webp() and None,
+                               have_webp, "libwebp")
+        return {"step_max": mx, "libwebp": lib}
+
+    gif = pan_gif(np.ascontiguousarray(small_bgr(5, 140, 110)[..., ::-1]),
+                  100, 80, 4)
+
+    def gif_batch():
+        out = TP.transcode_gif(gif, 14, 9, device=DEVICE)
+        check(out[:6] in (b"GIF87a", b"GIF89a"), "GIF magic")
+        check(out == TP.transcode_gif(gif, 14, 9, device="cpu"),
+              "14x9 GIF differs from the CPU port's")
+        return {"bytes": len(out)}
+
+    def gif_group():
+        outs = TP.transcode_gif_batch([gif] * 3, 14, 9, device=DEVICE)
+        want = TP.transcode_gif(gif, 14, 9, device=DEVICE)
+        check(outs == [want] * 3, "the 3-lane group differs from one GIF")
+        check(outs == TP.transcode_gif_batch([gif] * 3, 14, 9,
+                                             device="cpu"),
+              "the 3-lane group differs from the CPU port's")
+        return {"bytes": len(want)}
+
+    def webp_batch():
+        stack = webp_anim_inputs(seed=16, anims=2, frames=6, canvas=41)
+        host = [torch.from_numpy(stack[k]) for k in TP._WEBP_INPUTS]
+        got = TP._webp_batch_to_pixels(*[t.to(DEVICE) for t in host], None,
+                                       20, 13).cpu()
+        want = TP._webp_batch_to_pixels(*host, None, 20, 13)
+        check(torch.equal(got, want), "the 20x13 composite differs from "
+              "the CPU port's")
+        anim = asset(WEBP_FIXTURE)
+        lib = _host_or_missing(lambda d: TP.transcode_webp(
+            anim, 20, 13, device=d), have_webp, "libwebp")
+        return {"composite": list(got.shape), "host": lib}
+
+    def thumbhash():
+        buf = layout_jpeg(small_bgr(6, 160, 120), "420")
+        outs = [ImageOps(1024).transform(new_decoder(buf, device=d),
+                                         ImageOptions(file_type=".thumbhash",
+                                                      width=100, height=100))
+                for d in (DEVICE, "cpu")]
+        check(outs[0] == outs[1], "the thumbhash differs from the CPU port's")
+        return {"bytes": len(outs[0])}
+
+    def video_frame():
+        planes = video_planes(np.random.default_rng(8), 0, 853, 479)
+        got, want = (V.frame_to_bgra(*planes, spc=1, rng=1, fmt=0,
+                                     display_w=853, display_h=479,
+                                     device=d).cpu()
+                     for d in (DEVICE, "cpu"))
+        check(tuple(got.shape) == (479, 853, 4) and torch.equal(got, want),
+              "853x479 yuv420p frame differs from the CPU port's")
+        host = _host_or_missing(lambda d: ImageOps(8192).transform(
+            new_decoder(asset("tiny_vp8.webm"), device=d), ImageOptions(
+                file_type=".jpeg", width=160, height=90,
+                resize_method=ResizeMethod.RESIZE,
+                encode_options={JPEG_QUALITY: 85},
+                disable_animated_output=True)), have_ffmpeg, "ffmpeg")
+        return {"host": host}
+
+    def resize_paths():
+        img = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 256, (37, 53, 3), np.uint8))
+        for method in (R.AREA, R.LINEAR, R.CUBIC):
+            got = R.resize(img.to(DEVICE), 24, 17, method).cpu()
+            want = R.resize(img, 24, 17, method)
+            check(tuple(got.shape) == (17, 24, 3) and torch.equal(got, want),
+                  f"{method} 37x53 -> 24x17 differs from the CPU port's")
+        return {}
+
+    def blend_orient():
+        rng = np.random.default_rng(2)
+        canvas = torch.from_numpy(rng.integers(0, 256, (31, 29, 4), np.uint8))
+        frame = torch.from_numpy(rng.integers(0, 256, (13, 11, 4), np.uint8))
+        got = B.copy_to_region_with_alpha(canvas.to(DEVICE), frame.to(DEVICE),
+                                          3, 5, 11, 13).cpu()
+        check(torch.equal(got, B.copy_to_region_with_alpha(
+            canvas, frame, 3, 5, 11, 13)), "blend differs from the CPU's")
+        for o in range(1, 9):
+            check(torch.equal(O.orient(canvas.to(DEVICE), o).cpu(),
+                              O.orient(canvas, o)), f"orient {o}")
+        return {}
+
+    def avif_frame():
+        rng = np.random.default_rng(9)
+        h, w = 81, 121
+        rp = RawPlanes(y=_gradient_plane(rng, h, w, 10, 0.3),
+                       u=_gradient_plane(rng, -(-h // 2), -(-w // 2), 10, 1.1),
+                       v=_gradient_plane(rng, -(-h // 2), -(-w // 2), 10, 2.0),
+                       width=w, height=h, depth=10, full_range=False,
+                       matrix=9, primaries=9, trc=16)
+        ap = RawPlanes(y=_gradient_plane(rng, h, w, 10, 0.7), u=None, v=None,
+                       width=w, height=h, depth=10, full_range=True,
+                       matrix=2, primaries=2, trc=2)
+        got, want = (hdr_planes_to_bgr(rp, ap, h, w, (9, 16, 9, 0), d).cpu()
+                     for d in (DEVICE, "cpu"))
+        mx, nd, n = diff_stats([got[..., :3]], [want[..., :3]])
+        check(got.shape == want.shape == (h, w, 4)
+              and mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n
+              and torch.equal(got[..., 3:], want[..., 3:]),
+              f"the {w}x{h} PQ tone map differs from the CPU port's "
+              f"(max {mx}, {nd} of {n})")
+        host = _host_or_missing(lambda d: ImageOps(8192).transform(
+            new_decoder(asset("still_alpha_64x48.avif"), device=d),
+            ImageOptions(file_type=".jpeg", width=120, height=80,
+                         resize_method=ResizeMethod.FIT,
+                         encode_options={JPEG_QUALITY: 85},
+                         disable_animated_output=True)), have_ffmpeg,
+            "ffmpeg")
+        return {"max_abs_diff": mx, "differing": nd, "host": host}
+
+    def png16():
+        rng = np.random.default_rng(10)
+        px = (small_bgr(11, 64, 48).astype(np.uint16) * 257
+              + rng.integers(0, 257, (48, 64, 3)).astype(np.uint16))
+        buf = png_bytes(px, 2, depth=16)
+        outs = [ImageOps(8192).transform(new_decoder(buf, device=d),
+                                         ImageOptions(
+                                             file_type=".png", width=40,
+                                             height=30,
+                                             resize_method=ResizeMethod.FIT))
+                for d in (DEVICE, "cpu")]
+        check(outs[0] == outs[1] and outs[0][:8] == b"\x89PNG\r\n\x1a\n",
+              "16-bit PNG -> 40x30 .png differs from the CPU port's")
+        return {"bytes": len(outs[0])}
+
+    def sprite():
+        frames = np.stack([np.concatenate(
+            [small_bgr(20 + k, 241, 135), np.full((135, 241, 1), 255,
+                                                 np.uint8)], -1)
+            for k in range(4)])
+        tiles, hashes = TP.spritesheet_tiles(frames, 64, 36, True, DEVICE)
+        ref, ref_hashes = TP.spritesheet_tiles(frames, 64, 36, True, "cpu")
+        check(np.array_equal(tiles, ref), "tiles differ from the CPU's")
+        grids, _ = TH.batch_grids(ref, device=DEVICE)
+        ref_grids, sums = TH.batch_grids(ref, device="cpu")
+        err = max(float(np.abs(g - r).max())
+                  for g, r in zip(grids, ref_grids))
+        ties = [TH.order_dependent(TH.hash_fields(ref_grids, sums, i, 64, 36),
+                                   err) for i in range(len(ref))]
+        bad = sum(a != b and not t
+                  for a, b, t in zip(hashes, ref_hashes, ties))
+        check(err <= THUMB_GRID_ATOL and bad == 0, "spritesheet thumbhashes "
+              "differ from the CPU's off a rounding tie")
+        host = _host_or_missing(lambda d: spritesheet(
+            asset("tiny_vp8.webm"), 64, 36, max_tiles=4,
+            with_thumbhashes=True, device=d)[1:], have_ffmpeg, "ffmpeg")
+        return {"tiles": len(tiles), "host": host}
+
+    # tools/tpu_smoke.py's surfaces, in its order and by its names
+    fns = {"jpeg_serving_small+gray": jpeg_serving,
+           "still_input_serving": still_serving,
+           "webp_yuv420_emit": webp_yuv, "gif_batch_anim": gif_batch,
+           "gif_anim_group": gif_group, "webp_batch_anim": webp_batch,
+           "thumbhash_golden": thumbhash, "video_first_frame": video_frame,
+           "resize_exact_paths": resize_paths, "blend_orient": blend_orient,
+           "avif_tone_map": avif_frame, "png_16bit_roundtrip": png16,
+           "spritesheet": sprite}
+    failures = []
+    for name, fn in fns.items():
+        t0 = time.perf_counter()
+        try:
+            detail = fn() or {}
+            row = {"surface": name, "ok": True,
+                   "s": round(time.perf_counter() - t0, 2), **detail}
+        except Exception as e:  # noqa: BLE001 - every surface runs
+            traceback.print_exc()
+            failures.append(name)
+            row = {"surface": name, "ok": False,
+                   "error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"surfaces": len(fns), "failures": failures}),
+          flush=True)
+    launched = {k: v for k, v in DK.launches.items() if v}
+    print(f"phase 16: launches over the phase {launched}; phase took "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+    check(not failures, f"phase 16: surfaces failed: {failures}")
+
+
+#: phase 17's requests to python -m lilliput_tpu_torch.serve_batch: 128
+#: JPEGs, copies of the 1080p fixtures (every decode kernel's layout, and
+#: gray o6 for dequant_idct_blocks), then a 1080p RGBA PNG and a 1080p
+#: GIF, each written to a file of its own
+SERVE_JPEGS = {"bench_1080p.jpg": 64, "bench_1080p_422.jpg": 16,
+               "bench_1080p_440.jpg": 16, "bench_1080p_444.jpg": 16,
+               "bench_1080p_gray_o6.jpg": 8, "bench_1080p_gray.jpg": 8}
+#: the runs on the card, by their flags beside the requests
+SERVE_RUNS = {"default": [], "warm": ["-warm"], "sharded": ["-sharded"]}
+#: -warm warms every request as a spec of its own and refuses more than
+#: MultiGeometryPipeline's max_geometries (64) of them, as the JAX example
+#: does: its run takes the first SERVE_WARM_SHARE of each source's copies
+SERVE_WARM_MAX, SERVE_WARM_SHARE = 64, 0.25
+
+
+def serve_inputs(d: str):
+    """Writes phase 17's requests into d; returns their paths, in order,
+    and the source each is a copy of."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_gif_builders import pan_gif
+    sources = {}
+    for fixture in SERVE_JPEGS:
+        with open(os.path.join(ASSETS, fixture), "rb") as f:
+            sources[fixture] = f.read()
+    from _torch_still_builders import png_bytes
+    rgb = np.ascontiguousarray(fixture_pixels("bench_1080p.jpg")[..., ::-1])
+    sources["rgba.png"] = png_bytes(np.concatenate(
+        [rgb, alpha_ramp(*rgb.shape[:2])], axis=-1), 6)
+    sources["pan.gif"] = pan_gif(rgb, rgb.shape[1], rgb.shape[0], 4,
+                                 codec=True)
+    names = [f for f, n in SERVE_JPEGS.items() for _ in range(n)]
+    names += ["rgba.png", "pan.gif"]
+    paths, of = [], {}
+    for i, name in enumerate(names):
+        path = os.path.join(d, f"r{i:03d}_{name}")
+        with open(path, "wb") as f:
+            f.write(sources[name])
+        paths.append(path)
+        of[path] = name
+    return paths, of
+
+
+def _serve(argv):
+    """(exit code, stdout lines) of serve_batch.main(argv)."""
+    import io
+    from lilliput_tpu_torch import serve_batch
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_batch.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def _served(outdir, path):
+    """The .jpeg file serve_batch wrote in outdir for the request at
+    path, and its path."""
+    dst = os.path.join(outdir, os.path.splitext(os.path.basename(path))[0]
+                       + ".out.jpeg")
+    with open(dst, "rb") as f:
+        return f.read(), dst
+
+
+def phase17(card, kernels):
+    """The batch-serving entry point on the card:
+    serve_batch.main(requests + [-width 256 -height 256 -outdir ...]) with
+    its default device (cuda) over SERVE_JPEGS' 128 1080p JPEGs, a 1080p
+    RGBA PNG and a 1080p GIF, once per SERVE_RUNS flag set (none, -warm,
+    -sharded: parallel.make_mesh(), every card), with every launch count
+    0 just before each run and read just after: every kernel launched
+    (those launches join the kernels line). Gates: exit 0, a "-> file (n
+    bytes)" line per request and the count line (the -warm report, the
+    cache line, the mesh's size); every file of the three runs byte-equal
+    across the runs and across the copies of one source (-warm over the
+    first quarter of each source's copies, and refusing all 130 requests
+    with ValueError, as the JAX example refuses them); each source's
+    .jpeg coefficients within the step gate of the same entry point's
+    files with -device cpu (one request per source there)."""
+    import tempfile
+    import torch
+    from lilliput_tpu_torch.ops import decode_kernels as DK
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".phase17_") as d:
+        paths, of = serve_inputs(d)
+        firsts = {}
+        for path in paths:
+            firsts.setdefault(of[path], path)
+        geom = ["-width", str(DST), "-height", str(DST)]
+        cpu_dir = os.path.join(d, "cpu")
+        t0 = time.perf_counter()
+        rc, _ = _serve(list(firsts.values()) + geom
+                       + ["-outdir", cpu_dir, "-device", "cpu"])
+        check(rc == 0, f"serve_batch -device cpu exited {rc}")
+        ref = {name: _served(cpu_dir, p)[0] for name, p in firsts.items()}
+        print(f"phase 17: serve_batch -device cpu over {len(firsts)} "
+              f"sources in {time.perf_counter() - t0:.1f}s", flush=True)
+        copies = {}
+        for p in paths:
+            copies[of[p]] = copies.get(of[p], 0) + 1
+        taken, warm = {}, []
+        for p in paths:
+            taken[of[p]] = taken.get(of[p], 0) + 1
+            if taken[of[p]] <= max(1, int(SERVE_WARM_SHARE * copies[of[p]])):
+                warm.append(p)
+        if len(paths) > SERVE_WARM_MAX:
+            try:
+                _serve(paths + geom + ["-outdir", os.path.join(d, "x"),
+                                       "-warm"])
+            except ValueError as e:
+                check("max_geometries=64" in str(e), str(e))
+            else:
+                raise SmokeFailure(f"-warm took {len(paths)} requests")
+        runs = {}
+        for run, flags in SERVE_RUNS.items():
+            outdir = os.path.join(d, run)
+            reqs = warm if run == "warm" else paths
+            torch.cuda.synchronize()
+            DK.reset_launches()
+            t0 = time.perf_counter()
+            rc, lines = _serve(reqs + geom + ["-outdir", outdir] + flags)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = dict(DK.launches)
+            check(rc == 0, f"serve_batch {flags} exited {rc}")
+            check(all(launched.get(k) for k in KERNELS), f"serve_batch "
+                  f"{flags} launched {launched}: not every kernel")
+            for k, n in launched.items():
+                kernels[k]["launches"] += n
+            served = [_served(outdir, p) for p in reqs]
+            outs = [o for o, _ in served]
+            want = [f"{p} -> {dst} ({len(o)} bytes)"
+                    for p, (o, dst) in zip(reqs, served)]
+            got = [ln for ln in lines if " -> " in ln]
+            check(got == want, f"serve_batch {flags}: the file lines "
+                  f"differ: {got[:2]} vs {want[:2]}")
+            last = lines[-1]
+            check(last.startswith(f"{len(reqs)} image(s) in "), last)
+            if run == "warm":
+                check(lines[0].startswith("warmed "), lines[0])
+            check(("sharded over " if run == "sharded" else ", cache ")
+                  in last, last)
+            for p, o in zip(reqs, outs):
+                check(o[:2] == b"\xff\xd8", f"{p} -> not a JPEG")
+            by_src = {}
+            for p, o in zip(reqs, outs):
+                by_src.setdefault(of[p], set()).add(o)
+            check(all(len(v) == 1 for v in by_src.values()),
+                  f"serve_batch {flags}: copies of one source differ")
+            runs[run] = dict(zip(reqs, outs))
+            print(f"phase 17: serve_batch {' '.join(flags) or '(no flag)'} "
+                  f"on {DEVICE}: {len(reqs)} requests in {secs:.2f}s; "
+                  + (f"{lines[0]!r}; " if run == "warm" else "") +
+                  f"last line {last!r}; "
+                  f"launches {launched} [{card}]", flush=True)
+        check(runs["sharded"] == runs["default"] and all(
+            runs["default"][p] == o for p, o in runs["warm"].items()),
+              "serve_batch's files differ between -warm, -sharded and no "
+              "flag")
+        worst, same = (0, 0, 0), 0
+        for p, o in runs["default"].items():
+            c = ref[of[p]]
+            mx, nd, n = diff_stats(
+                [torch.from_numpy(a) for a in jpeg_coefs(o)],
+                [torch.from_numpy(a) for a in jpeg_coefs(c)])
+            check(mx <= STEP_MAX_DIFF and nd <= STEP_MAX_SHARE * n,
+                  f"{p} differs from serve_batch -device cpu: max {mx}, "
+                  f"{nd}/{n} coefficients")
+            worst, same = max(worst, (mx, nd, n)), same + (o == c)
+    print(f"phase 17: the card's files equal across the three runs; .jpeg "
+          f"coefficients vs -device cpu: worst max_abs_diff={worst[0]} "
+          f"differing={worst[1]}/{worst[2]}; bytes equal in {same} of "
+          f"{len(paths)}; phase took {time.perf_counter() - t_phase:.1f}s "
+          f"[{card}]", flush=True)
+
+
 @contextlib.contextmanager
 def path_env(env):
     """The path's environment variables, restored afterwards."""
@@ -3557,6 +4131,8 @@ def main() -> int:
     phase13(card)
     phase14(card, kernels)
     phase15(card, kernels)
+    phase16(card)
+    phase17(card, kernels)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

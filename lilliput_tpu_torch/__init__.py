@@ -70,9 +70,9 @@ from .errors import (BufTooSmallError, DecodingFailedError,  # noqa: E402,F401
                      HostLibraryMissingError, InvalidImageError,
                      LilliputError, SkipNotSupportedError)
 from .api import new_decoder, new_encoder  # noqa: E402,F401
-from .framebuffer import (JPEG2000_RATE, JPEG_PROGRESSIVE,  # noqa: E402,F401
-                          JPEG_QUALITY, PNG_COMPRESSION, WEBP_METHOD,
-                          WEBP_QUALITY, BlendMethod, DisposeMethod,
+from .framebuffer import (AVIF_QUALITY, AVIF_SPEED,  # noqa: E402,F401
+                          JPEG2000_RATE, JPEG_PROGRESSIVE, JPEG_QUALITY,
+                          PNG_COMPRESSION, WEBP_METHOD, WEBP_QUALITY, BlendMethod, DisposeMethod,
                           Framebuffer, ImageHeader, ImageOrientation)
 from .imageops import ImageOps, ImageOptions, ResizeMethod  # noqa: E402,F401
 from .interfaces import Decoder, Encoder  # noqa: E402,F401

@@ -388,10 +388,11 @@ class _Group:
 
 class Jp2Image:
     """Parsed codestream + tier-2 state; decode() produces component
-    planes, int64 tensors on `device`."""
+    planes, int64 tensors on `device` ("cuda" by default; it raises
+    without a card unless the caller passes device="cpu")."""
 
-    def __init__(self, buf: bytes, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, buf: bytes, device="cuda"):
+        self.device = resolve_device(device)
         try:
             cs, self.meta = _extract_codestream(buf)
             self._parse_codestream(cs)

@@ -259,7 +259,7 @@ def replicate(mesh: Mesh, arr) -> np.ndarray:
 def sharded_transcode_step(mesh: Mesh, src_w: int, src_h: int, h2: bool,
                            v2: bool, dst_w: int, dst_h: int):
     """The fused JPEG Fit transcode of whole coefficient frames over the
-    mesh (the port's _fused_jpeg_fit_impl, AREA, upright, encode
+    mesh (the port's _jpeg_fit_stages, AREA, upright, encode
     coefficients). Returns step(yc, cb, cr, qt_y, qt_c, eqt_y, eqt_c) ->
     (yq, cbq, crq), the dp-ordered outputs of the batch's requests on the
     mesh's first device. yc, cb and cr are shard_batch placements; on a
@@ -268,7 +268,7 @@ def sharded_transcode_step(mesh: Mesh, src_w: int, src_h: int, h2: bool,
     4:2:0), or not split at all (dp only). The tables are replicate()
     placements, or shard_batch ones of per-image tables."""
     from .serving import jpeg_sp_geometry, shards_of_bounds, sp_jpeg_group
-    from ..pipeline import _fused_jpeg_fit_impl, _SlotOutputs
+    from ..pipeline import _jpeg_fit_stages, _SlotOutputs
     fx, fy = 1 + h2, 1 + v2
 
     def part(x, i, j):
@@ -296,10 +296,10 @@ def sharded_transcode_step(mesh: Mesh, src_w: int, src_h: int, h2: bool,
                      for j in range(len(shards))], enc, "coefs", False))
             else:
                 with slot_context(*slot):
-                    parts.append(_fused_jpeg_fit_impl(
+                    parts.append(_jpeg_fit_stages(
                         *[part(x, i, 0) for x in (yc, cb, cr, qt_y, qt_c)],
                         *enc, src_w=src_w, src_h=src_h, dst_w=dst_w,
-                        dst_h=dst_h, window=window, h2=h2, v2=v2))
+                        dst_h=dst_h, window=window, h2=h2, v2=v2).run())
             slots.append(slot)
         c = yc.per_slot
         return _SlotOutputs(parts, [max(0, min(c, yc.n - i * c))

@@ -101,7 +101,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -260,13 +260,26 @@ def _encode_or_pack(out, enc_qt_y, enc_qt_c, emit: str):
                                     enc_qt_c, subsample=True)
 
 
-def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
-                         src_w: int, src_h: int, dst_w: int, dst_h: int,
-                         window, h2: bool, v2: bool, orientation: int = 1,
-                         method: str = R.AREA, plain: bool = False,
-                         emit: str = "coefs"):
-    """(B, bh, bw, 64) coefficient batches -> quantized encode coefficients
-    (yq, cbq, crq): chroma_mode="rgb" (lilliput_tpu/pipeline.py:247-318).
+class _Stages(NamedTuple):
+    """A JPEG device step as its three stages, each a function of the
+    previous stage's output: decode() -> planes, resize(planes) -> the
+    resized planes, encode(resized) -> the step's outputs. run() chains
+    them, and is the step itself; utils.measure_device_stages times each
+    on the previous one's output."""
+    decode: Callable[[], object]
+    resize: Callable[[object], object]
+    encode: Callable[[object], tuple]
+
+    def run(self) -> tuple:
+        return self.encode(self.resize(self.decode()))
+
+
+def _jpeg_fit_stages(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
+                     src_w: int, src_h: int, dst_w: int, dst_h: int,
+                     window, h2: bool, v2: bool, orientation: int = 1,
+                     method: str = R.AREA, plain: bool = False,
+                     emit: str = "coefs") -> _Stages:
+    """chroma_mode="rgb" (lilliput_tpu/pipeline.py:247-318) as _Stages.
 
     Upright AREA (window = the host's decode window): the decode kernel
     writes raster u8 planes. 4:2:0 takes the block tail (:259-281): each
@@ -282,45 +295,59 @@ def _fused_jpeg_fit_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
     or packed to BGRA pixels (emit="pixels", a 1-tuple); the JAX
     function's interleaved (..., H, W, 3) resize is per channel, so each
     plane gives its channel's values. plain=True decodes with the plain
-    PyTorch versions of the kernels (for comparisons on the card)."""
+    PyTorch versions of the kernels (for comparisons on the card). The
+    decode stage is the decode kernel; the orientation and the crop
+    belong to the resize stage."""
+    def encode(out):
+        return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
+
     if orientation != 1:
-        planes = K.decode_ycc_420(yc, cb, cr, qt_y, qt_c, src_h, src_w, h2,
-                                  v2, plain=plain)
         left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h,
                                         orientation)
-        crops = [O.orient_planes(p, orientation)[..., top:top + h,
-                                                 left:left + w]
-                 for p in planes]
-        out = [_resize_cropped(p, dst_w, dst_h, method) for p in crops]
-        return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
+
+        def resize(planes):
+            crops = [O.orient_planes(p, orientation)[..., top:top + h,
+                                                     left:left + w]
+                     for p in planes]
+            return [_resize_cropped(p, dst_w, dst_h, method) for p in crops]
+        return _Stages(lambda: K.decode_ycc_420(
+            yc, cb, cr, qt_y, qt_c, src_h, src_w, h2, v2, plain=plain),
+            resize, encode)
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
     x0, y0, rw, rh = window
     if method != R.AREA:
-        planes = K.decode_ycc_420(yc, cb, cr, qt_y, qt_c, rh, rw, h2, v2,
-                                  plain=plain)
-        out = [_resize_cropped(p[..., top - y0:top - y0 + h,
-                                 left - x0:left - x0 + w], dst_w, dst_h,
-                               method) for p in planes]
-        return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
+        def resize(planes):
+            return [_resize_cropped(p[..., top - y0:top - y0 + h,
+                                      left - x0:left - x0 + w], dst_w,
+                                    dst_h, method) for p in planes]
+        return _Stages(lambda: K.decode_ycc_420(
+            yc, cb, cr, qt_y, qt_c, rh, rw, h2, v2, plain=plain),
+            resize, encode)
     if h2 and v2:
-        planes = K.decode_ycc_u8_plane_blocks(yc, cb, cr, qt_y, qt_c, True,
-                                              True, plain=plain)
         crop = (left - x0, top - y0)
+
+        def decode():
+            return K.decode_ycc_u8_plane_blocks(yc, cb, cr, qt_y, qt_c,
+                                                True, True, plain=plain)
     else:
-        planes = K.decode_ycc_planes(yc, cb, cr, qt_y, qt_c, rh, rw, h2, v2,
-                                     plain=plain)
-        if planes is not None:
-            planes = [p[..., top - y0:top - y0 + h, left - x0:left - x0 + w]
-                      for p in planes]
         crop = (0, 0)
-    if planes is None:
-        raise DecodingFailedError(
-            f"coefficient shapes {tuple(yc.shape)}/{tuple(cb.shape)} do "
-            f"not fit chroma sampling h2={h2} v2={v2}")
-    out = [torch.clamp(torch.round(R.resize_area_plane_embedded(
-        p, crop[0], w, dst_w, crop[1], h, dst_h)), 0, 255)
-        for p in planes]
-    return _encode_or_pack(out, enc_qt_y, enc_qt_c, emit)
+
+        def decode():
+            planes = K.decode_ycc_planes(yc, cb, cr, qt_y, qt_c, rh, rw, h2,
+                                         v2, plain=plain)
+            if planes is None:
+                raise DecodingFailedError(
+                    f"coefficient shapes {tuple(yc.shape)}/"
+                    f"{tuple(cb.shape)} do not fit chroma sampling "
+                    f"h2={h2} v2={v2}")
+            return [p[..., top - y0:top - y0 + h, left - x0:left - x0 + w]
+                    for p in planes]
+
+    def resize(planes):
+        return [torch.clamp(torch.round(R.resize_area_plane_embedded(
+            p, crop[0], w, dst_w, crop[1], h, dst_h)), 0, 255)
+            for p in planes]
+    return _Stages(decode, resize, encode)
 
 
 def _resize_cropped(plane, dst_w: int, dst_h: int, method: str):
@@ -353,68 +380,76 @@ def _resize_scaled(plane, dst_w: int, dst_h: int, scale_w: float,
         0, 255)
 
 
-def _fused_jpeg_fit_ycc_impl(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
-                             src_w: int, src_h: int, dst_w: int, dst_h: int,
-                             window, dct_scale: int = 1,
-                             emit: str = "coefs"):
-    """chroma_mode="direct" (lilliput_tpu/pipeline.py:321-419, JPEG out):
-    the planes never leave YCbCr. Luma is cropped and resized straight to
-    the output grid; each chroma plane is resampled ONCE at its native half
-    resolution to the output's 4:2:0 grid (general-position AREA matrices
-    absorb the half-pixel crop offset); no YCbCr<->BGR, triangle upsample
-    or 2x2 re-downsample. Needs 4:2:0, an upright source and even output
-    dims (the constructor's gate). dct_scale 2 or 4 decodes every plane at
-    1/2 or 1/4 scale from the top-left kxk coefficients (k = 8 //
-    dct_scale), which the host may have cut to those lanes. No decode
-    kernel runs: the IDCTs are torch matmuls, as the JAX package's XLA
-    dots (dequant_idct_u8, dequant_idct_scaled). emit="pixels" upsamples
-    the resampled chroma to the output grid (the decode's triangle filter)
-    and colour-converts there, to packed BGRA (a 1-tuple), with the JAX
-    function's fused multiply-adds written out
-    (jpeg_kernels.centered_ycc_to_bgr)."""
+def _jpeg_fit_ycc_stages(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
+                         src_w: int, src_h: int, dst_w: int, dst_h: int,
+                         window, dct_scale: int = 1,
+                         emit: str = "coefs") -> _Stages:
+    """chroma_mode="direct" (lilliput_tpu/pipeline.py:321-419, JPEG out)
+    as _Stages: the planes never leave YCbCr. Luma is cropped and resized
+    straight to the output grid; each chroma plane is resampled ONCE at its
+    native half resolution to the output's 4:2:0 grid (general-position
+    AREA matrices absorb the half-pixel crop offset); no YCbCr<->BGR,
+    triangle upsample or 2x2 re-downsample. Needs 4:2:0, an upright source
+    and even output dims (the constructor's gate). dct_scale 2 or 4
+    decodes every plane at 1/2 or 1/4 scale from the top-left kxk
+    coefficients (k = 8 // dct_scale), which the host may have cut to
+    those lanes. No decode kernel runs: the IDCTs (the decode stage) are
+    torch matmuls, as the JAX package's XLA dots (dequant_idct_u8,
+    dequant_idct_scaled). emit="pixels" upsamples the resampled chroma to
+    the output grid (the decode's triangle filter) and colour-converts
+    there, to packed BGRA (a 1-tuple), with the JAX function's fused
+    multiply-adds written out (jpeg_kernels.centered_ycc_to_bgr)."""
     left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
     x0, y0 = window[:2]
     tx, ty = left - x0, top - y0
     s = dct_scale
-    if s == 1:
-        y8 = K.dequant_idct_u8(yc, qt_y)
-        lin = dst_w > w or dst_h > h
-        dev = str(y8.device)
-        yr = torch.clamp(torch.round(R.resize_area_plane_mat(
-            y8, R._embedded_banded(y8.shape[-1], tx, w, dst_w, lin, dev),
-            R._embedded_banded(y8.shape[-2], ty, h, dst_h, lin, dev))),
-            0, 255)
-    else:
-        y = _scaled_plane(yc, qt_y, 8 // s)
-        yr = _resize_scaled(y, dst_w, dst_h, w / s / dst_w, tx / s,
-                            h / s / dst_h, ty / s)
 
-    def chroma(cplane):
-        p = (K.dequant_idct_u8(cplane, qt_c) if s == 1
-             else _scaled_plane(cplane, qt_c, 8 // s))
-        return _resize_scaled(p, dst_w // 2, dst_h // 2, w / s / dst_w,
-                              tx / (2 * s), h / s / dst_h, ty / (2 * s))
+    def decode():
+        if s == 1:
+            return (K.dequant_idct_u8(yc, qt_y), K.dequant_idct_u8(cb, qt_c),
+                    K.dequant_idct_u8(cr, qt_c))
+        return (_scaled_plane(yc, qt_y, 8 // s),
+                _scaled_plane(cb, qt_c, 8 // s),
+                _scaled_plane(cr, qt_c, 8 // s))
 
-    cbr, crr = chroma(cb), chroma(cr)
-    if emit == "pixels":
-        cbu = K.upsample_chroma(cbr, 2, 2, dst_h, dst_w) - 128.0
-        cru = K.upsample_chroma(crr, 2, 2, dst_h, dst_w) - 128.0
-        return (_pack_pixels(*K.centered_ycc_to_bgr(yr, cbu, cru)),)
-    ph = (dst_h + 15) // 16 * 16
-    pw = (dst_w + 15) // 16 * 16
-    return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),
-            K.fdct_quant(K._pad_to(cbr, ph // 2, pw // 2), enc_qt_c),
-            K.fdct_quant(K._pad_to(crr, ph // 2, pw // 2), enc_qt_c))
+    def resize(planes):
+        y, cbp, crp = planes
+        if s == 1:
+            lin = dst_w > w or dst_h > h
+            dev = str(y.device)
+            yr = torch.clamp(torch.round(R.resize_area_plane_mat(
+                y, R._embedded_banded(y.shape[-1], tx, w, dst_w, lin, dev),
+                R._embedded_banded(y.shape[-2], ty, h, dst_h, lin, dev))),
+                0, 255)
+        else:
+            yr = _resize_scaled(y, dst_w, dst_h, w / s / dst_w, tx / s,
+                                h / s / dst_h, ty / s)
+        return (yr,) + tuple(
+            _resize_scaled(p, dst_w // 2, dst_h // 2, w / s / dst_w,
+                           tx / (2 * s), h / s / dst_h, ty / (2 * s))
+            for p in (cbp, crp))
+
+    def encode(resized):
+        yr, cbr, crr = resized
+        if emit == "pixels":
+            cbu = K.upsample_chroma(cbr, 2, 2, dst_h, dst_w) - 128.0
+            cru = K.upsample_chroma(crr, 2, 2, dst_h, dst_w) - 128.0
+            return (_pack_pixels(*K.centered_ycc_to_bgr(yr, cbu, cru)),)
+        ph = (dst_h + 15) // 16 * 16
+        pw = (dst_w + 15) // 16 * 16
+        return (K.fdct_quant(K._pad_to(yr, ph, pw), enc_qt_y),
+                K.fdct_quant(K._pad_to(cbr, ph // 2, pw // 2), enc_qt_c),
+                K.fdct_quant(K._pad_to(crr, ph // 2, pw // 2), enc_qt_c))
+    return _Stages(decode, resize, encode)
 
 
-def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
-                              dst_w: int, dst_h: int, window,
-                              orientation: int = 1, method: str = R.AREA,
-                              dct_scale: int = 1, plain: bool = False,
-                              emit: str = "coefs"):
-    """(B, bh, bw, 64) luma coefficients -> quantized luma encode
-    coefficients (yq,), 1-component JPEG in and out (the JAX function,
-    lilliput_tpu/pipeline.py:422-478).
+def _jpeg_fit_gray_stages(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
+                          dst_w: int, dst_h: int, window,
+                          orientation: int = 1, method: str = R.AREA,
+                          dct_scale: int = 1, plain: bool = False,
+                          emit: str = "coefs") -> _Stages:
+    """1-component JPEG in and out (the JAX function,
+    lilliput_tpu/pipeline.py:422-478) as _Stages.
 
     Upright (window = the host's decode window): AREA at dct_scale 1 runs
     the IDCT with its u8 rounding as a torch matmul (dequant_idct_u8, as
@@ -429,31 +464,38 @@ def _fused_jpeg_fit_gray_impl(yc, qt_y, enc_qt_y, src_w: int, src_h: int,
     1-tuple). plain=True decodes with the kernel's plain PyTorch
     version."""
     s = dct_scale
-    if orientation == 1:
-        left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
-        x0, y0 = window[:2] if window is not None else (0, 0)
-        tx, ty = left - x0, top - y0
-        if s == 1 and method != R.AREA:
-            y8 = K.dequant_idct_u8(yc, qt_y)
-            yr = _resize_cropped(y8[..., ty:ty + h, tx:tx + w], dst_w, dst_h,
-                                 method)
-        elif s == 1:
-            y8 = K.dequant_idct_u8(yc, qt_y)
-            yr = torch.clamp(torch.round(R.resize_area_plane_embedded(
-                y8, tx, w, dst_w, ty, h, dst_h)), 0, 255)
-        else:
-            yr = _resize_scaled(_scaled_plane(yc, qt_y, 8 // s), dst_w,
-                                dst_h, w / s / dst_w, tx / s, h / s / dst_h,
-                                ty / s)
-    else:
-        gray = O.orient_planes(K.decode_gray(yc, qt_y, src_h, src_w, plain),
-                               orientation)
+
+    def encode(yr):
+        return _gray_out(yr, enc_qt_y, dst_w, dst_h, emit)
+
+    if orientation != 1:
         left, top, w, h = _oriented_fit(src_w, src_h, dst_w, dst_h,
                                         orientation)
-        cropped = gray[..., top:top + h, left:left + w, None]
-        yr = R.resize(cropped, dst_w, dst_h, method)[..., 0].to(
-            torch.float32)
-    return _gray_out(yr, enc_qt_y, dst_w, dst_h, emit)
+
+        def resize(gray):
+            cropped = O.orient_planes(gray, orientation)[
+                ..., top:top + h, left:left + w, None]
+            return R.resize(cropped, dst_w, dst_h, method)[..., 0].to(
+                torch.float32)
+        return _Stages(lambda: K.decode_gray(yc, qt_y, src_h, src_w, plain),
+                       resize, encode)
+    left, top, w, h = fit_rect(src_w, src_h, dst_w, dst_h)
+    x0, y0 = window[:2] if window is not None else (0, 0)
+    tx, ty = left - x0, top - y0
+    if s != 1:
+        return _Stages(
+            lambda: _scaled_plane(yc, qt_y, 8 // s),
+            lambda y: _resize_scaled(y, dst_w, dst_h, w / s / dst_w, tx / s,
+                                     h / s / dst_h, ty / s), encode)
+    if method != R.AREA:
+        def resize(y8):
+            return _resize_cropped(y8[..., ty:ty + h, tx:tx + w], dst_w,
+                                   dst_h, method)
+    else:
+        def resize(y8):
+            return torch.clamp(torch.round(R.resize_area_plane_embedded(
+                y8, tx, w, dst_w, ty, h, dst_h)), 0, 255)
+    return _Stages(lambda: K.dequant_idct_u8(yc, qt_y), resize, encode)
 
 
 def _gray_out(yr, enc_qt_y, dst_w: int, dst_h: int, emit: str):
@@ -1243,27 +1285,35 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         """device_step's dense stages on tensors already on one device:
         dev is (ys, qty) for grayscale, else (ys, cbs, crs, qty, qtc), and
         enc the (luma, chroma) encode tables on the same device."""
+        return self.device_stages(dev, enc, plain).run()
+
+    def device_stages(self, dev, enc, plain: bool = False) -> _Stages:
+        """_dense_step as its decode, resize and encode stages (_Stages),
+        on the tensors _dense_step takes; the encode stage ends with the
+        emit (the yuv420 planes of lossy WebP output)."""
         g = self.geom
         emit = self._emit
         fused = _fused_emit(emit)
         if self.ncomp == 1:
-            return _emit_post(_fused_jpeg_fit_gray_impl(
+            stages = _jpeg_fit_gray_stages(
                 dev[0], dev[1], enc[0], src_w=g.width, src_h=g.height,
                 dst_w=self.dst_w, dst_h=self.dst_h,
                 window=self.window_static, orientation=self.orientation,
                 method=self.method, dct_scale=self.dct_scale, plain=plain,
-                emit=fused), emit)
-        args = tuple(dev) + tuple(enc)
-        if self.chroma_mode == "direct":
-            return _emit_post(_fused_jpeg_fit_ycc_impl(
-                *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
+                emit=fused)
+        elif self.chroma_mode == "direct":
+            stages = _jpeg_fit_ycc_stages(
+                *dev, *enc, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
                 dst_h=self.dst_h, window=self.window_static,
-                dct_scale=self.dct_scale, emit=fused), emit)
-        return _emit_post(_fused_jpeg_fit_impl(
-            *args, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
-            dst_h=self.dst_h, window=self.window_static, h2=g.h2, v2=g.v2,
-            orientation=self.orientation, method=self.method, plain=plain,
-            emit=fused), emit)
+                dct_scale=self.dct_scale, emit=fused)
+        else:
+            stages = _jpeg_fit_stages(
+                *dev, *enc, src_w=g.width, src_h=g.height, dst_w=self.dst_w,
+                dst_h=self.dst_h, window=self.window_static, h2=g.h2,
+                v2=g.v2, orientation=self.orientation, method=self.method,
+                plain=plain, emit=fused)
+        return stages._replace(
+            encode=lambda x: _emit_post(stages.encode(x), emit))
 
     # -- end to end --------------------------------------------------------------
 

@@ -2,7 +2,10 @@ import torch
 
 from .metrics import Metrics, StageClock, StageTimer, metrics  # noqa: F401
 from .logging import get_logger  # noqa: F401
-from .profiling import device_trace, measure_device_stages  # noqa: F401
+from .profiling import (RecordsDropped, TraceRecords,  # noqa: F401
+                        device_trace, measure_device_stages,
+                        profile_complete, trace_records,
+                        unmatched_launches)
 
 
 def resolve_device(device) -> torch.device:

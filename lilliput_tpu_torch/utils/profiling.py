@@ -4,9 +4,14 @@ The counterpart of ``lilliput_tpu/utils/profiling.py`` in torch's idiom:
 
 * ``device_trace`` records the enclosed work with ``torch.profiler`` (CPU
   activity, and CUDA activity where a card is) and writes a Chrome trace
-  under its directory, viewable in Perfetto or ``chrome://tracing``.
+  under its directory, viewable in Perfetto or ``chrome://tracing``, with
+  the count of its device records against its kernel launches and
+  copies (``trace_records``) after a burn-in; ``profile_complete`` runs a
+  function in sessions until one keeps a record of every one.
 * ``measure_device_stages`` splits a JpegTranscodePipeline's device step
-  into decode, full step, dispatch and fetch times and records them as
+  into decode, resize, encode, full step, dispatch and fetch times (the
+  counterpart of the JAX package's tools/profile_stages.py split and of
+  its utils.profiling function) and records them as
   ``device.*`` stages in the metrics registry, the device-side complement
   to the host stage times ``transcode`` records. On a card CUDA events
   time every stage, recorded after the last op of the stage has been
@@ -19,21 +24,215 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import tempfile
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 from .metrics import Metrics, metrics
 
 
+#: the record_function window around a session's work: only the launches
+#: inside it are counted (the burn-in before it is not)
+WINDOW = "lilliput.profiled"
+#: one-element kernels a session runs, synchronized, before its work
+BURN_IN = 64
+
+
+class TraceRecords(NamedTuple):
+    """A torch.profiler session's device records against the calls it
+    recorded on the host: kernel records against kernel launches, and
+    memcpy/memset records against cudaMemcpy*/cudaMemset* calls. On the
+    H100 machine a session opened late in a long process may keep fewer
+    records than calls: it lost its first device records
+    (tools/torch_profiler_drops.py), kernels or copies, so no busy share
+    or event count may be read from it."""
+    kernels: int
+    launches: int
+    copies: int = 0
+    copy_calls: int = 0
+
+    @property
+    def complete(self) -> bool:
+        return self.kernels >= self.launches and \
+            self.copies >= self.copy_calls
+
+    def __str__(self) -> str:
+        return (f"{self.kernels} kernel records of {self.launches} "
+                f"launches, {self.copies} copy records of "
+                f"{self.copy_calls} copies")
+
+
+class RecordsDropped(RuntimeError):
+    """Every torch.profiler session tried dropped device records."""
+
+
+#: device record categories, and the runtime calls each answers
+_KERNEL, _COPY = ("kernel",), ("gpu_memcpy", "gpu_memset")
+
+
+def _is_copy_call(name: str) -> bool:
+    return "Memcpy" in name or "Memset" in name
+
+
+def _window_calls(events, window: Optional[str]):
+    """The kernel launches and the memcpy/memset calls recorded on the
+    host (cuda_runtime events), those inside the record_function `window`
+    where one is named: (launches, copy calls)."""
+    lo, hi = -float("inf"), float("inf")
+    if window is not None:
+        spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("name") == window
+                 and e.get("cat") == "user_annotation"]
+        if spans:
+            lo, hi = min(a for a, _ in spans), max(b for _, b in spans)
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and lo <= e.get("ts", 0) <= hi]
+    return ([e for e in calls if "LaunchKernel" in e.get("name", "")],
+            [e for e in calls if _is_copy_call(e.get("name", ""))])
+
+
+def _correlations(events, cats):
+    return {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") in cats}
+
+
+def trace_records(events, window: Optional[str] = None) -> TraceRecords:
+    """Count a Chrome trace's events (its "traceEvents"): the kernel
+    launches and memcpy/memset calls recorded on the host, inside the
+    record_function `window` where one is named, and the device records
+    correlated with one of them (kernels with launches, as
+    tools/torch_profiler_drops.py counts them, and copies with copy
+    calls)."""
+    launches, copies = (
+        {e["args"]["correlation"] for e in calls}
+        for calls in _window_calls(events, window))
+    return TraceRecords(len(_correlations(events, _KERNEL) & launches),
+                        len(launches),
+                        len(_correlations(events, _COPY) & copies),
+                        len(copies))
+
+
+def unmatched_launches(events, window: Optional[str] = None):
+    """'call at ts (inside cpu op)' of each kernel launch and copy call
+    of trace_records' count that has no device record."""
+    launches, copies = _window_calls(events, window)
+    recorded = (_correlations(events, _KERNEL), _correlations(events, _COPY))
+    ops = [e for e in events if e.get("cat") == "cpu_op" and "dur" in e]
+    out = []
+    for calls, seen in zip((launches, copies), recorded):
+        for e in calls:
+            if e["args"]["correlation"] in seen:
+                continue
+            ts = e.get("ts", 0)
+            inner = [o for o in ops if o["ts"] <= ts <= o["ts"] + o["dur"]]
+            op = min(inner, key=lambda o: o["dur"])["name"] if inner else "-"
+            out.append(f"{e['name']} at {ts} (in {op})")
+    return out
+
+
+def session_events(prof, log_dir: Optional[str] = None):
+    """(path, events) of a finished torch.profiler session's Chrome trace
+    (a session exports its trace once): written to
+    <log_dir>/lilliput_<pid>_<ns>.pt.trace.json where log_dir is given,
+    else through a file in the temporary directory that is removed (path
+    None)."""
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(
+            log_dir, f"lilliput_{os.getpid()}_{time.time_ns()}.pt.trace.json")
+    else:
+        fd, path = tempfile.mkstemp(suffix=".pt.trace.json")
+        os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return (path if log_dir is not None else None,
+                    json.load(f)["traceEvents"])
+    finally:
+        if log_dir is None:
+            os.remove(path)
+
+
+def _activities():
+    import torch
+    from torch.profiler import ProfilerActivity
+    if torch.cuda.is_available():
+        return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    return [ProfilerActivity.CPU]
+
+
+def _burn_in() -> None:
+    """A session's first work on a card: BURN_IN one-element kernels,
+    synchronized. A session opened late in a long process may drop its
+    first device records, up to 34 of them on the H100 machine; after a
+    burn-in of 64 it kept every record of the work in every session tried
+    (tools/torch_profiler_drops.py). The sessions are counted all the
+    same."""
+    import torch
+    if torch.cuda.is_available():
+        x = torch.zeros(1, device="cuda")
+        for _ in range(BURN_IN):
+            x.add_(1)
+        torch.cuda.synchronize()
+
+
 @dataclasses.dataclass
 class DeviceTrace:
-    """What device_trace yields: its directory, the torch profiler (for
-    key_averages() and events()), and the trace file, set on exit."""
-    log_dir: str
+    """A traced session: its directory, the torch profiler (for
+    key_averages() and events()), and, once the session ends, the trace
+    file, its TraceRecords of the launches and copies inside the
+    session's window (check records.complete before reading counts or
+    busy shares from it), and unmatched_launches' list of the calls
+    without a device record."""
+    log_dir: Optional[str]
     profile: object = None
     path: Optional[str] = None
+    records: Optional[TraceRecords] = None
+    missing: Optional[list] = None
+
+    def _finish(self, prof) -> None:
+        self.profile = prof
+        self.path, events = session_events(prof, self.log_dir)
+        self.records = trace_records(events, WINDOW)
+        self.missing = unmatched_launches(events, WINDOW)
+
+
+def profile_complete(fn, attempts: int = 2,
+                     log_dir: Optional[str] = None) -> DeviceTrace:
+    """Run fn() in a torch.profiler session opened as device_trace opens
+    it (a burn-in, then fn in the WINDOW record_function), and return the
+    DeviceTrace of the first session that kept a device record of every
+    kernel launch and copy in the window; its trace is written to log_dir
+    as device_trace writes its own where log_dir is given (path None
+    otherwise). A session that dropped records is thrown away (its trace
+    file too) and fn runs again in a fresh one, up to `attempts` sessions
+    in all; then RecordsDropped names each session's counts and the last
+    one's calls without a record."""
+    import torch
+    from torch.profiler import profile, record_function
+    seen, missing = [], []
+    for _ in range(attempts):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        with profile(activities=_activities()) as prof:
+            _burn_in()
+            with record_function(WINDOW):
+                fn()
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+        trace = DeviceTrace(log_dir)
+        trace._finish(prof)
+        if trace.records.complete:
+            return trace
+        if trace.path is not None:
+            os.remove(trace.path)
+        seen.append(trace.records)
+        missing = trace.missing
+    raise RecordsDropped(
+        "torch.profiler dropped device records in every session: " +
+        "; ".join(map(str, seen)) + f"; without a record: {missing[:8]}")
 
 
 @contextlib.contextmanager
@@ -43,45 +242,34 @@ def device_trace(log_dir: Optional[str] = None):
     defaults to lilliput_trace in the temporary directory. Yields a
     DeviceTrace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile, record_function
     if log_dir is None:
         log_dir = os.path.join(tempfile.gettempdir(), "lilliput_trace")
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
     trace = DeviceTrace(log_dir)
-    with profile(activities=activities) as prof:
-        if torch.cuda.is_available():
-            # a synchronized op first: on the H100 machine a session opened
-            # in a process that has run for minutes may drop its first
-            # device records; this made it rarer there, not impossible
-            # (tools/torch_profiler_drops.py)
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
+    with profile(activities=_activities()) as prof:
+        _burn_in()
         trace.profile = prof
-        yield trace
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    trace.path = os.path.join(
-        log_dir, f"lilliput_{os.getpid()}_{time.time_ns()}.pt.trace.json")
-    prof.export_chrome_trace(trace.path)
+        with record_function(WINDOW):
+            yield trace
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    trace._finish(prof)
 
 
-def _stage_ms(fn, cuda: bool) -> float:
-    """The ms of fn(): CUDA events around it on a card, the host clock
-    elsewhere."""
+def _stage_ms(fn, cuda: bool):
+    """(ms, output) of fn(): CUDA events around it on a card, recorded
+    after fn has queued its last op, the host clock elsewhere."""
     if cuda:
         import torch
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        fn()
+        res = fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end)
+        return start.elapsed_time(end), res
     t0 = time.perf_counter()
-    fn()
-    return 1e3 * (time.perf_counter() - t0)
+    res = fn()
+    return 1e3 * (time.perf_counter() - t0), res
 
 
 def measure_device_stages(pipe, bufs: Sequence[bytes], iters: int = 3,
@@ -89,17 +277,23 @@ def measure_device_stages(pipe, bufs: Sequence[bytes], iters: int = 3,
     """Per-stage device timing of a JpegTranscodePipeline batch.
 
     After a warm call, the minimum over `iters` calls of each stage feeds
-    the ``device.decode``, ``device.full_step``, ``device.dispatch`` and
-    ``device.fetch`` reservoirs of the registry (seconds, as the JAX
-    package records them), and the returned dict holds "batch" and
-    "decode_ms", "full_step_ms", "dispatch_ms", "fetch_ms".
+    the ``device.decode``, ``device.resize``, ``device.encode``,
+    ``device.full_step``, ``device.dispatch`` and ``device.fetch``
+    reservoirs of the registry (seconds, as the JAX package records
+    them), and the returned dict holds "batch" and the "<stage>_ms" of
+    each.
 
-    decode: the pipeline's decode route on coefficients already on the
-    device: the layout's decode kernel (decode_kernels.decode4xx through
-    jpeg_kernels.decode_ycc_420) for colour pipelines, dequant_idct (the
-    dequant_idct_blocks kernel on a card) for grayscale; chroma_mode
-    "direct" reports the full step and fetch only (its decode is the
-    fused resample), as the JAX function does.
+    decode, resize, encode: the pipeline's own step, split by
+    JpegTranscodePipeline.device_stages, on the batch's inputs already on
+    the device, each stage on the output of the one before: decode is the
+    layout's decode kernel (decode420/422/440/444, dequant_idct_blocks for
+    oriented grayscale), or the IDCTs as torch matmuls (upright grayscale,
+    chroma_mode "direct" at every dct_scale); resize the orientation, crop
+    and resize; encode the colour conversion, 4:2:0 downsample and
+    fDCT/quantization, or the pixel pack (and the yuv420 emit) of .png and
+    .webp output. Chained, they are device_step's work after its uploads.
+    The JAX function reports no decode for chroma_mode "direct";
+    this one reports its IDCTs.
     full_step: device_step from the call, through _fetch and _to_host of
     its outputs; dispatch is the part until device_step returns and fetch
     the rest. On a card the three are CUDA events recorded at the call,
@@ -107,8 +301,6 @@ def measure_device_stages(pipe, bufs: Sequence[bytes], iters: int = 3,
     and after the D2H copies, so dispatch is the step's device time,
     uploads included, and fetch the copies'."""
     import torch
-
-    from ..ops import jpeg_kernels as K
 
     reg = registry if registry is not None else metrics
     cuda = pipe.device.type == "cuda"
@@ -121,18 +313,15 @@ def measure_device_stages(pipe, bufs: Sequence[bytes], iters: int = 3,
 
     def timed(name, fn):
         fn()    # warm
-        record(name, min(_stage_ms(fn, cuda) for _ in range(iters)))
+        runs = [_stage_ms(fn, cuda) for _ in range(iters)]
+        record(name, min(ms for ms, _ in runs))
+        return runs[-1][1]
 
-    g = pipe.geom
-    if pipe.ncomp == 1:
-        ys, qty = (pipe._to_device(a) for a in coefs)
-        timed("decode", lambda: K.dequant_idct(ys, qty))
-    elif pipe.chroma_mode != "direct":
-        ys, cbs, crs, qty, qtc = (pipe._to_device(a) for a in coefs)
-        rh = min(ys.shape[-3] * 8, cbs.shape[-3] * 16)
-        rw = min(ys.shape[-2] * 8, cbs.shape[-2] * 16)
-        timed("decode", lambda: K.decode_ycc_420(ys, cbs, crs, qty, qtc, rh,
-                                                 rw, g.h2, g.v2))
+    stages = pipe.device_stages([pipe._to_device(a) for a in coefs],
+                                (pipe.enc_qt_y, pipe.enc_qt_c))
+    planes = timed("decode", stages.decode)
+    resized = timed("resize", lambda: stages.resize(planes))
+    timed("encode", lambda: stages.encode(resized))
 
     def full_step():
         if cuda:

@@ -571,3 +571,196 @@ def test_missing_ffmpeg_raises_and_nothing_falls_back(monkeypatch):
         [anim, anim], return_exceptions=True)
     assert all(isinstance(r, HostLibraryMissingError) for r in res)
     assert not issubclass(HostLibraryMissingError, NotImplementedError)
+
+
+# -- ROADMAP queue 3 entry 23: ADVICE.md's AVIF parser findings -----------------
+
+
+def _box_iter(buf: bytes, s: int, e: int):
+    """(type, start, end) of the boxes in buf[s:e] (32-bit sizes)."""
+    i = s
+    while i + 8 <= e:
+        size = struct.unpack(">I", buf[i:i + 4])[0]
+        yield buf[i + 4:i + 8], i, i + size
+        i += size
+
+
+def _box(buf: bytes, s: int, e: int, kind: bytes):
+    return next((b for b in _box_iter(buf, s, e) if b[0] == kind), None)
+
+
+def _stbl(buf: bytes, track: int):
+    """(minf, stbl) spans of the track-th trak of the fixture's moov."""
+    moov = _box(buf, 0, len(buf), b"moov")
+    trak = [b for b in _box_iter(buf, moov[1] + 8, moov[2])
+            if b[0] == b"trak"][track]
+    mdia = _box(buf, trak[1] + 8, trak[2], b"mdia")
+    minf = _box(buf, mdia[1] + 8, mdia[2], b"minf")
+    return minf, _box(buf, minf[1] + 8, minf[2], b"stbl")
+
+
+def _full(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 12 + len(payload)) + kind + bytes(4) + payload
+
+
+def _track_table(buf: bytes, track: int, offsets, stsc, sizes=None) -> bytes:
+    """buf with the track's chunk offsets (stco), sample-to-chunk entries
+    (stsc) and, where given, sample sizes (stsz) replaced. The minf keeps
+    its size (its vmhd and dinf, which no parser reads, give way to the
+    larger tables and a free box), so no other offset in the file moves."""
+    (_, m0, m1), (_, s0, s1) = _stbl(buf, track)
+    new = {b"stco": _full(b"stco", struct.pack(f">I{len(offsets)}I",
+                                               len(offsets), *offsets)),
+           b"stsc": _full(b"stsc", struct.pack(">I", len(stsc)) + b"".join(
+               struct.pack(">III", *e) for e in stsc))}
+    if sizes is not None:
+        new[b"stsz"] = _full(b"stsz", struct.pack(f">II{len(sizes)}I", 0,
+                                                  len(sizes), *sizes))
+    body = b"".join(new.get(k, buf[a:b]) for k, a, b in
+                    _box_iter(buf, s0 + 8, s1))
+    stbl = struct.pack(">I", 8 + len(body)) + b"stbl" + body
+    pad = (m1 - m0 - 8) - len(stbl)
+    assert pad >= 8
+    minf = (buf[m0:m0 + 8] + struct.pack(">I", pad) + b"free" + bytes(pad - 8)
+            + stbl)
+    return buf[:m0] + minf + buf[m1:]
+
+
+def _samples(buf: bytes, track: int):
+    """(chunk offset, sizes) of the fixture's one-chunk track."""
+    _, (_, s0, s1) = _stbl(buf, track)
+    stco = _box(buf, s0 + 8, s1, b"stco")
+    stsz = _box(buf, s0 + 8, s1, b"stsz")
+    off = struct.unpack(">I", buf[stco[1] + 16:stco[1] + 20])[0]
+    n = struct.unpack(">I", buf[stsz[1] + 16:stsz[1] + 20])[0]
+    return off, list(struct.unpack(f">{n}I",
+                                   buf[stsz[1] + 20:stsz[1] + 20 + 4 * n]))
+
+
+def _downgraded() -> bytes:
+    """Finding 1: the colour track's first sample size past the buffer, so
+    parse_tracks raises, while the still meta keeps its ispe."""
+    buf = bytearray(fixture("anim_4f_48x40.avif"))
+    _, (_, s0, s1) = _stbl(bytes(buf), 0)
+    stsz = _box(bytes(buf), s0 + 8, s1, b"stsz")
+    buf[stsz[1] + 20:stsz[1] + 24] = struct.pack(">I", 0x7FFFFFFF)
+    return bytes(buf)
+
+
+def _stsc_unsorted() -> bytes:
+    """Finding 2: the colour samples in three chunks (1, 1 and 2 samples)
+    whose stsc entries run (1, 1), (3, 2), (2, 1): first_chunk out of
+    order."""
+    buf = fixture("anim_4f_48x40.avif")
+    off, sizes = _samples(buf, 0)
+    starts = [off + sum(sizes[:k]) for k in range(3)]
+    return _track_table(buf, 0, starts, [(1, 1, 1), (3, 2, 1), (2, 1, 1)])
+
+
+def _zero_width() -> bytes:
+    """Finding 4: the colour sample entry's 16-bit width reads 0."""
+    buf = bytearray(fixture("anim_4f_48x40.avif"))
+    _, (_, s0, s1) = _stbl(bytes(buf), 0)
+    stsd = _box(bytes(buf), s0 + 8, s1, b"stsd")
+    av01 = stsd[1] + 16
+    assert buf[av01 + 4:av01 + 8] == b"av01"
+    buf[av01 + 32:av01 + 34] = bytes(2)
+    return bytes(buf)
+
+
+def _alpha_without_frame() -> bytes:
+    """Finding 3: the alpha track's second sample is the first sample's
+    12-byte sequence header OBU alone, a temporal unit that yields no
+    frame, while the colour track yields one per sample."""
+    buf = fixture("anim_4f_48x40.avif")
+    off, sizes = _samples(buf, 1)
+    assert buf[off:off + 2] == b"\x0a\x0a"     # OBU_SEQUENCE_HEADER, 10 B
+    starts = [off, off] + [off + sum(sizes[:k]) for k in (2, 3)]
+    return _track_table(buf, 1, starts, [(1, 1, 1)],
+                        [sizes[0], 12] + sizes[2:])
+
+
+ENTRY23 = {"downgrade": _downgraded, "stsc_unsorted": _stsc_unsorted,
+           "pairing": _alpha_without_frame, "zero_width": _zero_width}
+
+
+@pytest.mark.parametrize("name", list(ENTRY23))
+def test_entry23_parsers_equal_jax(name):
+    """The hostile tables parse to the same tracks, or raise the same
+    error class, in both packages."""
+    buf = ENTRY23[name]()
+
+    def tracks(p):
+        r = p(buf)
+        return None if r is None else [
+            None if x is None else (x.samples, x.av1c, x.width, x.height)
+            for x in r]
+    t = _outcome(lambda b: tracks(TAR.parse_tracks), buf)
+    assert t == _outcome(lambda b: tracks(JAR.parse_tracks), buf)
+    want = {"downgrade": ("raised", "InvalidImageError"),
+            "stsc_unsorted": None, "pairing": None, "zero_width": None}
+    if want[name]:
+        assert t == want[name]
+    elif name == "stsc_unsorted":
+        # the last entry with first_chunk <= chunk wins: chunk 3 gets one
+        # sample, not two, and the fourth sample is never read
+        assert len(t[1][0][0]) == 3 and len(t[1][1][0]) == 4
+    elif name == "zero_width":
+        assert t[1][0][2:] == (0, 40)
+    else:
+        assert [len(s) for s in t[1][1][0]][:2] == [27, 12]
+
+
+def _frames_until_error(pkg: str, buf: bytes):
+    """(header fields, the frames decode_to gave, the first error as
+    'Class: message' or None) through the JAX package or the port."""
+    if pkg == "jax":
+        d, fb_cls = JA.AvifDecoder(buf), JFramebuffer
+    else:
+        d, fb_cls = TA.AvifDecoder(buf, device="cpu"), Framebuffer
+    h = d.header()
+    frames, err = [], None
+    for _ in range(h.num_frames):
+        fb = fb_cls()
+        try:
+            d.decode_to(fb)
+        except Exception as e:  # noqa: BLE001 -- compared across packages
+            err = f"{type(e).__name__}: {e}"
+            break
+        frames.append(np.asarray(fb.to_numpy()).copy())
+    d.close()
+    return (h.width, h.height, h.channels, h.num_frames), frames, err
+
+
+@needs_ffmpeg
+@pytest.mark.parametrize("name", list(ENTRY23))
+def test_entry23_decodes_equal_jax(name):
+    """Header, frames and the first error of each hostile input equal the
+    JAX package's: the port reproduces each finding (queue 3 entry 23)."""
+    buf = ENTRY23[name]()
+    header, frames, err = _frames_until_error("port", buf)
+    jheader, jframes, jerr = _frames_until_error("jax", buf)
+    assert (header, err) == (jheader, jerr)
+    assert len(frames) == len(jframes)
+    for a, b in zip(frames, jframes):
+        np.testing.assert_array_equal(a, b)
+    clean = _frames_until_error("port", fixture("anim_4f_48x40.avif"))[1]
+    if name == "downgrade":
+        # a 1-frame still from the meta's ispe, without the alpha track:
+        # the animation is lost, and no error says so
+        assert (header, len(frames), err) == ((48, 40, 3, 1), 1, None)
+    elif name == "stsc_unsorted":
+        # three frames, the source's first three; the fourth is dropped
+        assert (header, len(frames), err) == ((48, 40, 4, 3), 3, None)
+        assert all(np.array_equal(a, b) for a, b in zip(frames, clean))
+    elif name == "zero_width":
+        # the native walk gives up its geometry and PIL (libavif) decodes
+        assert (header, len(frames), err) == ((48, 40, 4, 4), 4, None)
+    else:
+        # the alpha FIFO runs one frame behind the colour one: frame 2
+        # takes sample 3's alpha without an error, then the alpha stream
+        # runs dry and frame 3 takes the PIL route, where libavif fails
+        assert header == (48, 40, 4, 4) and len(frames) == 3
+        assert np.array_equal(frames[2][..., :3], clean[2][..., :3])
+        assert not np.array_equal(frames[2][..., 3], clean[2][..., 3])
+        assert err.startswith("RuntimeError: Failed to decode frame 3")

@@ -291,7 +291,7 @@ def _enc_stream(name):
 def test_decode_equals_jax_on_encoder_streams(name):
     b, img = _enc_stream(name)
     got = _assert_same(b)
-    planes = TD.Jp2Image(b).decode()
+    planes = TD.Jp2Image(b, device="cpu").decode()
     for p, q in zip(planes, JD.Jp2Image(b).decode()):
         assert p.dtype == torch.int64
         np.testing.assert_array_equal(p.numpy(), q)
@@ -364,7 +364,7 @@ def test_tiles_of_one_geometry_are_one_stack():
     row's 6 and the corner's 3 as three more; the pixels equal the JAX
     package's."""
     b = JE.encode_jp2(_img(100, 90, 3, 11), tile=(32, 32), levels=2)
-    img = TD.Jp2Image(b)
+    img = TD.Jp2Image(b, device="cpu")
     seen = []
     orig = TD.Jp2Image._synthesize
 
