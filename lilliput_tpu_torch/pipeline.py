@@ -114,7 +114,8 @@ from .ops import jpeg_kernels as K
 from .ops import orient as O
 from .ops import palette as P
 from .ops import resize as R
-from .utils import StageClock, resolve_device
+from .utils import (ProfilerRange, StageClock, StageTimer, WorkerClock,
+                    metrics, resolve_device)
 
 _i16p = ctypes.POINTER(ctypes.c_int16)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -264,14 +265,21 @@ class _Stages(NamedTuple):
     """A JPEG device step as its three stages, each a function of the
     previous stage's output: decode() -> planes, resize(planes) -> the
     resized planes, encode(resized) -> the step's outputs. run() chains
-    them, and is the step itself; utils.measure_device_stages times each
-    on the previous one's output."""
+    them, and is the step itself, each stage a profiler range
+    (lilliput.device.decode, .resize, .encode) while a torch.profiler
+    session records; utils.measure_device_stages times each on the
+    previous one's output."""
     decode: Callable[[], object]
     resize: Callable[[object], object]
     encode: Callable[[object], tuple]
 
     def run(self) -> tuple:
-        return self.encode(self.resize(self.decode()))
+        with ProfilerRange("device.decode"):
+            planes = self.decode()
+        with ProfilerRange("device.resize"):
+            resized = self.resize(planes)
+        with ProfilerRange("device.encode"):
+            return self.encode(resized)
 
 
 def _jpeg_fit_stages(yc, cb, cr, qt_y, qt_c, enc_qt_y, enc_qt_c,
@@ -696,8 +704,10 @@ class _ServingPipelineBase:
 
         Color pipelines take (yq, cbq, crq); grayscale just (yq,). The
         encoder releases the GIL (ctypes), so encode scales across host
-        cores; each worker owns its output buffer. iccs: per-image ICC
-        profiles to embed, so colour profiles survive the transcode."""
+        cores; each worker thread owns its output buffer. iccs: per-image ICC
+        profiles to embed, so colour profiles survive the transcode. The
+        workers' summed wall and CPU time go to the caller's open span
+        (utils.WorkerClock)."""
         w, h = self.dst_w, self.dst_h
         yb = ((h + 7) // 8, (w + 7) // 8)
         cbb = ((h + 15) // 16, (w + 15) // 16)
@@ -710,9 +720,12 @@ class _ServingPipelineBase:
         if iccs is not None:
             cap += max((len(p or b"") for p in iccs), default=0) + (1 << 12)
 
-        def one(i: int, out_buf=None):
+        tls = threading.local()
+
+        def one(i: int):
+            out_buf = getattr(tls, "buf", None)
             if out_buf is None:
-                out_buf = np.empty(cap, np.uint8)
+                out_buf = tls.buf = np.empty(cap, np.uint8)
             comps = [np.ascontiguousarray(yq[i][:yb[0], :yb[1]])]
             if not gray:
                 comps += [np.ascontiguousarray(a[i][:cbb[0], :cbb[1]])
@@ -724,15 +737,7 @@ class _ServingPipelineBase:
                 optimize=opt, icc=(iccs[i] if iccs is not None else b"")
                 or b"", out=out_buf)
 
-        n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
-        if n_workers <= 1 or b <= 1:
-            buf = np.empty(cap, np.uint8)
-            for i in range(b):
-                one(i, buf)
-        else:
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(n_workers) as ex:
-                list(ex.map(one, range(b)))
+        _timed_tmap(one, b, workers)
         return outs  # type: ignore[return-value]
 
     def _webp_options(self) -> dict:
@@ -772,8 +777,7 @@ class _ServingPipelineBase:
             else:
                 outs[i] = encode_png_pixels(px, level, icc)
 
-        _tmap(one, range(b), workers if workers is not None
-              else min(8, os.cpu_count() or 1))
+        _timed_tmap(one, b, workers)
         return outs  # type: ignore[return-value]
 
     def encode_yuv(self, y: np.ndarray, u: np.ndarray, v: np.ndarray,
@@ -791,8 +795,7 @@ class _ServingPipelineBase:
             icc = (iccs[i] if iccs is not None else b"") or None
             outs[i] = encode_webp_yuv(y[i], u[i], v[i], opts, icc)
 
-        _tmap(one, range(b), workers if workers is not None
-              else min(8, os.cpu_count() or 1))
+        _timed_tmap(one, b, workers)
         return outs  # type: ignore[return-value]
 
     def _encode_outputs(self, arrs: Sequence[np.ndarray],
@@ -816,7 +819,6 @@ class _ServingPipelineBase:
         requests' work."""
         if not errors:
             return out
-        from .utils import metrics
         metrics.incr("serving.poison_isolated", len(errors))
         if not return_exceptions:
             raise errors[min(errors)]
@@ -882,6 +884,25 @@ class _ServingPipelineBase:
             event.synchronize()
         return fetch.arrays
 
+    def _decode(self, bufs: Sequence[bytes], batch: int,
+                errors: Dict[int, Exception]):
+        """_host_decode as the batch's "decode" span (reservoir
+        entropy_decode), which counts the images and the decode workers'
+        time (failures are counted by _resolve_errors)."""
+        with _batch_span("decode", batch, "entropy_decode") as span:
+            args, iccs = self._host_decode(bufs, errors)
+            span.add(images=len(bufs))
+        return args, iccs
+
+    def _encode(self, arrs: Sequence[np.ndarray], iccs,
+                batch: int) -> List[bytes]:
+        """_encode_outputs as the batch's "encode" span, which counts the
+        images and the encode workers' time."""
+        with _batch_span("encode", batch) as span:
+            out = self._encode_outputs(arrs, iccs)
+            span.add(images=len(out))
+        return out
+
     def transcode(self, bufs: Sequence[bytes],
                   return_exceptions: bool = False,
                   stage_times: Optional[Dict[str, List[float]]] = None
@@ -893,20 +914,30 @@ class _ServingPipelineBase:
         hold the exception objects; with the default False the first
         failure re-raises after healthy items finish.
 
+        The batch is a "batch" span with the children "decode",
+        "dispatch" (device_step and the queued output copies),
+        "wait_outputs" and "encode" (utils.StageTimer; the reservoirs
+        entropy_decode, dispatch, wait_outputs and encode, and device for
+        dispatch and wait together).
+
         stage_times, when a dict, gets the ms of "host_decode",
         "device_step" (CUDA events on a CUDA device, waited for) and
         "encode" appended under their names (see utils.StageClock)."""
-        from .utils import StageTimer, metrics
         errors: Dict[int, Exception] = {}
         clock = StageClock(stage_times, self.device)
-        with StageTimer("entropy_decode"), clock("host_decode"):
-            args, iccs = self._host_decode(bufs, errors)
-        with StageTimer("device"):
-            with clock("device_step", device=True):
-                dev = self.device_step(*args)
-            arrs = self._to_host(self._fetch(dev))
-        with StageTimer("encode"), clock("encode"):
-            out = self._encode_outputs(arrs, iccs)
+        b = metrics.new_batch()
+        with StageTimer("batch", batch=b):
+            with clock("host_decode"):
+                args, iccs = self._decode(bufs, b, errors)
+            with _batch_span("dispatch", b) as dispatch:
+                with clock("device_step", device=True):
+                    dev = self.device_step(*args)
+                fetch = self._fetch(dev)
+            with _batch_span("wait_outputs", b) as wait:
+                arrs = self._to_host(fetch)
+            metrics.observe("device", dispatch.seconds + wait.seconds)
+            with clock("encode"):
+                out = self._encode(arrs, iccs, b)
         metrics.incr("images_transcoded", len(bufs) - len(errors))
         return self._resolve_errors(out, errors, return_exceptions)
 
@@ -917,23 +948,37 @@ class _ServingPipelineBase:
         queued (CUDA runs them asynchronously), then the host encodes batch
         i-1, waiting only on batch i-1's event, and decodes batch i+1 while
         step i runs. Failure isolation matches transcode(): per-item within
-        each batch."""
+        each batch. Each batch is a "batch" span from its decode to its
+        encode, with transcode()'s children."""
         results = []
-        pending = None  # (fetch, ICC profiles, per-item errors)
+        pending = None  # (batch span, fetch, ICC profiles, per-item errors)
 
-        def finish(fetch, iccs, errors):
-            results.append(self._resolve_errors(self._encode_outputs(
-                self._to_host(fetch), iccs), errors, return_exceptions))
+        def finish(span, fetch, iccs, errors):
+            with _batch_span("wait_outputs", span.batch):
+                arrs = self._to_host(fetch)
+            out = self._encode(arrs, iccs, span.batch)
+            span.stop()
+            metrics.incr("images_transcoded", len(out) - len(errors))
+            results.append(self._resolve_errors(out, errors,
+                                                return_exceptions))
         for bufs in batches:
+            span = StageTimer("batch", batch=metrics.new_batch()).start()
             errors: Dict[int, Exception] = {}
-            args, iccs = self._host_decode(bufs, errors)
-            fetch = self._fetch(self.device_step(*args))
+            args, iccs = self._decode(bufs, span.batch, errors)
+            with _batch_span("dispatch", span.batch):
+                fetch = self._fetch(self.device_step(*args))
             if pending is not None:
                 finish(*pending)
-            pending = (fetch, iccs, errors)
+            pending = (span, fetch, iccs, errors)
         if pending is not None:
             finish(*pending)
         return results
+
+
+def _batch_span(name: str, batch: int,
+                stage: Optional[str] = None) -> StageTimer:
+    """A span of a served batch, under its "batch" span."""
+    return StageTimer(name, batch=batch, parent="batch", stage=stage)
 
 
 class JpegTranscodePipeline(_ServingPipelineBase):
@@ -1252,13 +1297,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                     if not gray:
                         qtc[i] = 0
 
-        if n_workers <= 1 or b <= 1:
-            for i in range(b):
-                one(i)
-        else:
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(n_workers) as ex:
-                list(ex.map(one, range(b)))
+        _timed_tmap(one, b, n_workers)
         if gray:
             return outs[0], qty
         return (*outs, qty, qtc)
@@ -1487,9 +1526,7 @@ class StillTranscodePipeline(_ServingPipelineBase):
                     batch[i] = 0   # benign black lane; wipes pooled data
                     iccs[i] = b""
 
-        n_workers = (workers if workers is not None
-                     else min(8, os.cpu_count() or 1))
-        _tmap(one, range(b), n_workers)
+        _timed_tmap(one, b, workers)
         return batch, iccs
 
     def _host_decode(self, bufs: Sequence[bytes],
@@ -1640,6 +1677,19 @@ def _tmap(fn, items, n_workers: int) -> list:
         with ThreadPoolExecutor(n_workers) as ex:
             return list(ex.map(fn, items))
     return [fn(x) for x in items]
+
+
+def _timed_tmap(fn, n: int, workers: Optional[int]) -> list:
+    """_tmap of fn over range(n) on `workers` threads (8 at most by
+    default), the workers' summed wall and CPU time handed to the
+    caller's open span (utils.WorkerClock; the threads the map ran on
+    as its workers)."""
+    n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
+    clock = WorkerClock()
+    out = _tmap(clock.timed(fn), range(n), n_workers)
+    metrics.add_counts(**clock.counts(
+        min(n_workers, n) if n_workers > 1 and n > 1 else 1))
+    return out
 
 
 def _anim_batch_groups(prepped, sig_fn) -> Dict[tuple, List[int]]:

@@ -1,6 +1,8 @@
 import torch
 
-from .metrics import Metrics, StageClock, StageTimer, metrics  # noqa: F401
+from .metrics import (Metrics, ProfilerRange, SpanLog,  # noqa: F401
+                      SpanRecord, StageClock, StageTimer, WorkerClock,
+                      metrics)
 from .logging import get_logger  # noqa: F401
 from .profiling import (RecordsDropped, TraceRecords,  # noqa: F401
                         device_trace, measure_device_stages,
