@@ -300,6 +300,20 @@ tools/tpu_smoke.py's 13 surfaces at small, odd shapes.
    lines, its files byte-equal across the runs and across copies of one
    source, and their coefficients within the step gate of its files with
    -device cpu.
+18. the device entropy route (phase18; ops/entropy_kernels, the
+   huffman_decode kernels): decode_entropy(device="cuda") against the host
+   route (jpeg_huff.cpp) on the seven 1080p fixtures x16 and on
+   ENTROPY_SOURCES 4032x3024 4:2:0 sources made as the benchmark's maker
+   makes them (portbench/inputs/jpeg_photos.py; orientation 6, whole
+   frames, and upright, the window) in batches of ENTROPY_BATCH: every
+   coefficient and table equal, no stream flagged; the kernels' ms a
+   batch of 32 at 12 MP (CUDA events) beside their byte bound (scans read
+   once, coefficients written once, at 3.35 TB/s) and the plain version's
+   host seconds on ENTROPY_PLAIN_BATCH of them; transcode_pipelined over
+   3 batches of each 12 MP batch by both routes: bytes equal, 3 launch
+   sequences on the device route and none on the host route, no stream
+   redone (serving.device_entropy_redo), the decode spans'
+   device_entropy equal to their images.
 
 device_spans (the busy shares and device-event counts of phases 4-14)
 and complete_trace (phases 14 and 15's Chrome traces) run through
@@ -4077,6 +4091,121 @@ def path_env(env):
                 os.environ[k] = v
 
 
+#: phase 18: distinct 12 MP sources, their batch, and the batch the plain
+#: version decodes
+ENTROPY_SOURCES = 16
+ENTROPY_BATCH = 32
+ENTROPY_PLAIN_BATCH = 4
+ENTROPY_W, ENTROPY_H = 4032, 3024
+ENTROPY_SEED = 3240001234
+
+
+def entropy_sources(orientation: int):
+    """ENTROPY_SOURCES JPEGs as the benchmark's phone12mp_o6 maker makes
+    them (4:2:0, q80/85/90), at an EXIF orientation."""
+    from portbench.inputs import jpeg_photos
+    return jpeg_photos.make({
+        "width": ENTROPY_W, "height": ENTROPY_H, "sources": ENTROPY_SOURCES,
+        "qualities": [80, 85, 90], "orientation": orientation,
+        "texture": 1.75, "rects": 6}, ENTROPY_SEED + orientation,
+        DEVICE)["bufs"]
+
+
+def _entropy_equal(pipe, bufs, what):
+    """decode_entropy's device route against its host route: every array
+    equal, no stream flagged."""
+    import torch
+    host = pipe.decode_entropy(bufs)
+    dev = pipe.decode_entropy(bufs, device=DEVICE)
+    status = pipe._entropy_check()[0]
+    for h, d in zip(host, dev):
+        check(torch.equal(torch.from_numpy(np.asarray(h)), d.cpu()),
+              f"phase 18: {what}: the device decode differs")
+    check(not status.any(), f"phase 18: {what}: "
+          f"{int(status.count_nonzero())} streams flagged")
+
+
+def phase18(card):
+    import torch
+    from lilliput_tpu_torch import JpegTranscodePipeline
+    from lilliput_tpu_torch.ops import entropy_kernels as E
+    from lilliput_tpu_torch.utils import metrics
+    t_phase = time.perf_counter()
+    fixtures = ["bench_1080p.jpg", "bench_1080p_o6.jpg",
+                "bench_1080p_422.jpg", "bench_1080p_440.jpg",
+                "bench_1080p_444.jpg", "bench_1080p_gray.jpg",
+                "bench_1080p_gray_o6.jpg"]
+    for name in fixtures:
+        with open(os.path.join(ASSETS, name), "rb") as f:
+            buf = f.read()
+        pipe = JpegTranscodePipeline(buf, DST, DST, device=DEVICE)
+        _entropy_equal(pipe, [buf] * 16, name)
+    print(f"phase 18: {len(fixtures)} 1080p fixtures x16 equal to the host "
+          f"decoder", flush=True)
+    res = {}
+    for orientation in (6, 1):
+        srcs = entropy_sources(orientation)
+        bufs = [srcs[i % len(srcs)] for i in range(ENTROPY_BATCH)]
+        pipe = JpegTranscodePipeline(srcs[0], DST, DST, device=DEVICE)
+        _entropy_equal(pipe, bufs, f"12 MP o{orientation}")
+        tag = f"o{orientation}"
+        calls = []
+        launch = E.huffman_decode
+
+        def keep(*a, **k):
+            calls.append((a, k))
+            return launch(*a, **k)
+        E.huffman_decode = keep
+        try:
+            pipe.decode_entropy(bufs, device=DEVICE)
+        finally:
+            E.huffman_decode = launch
+        a, k = calls[-1]
+        ms = cuda_ms(lambda: launch(*a, **k), 10)
+        scan_bytes = int(a[1].seg[:, 1].astype(np.int64).sum()) // 8
+        coef_bytes = sum(o.numel() * o.element_size() for o in a[7])
+        bound_ms = 1e3 * (scan_bytes + coef_bytes) / 3.35e12
+        t0 = time.perf_counter()
+        pcpu = JpegTranscodePipeline(srcs[0], DST, DST, device="cpu")
+        pcpu.decode_entropy(bufs[:ENTROPY_PLAIN_BATCH], device="cpu")
+        plain_s = time.perf_counter() - t0
+        # both routes through the serving loop
+        outs = {}
+        for route in (True, False):
+            pipe._device_entropy = route
+            torch.cuda.synchronize()
+            metrics.reset()
+            E.launches["huffman_decode"] = 0
+            outs[route] = pipe.transcode_pipelined([bufs] * 3,
+                                                   return_exceptions=True)
+            torch.cuda.synchronize()
+            spans = [r for r in metrics.spans().records
+                     if r.name == "decode"]
+            launched = E.launches["huffman_decode"]
+            redo = metrics.snapshot()["counters"].get(
+                "serving.device_entropy_redo", 0)
+            dev_lanes = sum(r.counts.get("device_entropy", 0) for r in spans)
+            images = sum(r.counts["images"] for r in spans)
+            check(launched == (3 if route else 0), f"phase 18: {tag}: "
+                  f"{launched} launch sequences, route {route}")
+            check(redo == 0, f"phase 18: {tag}: {redo} streams redone")
+            check(dev_lanes == (images if route else 0), f"phase 18: "
+                  f"{tag}: device_entropy {dev_lanes} of {images} images")
+        pipe._device_entropy = True
+        check(outs[True] == outs[False], f"phase 18: {tag}: the routes' "
+              f"bytes differ")
+        res[tag] = {"kernel_ms": ms, "bound_ms": bound_ms,
+                    "scan_bytes": scan_bytes, "coef_bytes": coef_bytes,
+                    "subsequences": a[1].nsub,
+                    "plain_s": plain_s, "plain_batch": ENTROPY_PLAIN_BATCH}
+        print(f"phase 18: 12 MP {tag} x{ENTROPY_BATCH}: huffman_decode "
+              f"{ms!r} ms a batch, bound {bound_ms!r} ms (bytes), plain "
+              f"{plain_s!r} s for {ENTROPY_PLAIN_BATCH}; both routes' bytes "
+              f"equal, 3 launch sequences, no redo [{card}]", flush=True)
+    print(f"phase 18: {json.dumps(res)} in "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 def main() -> int:
     import torch
     phase1()
@@ -4133,6 +4262,7 @@ def main() -> int:
     phase15(card, kernels)
     phase16(card)
     phase17(card, kernels)
+    phase18(card)
     print(f"phase 4: H2D 420_direct_s2 {h2d['420_direct_s2']!r} ms (16 of "
           f"64 lanes) vs 420 {h2d['420']!r} ms: ratio "
           f"{h2d['420_direct_s2'] / h2d['420']!r} [{card}]", flush=True)

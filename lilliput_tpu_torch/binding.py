@@ -51,6 +51,7 @@ HOST_SOURCES = (
     os.path.join(_build.CSRC_DIR, "host", "gif_codec.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "jp2_t1.cpp"),
     os.path.join(_build.CSRC_DIR, "host", "yuv_bgr.cpp"),
+    os.path.join(_build.CSRC_DIR, "host", "jpeg_scan.cpp"),
 )
 #: the header whose presence compiles png_filter.cpp's libdeflate route
 LIBDEFLATE_HEADER = "/usr/include/libdeflate.h"
@@ -97,6 +98,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.lp_jpeg_decode_coefs_win.restype = c.c_int
     lib.lpt_jpeg_encode_coefs.argtypes = _ENCODE_ARGS
     lib.lpt_jpeg_encode_coefs.restype = c.c_long
+    lib.lpt_jpeg_scan_prepare.argtypes = [
+        u8p, c.c_size_t, i32p, u8p, c.c_int64, i32p, c.c_int32, u8p, u16p,
+        i32p]
+    lib.lpt_jpeg_scan_prepare.restype = c.c_int
     lib.lp_png_filter.argtypes = [u8p, u8p, c.c_int64, c.c_int64, c.c_int32]
     lib.lp_png_filter.restype = None
     lib.lp_png_unfilter.argtypes = [u8p, u8p, c.c_int64, c.c_int64,

@@ -304,7 +304,11 @@ class ShardedJpegPipeline(_ShardedBase, PL.JpegTranscodePipeline):
     tables are replicated to every device once, at construction.
 
     mesh: a parallel.Mesh, every visible card by default. device, if
-    given, must be the mesh's first device (ValueError otherwise)."""
+    given, must be the mesh's first device (ValueError otherwise). The
+    scans are decoded on the host (the step scatters host arrays to the
+    mesh's slots)."""
+
+    _device_entropy = False
 
     def __init__(self, sample: bytes, dst_w: int, dst_h: int,
                  quality: int = 85, mesh: Optional[Mesh] = None,

@@ -9,9 +9,14 @@ every mode the JAX pipeline has: AREA, LINEAR or CUBIC resize, chroma_mode
 "rgb" or "direct", dct_scale 1, 2 or 4, and the LILLIPUT_FUSED_EXACT tier.
 Five stages:
 
-1. host Huffman decode (``decode_entropy``, jpeg_huff.cpp): upright
-   sources into the MCU window around the Fit crop, oriented ones whole;
-   dct_scale 2/4 ships only the top-left kxk coefficients;
+1. Huffman decode (``decode_entropy``): upright sources into the MCU
+   window around the Fit crop, oriented ones whole. On one CUDA device at
+   dct_scale 1 the host parses the markers and destuffs the scans
+   (csrc/host/jpeg_scan.cpp) and the card decodes the symbols
+   (``ops/entropy_kernels``, the huffman_decode kernels); elsewhere, and
+   for a stream that route declines or flags, the host decodes
+   (jpeg_huff.cpp); dct_scale 2/4 ships only the top-left kxk
+   coefficients;
 2. the decode kernel (``ops/decode_kernels``, CUDA): the colour layout's
    ``decode420``, ``decode422``, ``decode440`` or ``decode444`` to three
    raster u8 planes; for grayscale, ``dequant_idct_blocks`` (oriented
@@ -97,6 +102,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -110,6 +116,7 @@ from . import binding
 from .codecs import jpeg as J
 from .errors import DecodingFailedError
 from .ops import color as C
+from .ops import entropy_kernels as E
 from .ops import jpeg_kernels as K
 from .ops import orient as O
 from .ops import palette as P
@@ -567,9 +574,13 @@ def _still_out(resized, enc_qt_y, enc_qt_c, dst_w: int, dst_h: int,
 class _Fetch(NamedTuple):
     """A device step's outputs on their way to the host: the host arrays
     (pinned on CUDA, filled once every one of `events` has completed, one
-    per stream that copies; none on the CPU, where they are ready)."""
+    per stream that copies; none on the CPU, where they are ready), and,
+    where the batch's scans were decoded on the card, (status, bufs): the
+    per-image status word copied under the same events (non-zero: the
+    host decodes that stream again) and the batch's streams."""
     arrays: List[np.ndarray]
     events: tuple
+    check: Optional[tuple] = None
 
 
 class _SlotOutputs(NamedTuple):
@@ -674,8 +685,10 @@ class _ServingPipelineBase:
         pipeline. The output arrays follow the same rule (see _fetch)."""
         slots = self._pool.get(key)
         if slots is None:
-            # up to four keys per batch size (arrays, lanes, tables,
-            # outputs); ragged tail batches: stay bounded
+            # up to four keys per batch size on the host route (arrays,
+            # lanes, tables, outputs), six on the device entropy route
+            # (tables, outputs, scans, Huffman tables, segment table,
+            # status); ragged tail batches: stay bounded
             if len(self._pool) >= 8:
                 self._pool.pop(next(iter(self._pool)))
             self._pool[key] = slots = [[], 0]
@@ -687,12 +700,26 @@ class _ServingPipelineBase:
         slots[1] = 1 - idx
         return out
 
-    def _to_device(self, a: np.ndarray, device=None) -> torch.Tensor:
+    def _pooled_grow(self, key, n: int, alloc):
+        """_pooled for a 1-D array of at least n elements: alloc(size)
+        makes one, and a slot whose array is too small gets one a quarter
+        larger than asked for."""
+        a = self._pooled(key, lambda: alloc(n))
+        if a.shape[0] < n:
+            arrs = self._pool[key][0]
+            j = next(j for j, x in enumerate(arrs) if x is a)
+            arrs[j] = a = alloc(n + n // 4)
+        return a
+
+    def _to_device(self, a, device=None) -> torch.Tensor:
         """One host array to `device` (the pipeline's by default),
-        non-blocking (the pooled arrays are pinned on CUDA)."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(self.device if device is None else device,
-                    non_blocking=True)
+        non-blocking (the pooled arrays are pinned on CUDA); a tensor
+        already there passes through unchanged."""
+        dev = self.device if device is None else device
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, non_blocking=True)  # itself where it lies
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            dev, non_blocking=True)
 
     # -- host encode stage ----------------------------------------------------
 
@@ -826,7 +853,7 @@ class _ServingPipelineBase:
             out[i] = e  # type: ignore[assignment]
         return out
 
-    def _fetch(self, dev) -> _Fetch:
+    def _fetch(self, dev, check: Optional[tuple] = None) -> _Fetch:
         """Queue the copies of a device step's outputs to the host.
 
         On CUDA: non-blocking copies into pinned host arrays from a 2-slot
@@ -835,22 +862,33 @@ class _ServingPipelineBase:
         which transcode_pipelined queues only after batch i's outputs were
         encoded. On the CPU the outputs already are host memory.
 
+        check: the device entropy route's (status, bufs) of the batch
+        (_entropy_check); its status tensor is copied with the outputs,
+        before the event.
+
         A sharded step's _SlotOutputs: each slot's real rows are copied on
         its own stream into its rows of one pooled pinned array per output,
         and each slot's stream records its own event."""
         if isinstance(dev, _SlotOutputs):
             return self._fetch_slots(dev)
         if self.device.type != "cuda":
-            return _Fetch([t.numpy() for t in dev], ())
+            return _Fetch([t.numpy() for t in dev], (), check and (
+                check[0].numpy(), check[1]))
         key = ("out",) + tuple((tuple(t.shape), t.dtype) for t in dev)
         host = self._pooled(key, lambda: tuple(
             torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             for t in dev))
         for h, t in zip(host, dev):
             h.copy_(t, non_blocking=True)
+        if check is not None:
+            status, bufs = check
+            sh = self._pooled(("status", len(bufs)), lambda: torch.empty(
+                status.shape, dtype=status.dtype, pin_memory=True))
+            sh.copy_(status, non_blocking=True)
+            check = (sh.numpy(), bufs)
         event = torch.cuda.Event()
         event.record()
-        return _Fetch([h.numpy() for h in host], (event,))
+        return _Fetch([h.numpy() for h in host], (event,), check)
 
     def _fetch_slots(self, dev: _SlotOutputs) -> _Fetch:
         from .parallel.mesh import slot_context
@@ -888,11 +926,38 @@ class _ServingPipelineBase:
                 errors: Dict[int, Exception]):
         """_host_decode as the batch's "decode" span (reservoir
         entropy_decode), which counts the images and the decode workers'
-        time (failures are counted by _resolve_errors)."""
+        time (failures are counted by _resolve_errors), and the decode's
+        check for _fetch (_entropy_check)."""
         with _batch_span("decode", batch, "entropy_decode") as span:
             args, iccs = self._host_decode(bufs, errors)
             span.add(images=len(bufs))
-        return args, iccs
+        return args, iccs, self._entropy_check()
+
+    def _entropy_check(self) -> Optional[tuple]:
+        """(status, bufs) of the last _host_decode where the card decoded
+        its scans, else None (taken once)."""
+        return None
+
+    def _redo_flagged(self, fetch: _Fetch, out: List[bytes],
+                      errors: Dict[int, Exception]) -> None:
+        """Each stream the card flagged (fetch.check), transcoded again
+        alone by the host route: its slot gets today's bytes, or today's
+        error in errors (counter serving.device_entropy_redo)."""
+        if fetch.check is None:
+            return
+        status, bufs = fetch.check
+        flagged = np.flatnonzero(status)
+        if not len(flagged):
+            return
+        metrics.incr("serving.device_entropy_redo", len(flagged))
+        for i in flagged:
+            errs: Dict[int, Exception] = {}
+            args, iccs = self._host_decode([bufs[i]], errs, host=True)
+            if errs:
+                errors[int(i)] = errs[0]
+                continue
+            arrs = self._to_host(self._fetch(self.device_step(*args)))
+            out[i] = self._encode_outputs(arrs, iccs)[0]
 
     def _encode(self, arrs: Sequence[np.ndarray], iccs,
                 batch: int) -> List[bytes]:
@@ -928,16 +993,17 @@ class _ServingPipelineBase:
         b = metrics.new_batch()
         with StageTimer("batch", batch=b):
             with clock("host_decode"):
-                args, iccs = self._decode(bufs, b, errors)
+                args, iccs, check = self._decode(bufs, b, errors)
             with _batch_span("dispatch", b) as dispatch:
                 with clock("device_step", device=True):
                     dev = self.device_step(*args)
-                fetch = self._fetch(dev)
+                fetch = self._fetch(dev, check)
             with _batch_span("wait_outputs", b) as wait:
                 arrs = self._to_host(fetch)
             metrics.observe("device", dispatch.seconds + wait.seconds)
             with clock("encode"):
                 out = self._encode(arrs, iccs, b)
+                self._redo_flagged(fetch, out, errors)
         metrics.incr("images_transcoded", len(bufs) - len(errors))
         return self._resolve_errors(out, errors, return_exceptions)
 
@@ -957,6 +1023,7 @@ class _ServingPipelineBase:
             with _batch_span("wait_outputs", span.batch):
                 arrs = self._to_host(fetch)
             out = self._encode(arrs, iccs, span.batch)
+            self._redo_flagged(fetch, out, errors)
             span.stop()
             metrics.incr("images_transcoded", len(out) - len(errors))
             results.append(self._resolve_errors(out, errors,
@@ -964,9 +1031,9 @@ class _ServingPipelineBase:
         for bufs in batches:
             span = StageTimer("batch", batch=metrics.new_batch()).start()
             errors: Dict[int, Exception] = {}
-            args, iccs = self._decode(bufs, span.batch, errors)
+            args, iccs, check = self._decode(bufs, span.batch, errors)
             with _batch_span("dispatch", span.batch):
-                fetch = self._fetch(self.device_step(*args))
+                fetch = self._fetch(self.device_step(*args), check)
             if pending is not None:
                 finish(*pending)
             pending = (span, fetch, iccs, errors)
@@ -1007,7 +1074,15 @@ class JpegTranscodePipeline(_ServingPipelineBase):
     device: the torch device of the dense stages, "cuda" by default; the
     CPU runs only when asked for (device="cpu"), with the decode kernels'
     plain versions. Grayscale sources give 1-component JPEGs. Source ICC
-    profiles are carried into every output."""
+    profiles are carried into every output.
+
+    On one CUDA device with dct_scale 1 the serving fronts decode the
+    baseline scans on the card (decode_entropy's device route, the
+    huffman_decode kernels); other streams, and every other pipeline, take
+    the host route."""
+
+    #: the serving fronts may take decode_entropy's device route
+    _device_entropy = True
 
     def __init__(self, sample: bytes, dst_w: int, dst_h: int,
                  quality: int = 85, method: str = R.AREA,
@@ -1031,6 +1106,7 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         self.encode_options = dict(encode_options or {})
         self._lib = binding.load()
         self._pool: dict = {}
+        self._decode_pools: dict = {}
         self.dst_w, self.dst_h = dst_w, dst_h
         self.method = method
         self.optimize_coding = optimize_coding
@@ -1084,6 +1160,16 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         #: (x0, y0, rw, rh) of the window's plane origin and size; None
         #: when decode_entropy returns whole frames
         self.window_static = self._window[:4] if self._window else None
+        #: the frame as the device entropy route decodes it: the sample's
+        #: sampling factors (a stream with others takes the host route)
+        #: and each component's store window
+        self._samp = tuple((int(info.comp_h_samp[c]), int(info.comp_v_samp[c]))
+                           for c in range(self.ncomp))
+        self._scan_geom = E.scan_geometry(
+            g.width, g.height, self._samp,
+            [(0, 0) + s for s in self._lane_shapes()] if self._window is None
+            else self._window_rows())
+        self._check: Optional[tuple] = None
         self.quality = quality
         eql, eqc = J.scaled_qtables(quality)
         self.enc_qt_y_np, self.enc_qt_c_np = eql, eqc
@@ -1139,9 +1225,71 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 f"{self.orientation}, got {o}")
         return info
 
+    def _decode_workers(self, n: int):
+        """The decode stage's n worker threads, kept across batches (a
+        ThreadPoolExecutor per pipeline and size; its threads exit with
+        the pipeline): starting 8 threads a batch costs more than the
+        device route's host work on the card's host."""
+        if n <= 1:
+            return None
+        ex = self._decode_pools.get(n)
+        if ex is None:
+            from concurrent.futures import ThreadPoolExecutor
+            ex = self._decode_pools[n] = ThreadPoolExecutor(
+                n, thread_name_prefix="lilliput-decode")
+        return ex
+
+    def _lane_shapes(self) -> List[tuple]:
+        """(rows, cols) of blocks of each component's lane in the arrays
+        decode_entropy returns at dct_scale 1: the MCU window of upright
+        sources, whole frames otherwise (vertically subsampled colour
+        luma rounded up to whole MCU rows)."""
+        g = self.geom
+        if self._window is not None:
+            _, _, _, _, yr, ycs, crr, ccs = self._window
+            c = (crr.stop - crr.start, ccs.stop - ccs.start)
+            return [(yr.stop - yr.start, ycs.stop - ycs.start)] + \
+                [c] * (self.ncomp - 1)
+        ybh, ybw = g.blocks[0]
+        ypad = ybh % 2 if (self.ncomp == 3 and g.v2) else 0
+        return [(ybh + ypad, ybw)] + list(g.blocks[1:self.ncomp])
+
+    def _window_rows(self) -> List[tuple]:
+        """Each component's window as {y0, x0, h, w} block rows (the win
+        argument of lp_jpeg_decode_coefs_win and jpeg_scan.cpp)."""
+        _, _, _, _, yr, ycs, crr, ccs = self._window
+        return ([(yr.start, ycs.start, yr.stop - yr.start,
+                  ycs.stop - ycs.start)] +
+                [(crr.start, ccs.start, crr.stop - crr.start,
+                  ccs.stop - ccs.start)] * (self.ncomp - 1))
+
+    def _host_lane(self, arr: np.ndarray, info, lane: Sequence[np.ndarray],
+                   qtables: np.ndarray, intra: int, win_p, scratch) -> None:
+        """The host route of one stream into its lane (one (h, w, 64)
+        int16 array per component): jpeg_huff.cpp, or, where it declines,
+        libjpeg (into full-geometry scratch() in window mode, the window
+        copied out)."""
+        rc = -10
+        if J.use_fast_huff():
+            ptrs = (_i16p * len(lane))(*[a.ctypes.data_as(_i16p)
+                                         for a in lane])
+            rc = self._lib.lp_jpeg_decode_coefs_win(
+                arr.ctypes.data_as(_u8p), arr.size, ptrs,
+                qtables.ctypes.data_as(_u16p), intra, win_p)
+        if rc != 0:
+            win = self._window
+            comps = list(lane) if win is None else scratch()
+            J.libjpeg_decode_coefs(arr, comps, qtables, info, intra)
+            if win is not None:
+                _, _, _, _, yr, ycs, crr, ccs = win
+                lane[0][...] = comps[0][yr, ycs]
+                for a, c in zip(lane[1:], comps[1:]):
+                    a[...] = c[crr, ccs]
+
     def decode_entropy(self, bufs: Sequence[bytes],
                        workers: Optional[int] = None, pool: bool = False,
-                       errors: Optional[Dict[int, Exception]] = None):
+                       errors: Optional[Dict[int, Exception]] = None,
+                       device=None):
         """Huffman-decode a batch: upright sources into the MCU window
         around the Fit crop, other orientations whole.
 
@@ -1178,65 +1326,25 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         is not progressive, then the serial decode, into full-geometry
         per-thread scratch in window mode, the window copied out. Where
         libjpeg is absent that route raises HostLibraryMissingError
-        (binding.load_jpeg), in the item's slot under errors=."""
+        (binding.load_jpeg), in the item's slot under errors=.
+
+        device: None (the default) decodes on the host as above and
+        returns host arrays. A device (dct_scale 1 only) takes the device
+        route, _decode_entropy_device: the same five (two) arrays as
+        tensors on that device, of the same shapes and dtypes (on the CPU
+        through the kernels' plain version, which only tests ask for)."""
         g = self.geom
         b = len(bufs)
         gray = self.ncomp == 1
         win = self._window
-        if win is None:
-            ybh, ybw = g.blocks[0]
-            ypad = ybh % 2 if (not gray and g.v2) else 0
-
-            def _alloc_arrays():
-                ys = self._alloc((b, ybh + ypad, ybw, 64), zeros=True)
-                if gray:
-                    return (ys,)
-                return (ys, self._alloc((b,) + g.blocks[1] + (64,)),
-                        self._alloc((b,) + g.blocks[2] + (64,)))
-            win_p = None
-        else:
-            _, _, _, _, yr, ycs, crr, ccs = win
-
-            pin = self.dct_scale == 1  # truncated lanes are shipped instead
-
-            def _alloc_arrays():
-                ys = self._alloc((b, yr.stop - yr.start,
-                                  ycs.stop - ycs.start, 64), pin=pin)
-                if gray:
-                    return (ys,)
-                c = (b, crr.stop - crr.start, ccs.stop - ccs.start, 64)
-                return ys, self._alloc(c, pin=pin), self._alloc(c, pin=pin)
-
+        shapes = self._lane_shapes()
+        win_p = None
+        if win is not None:
             # per-component block windows {y0, x0, h, w} for
             # lp_jpeg_decode_coefs_win, which decodes straight into them
-            win_c = np.array(
-                [[yr.start, ycs.start, yr.stop - yr.start,
-                  ycs.stop - ycs.start]] +
-                [[crr.start, ccs.start, crr.stop - crr.start,
-                  ccs.stop - ccs.start]] * 2 + [[0, 0, 0, 0]], np.int32)
+            win_c = np.zeros((4, 4), np.int32)
+            win_c[:self.ncomp] = self._window_rows()
             win_p = win_c.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-
-        arrs = (self._pooled((b, "win" if win else "full"), _alloc_arrays)
-                if pool else _alloc_arrays())
-        k = 8 // self.dct_scale
-        if k < 8:
-            # the k*k lanes the scaled IDCT reads, copied out per image by
-            # the decode threads into pinned arrays of their own pool: the
-            # 2-slot ordering argument of _pooled holds for them as for the
-            # full arrays, and a failed item's lane is zeroed in both
-            def _alloc_lanes():
-                return tuple(self._alloc(a.shape[:-1] + (k * k,))
-                             for a in arrs)
-            outs = (self._pooled((b, "lanes"), _alloc_lanes) if pool
-                    else _alloc_lanes())
-        else:
-            outs = arrs
-        def _alloc_tables():
-            return tuple(self._alloc((b, 64), dtype=torch.float32)
-                         for _ in range(1 if gray else 2))
-        tables = (self._pooled((b, "qt"), _alloc_tables) if pool
-                  else _alloc_tables())
-        qty, qtc = tables if not gray else (tables[0], None)
         n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
         # small batches underfill the pool: split each image's scan at its
         # restart markers across the idle threads (byte-identical output)
@@ -1255,26 +1363,47 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                 tls.s = s
             return s
 
+        def _alloc_tables():
+            return tuple(self._alloc((b, 64), dtype=torch.float32)
+                         for _ in range(1 if gray else 2))
+        tables = (self._pooled((b, "qt"), _alloc_tables) if pool
+                  else _alloc_tables())
+        qty, qtc = tables if not gray else (tables[0], None)
+        if device is not None:
+            return self._decode_entropy_device(
+                bufs, resolve_device(device), n_workers, intra, win_p,
+                scratch, tables, pool, errors)
+
+        pin = self.dct_scale == 1  # truncated lanes are shipped instead
+
+        def _alloc_arrays():
+            # whole frames: zeros for the luma pad row nothing writes
+            return tuple(self._alloc((b,) + sh + (64,),
+                                     zeros=win is None and c == 0, pin=pin)
+                         for c, sh in enumerate(shapes))
+
+        arrs = (self._pooled((b, "win" if win else "full"), _alloc_arrays)
+                if pool else _alloc_arrays())
+        k = 8 // self.dct_scale
+        if k < 8:
+            # the k*k lanes the scaled IDCT reads, copied out per image by
+            # the decode threads into pinned arrays of their own pool: the
+            # 2-slot ordering argument of _pooled holds for them as for the
+            # full arrays, and a failed item's lane is zeroed in both
+            def _alloc_lanes():
+                return tuple(self._alloc(a.shape[:-1] + (k * k,))
+                             for a in arrs)
+            outs = (self._pooled((b, "lanes"), _alloc_lanes) if pool
+                    else _alloc_lanes())
+        else:
+            outs = arrs
+
         def one(i: int):
             info = self._validate_header(bufs[i])
-            arr = np.frombuffer(bufs[i], np.uint8)
             qtables = np.zeros((4, 64), np.uint16)
-            rc = -10
-            if J.use_fast_huff():
-                ptrs = (_i16p * len(arrs))(
-                    *[a[i].ctypes.data_as(_i16p) for a in arrs])
-                rc = self._lib.lp_jpeg_decode_coefs_win(
-                    arr.ctypes.data_as(_u8p), arr.size, ptrs,
-                    qtables.ctypes.data_as(_u16p), intra, win_p)
-            if rc != 0:
-                comps = ([a[i] for a in arrs] if win is None
-                         else scratch())
-                J.libjpeg_decode_coefs(arr, comps, qtables, info, intra)
-                if win is not None:
-                    _, _, _, _, yr, ycs, crr, ccs = win
-                    arrs[0][i] = comps[0][yr, ycs]
-                    for a, c in zip(arrs[1:], comps[1:]):
-                        a[i] = c[crr, ccs]
+            self._host_lane(np.frombuffer(bufs[i], np.uint8), info,
+                            [a[i] for a in arrs], qtables, intra, win_p,
+                            scratch)
             qty[i] = qtables[info.comp_quant_tbl[0]]
             if not gray:
                 qtc[i] = qtables[info.comp_quant_tbl[1]]
@@ -1297,10 +1426,139 @@ class JpegTranscodePipeline(_ServingPipelineBase):
                     if not gray:
                         qtc[i] = 0
 
-        _timed_tmap(one, b, n_workers)
+        _timed_tmap(one, b, n_workers, self._decode_workers(n_workers))
         if gray:
             return outs[0], qty
         return (*outs, qty, qtc)
+
+    def _decode_entropy_device(self, bufs, dev, n_workers, intra, win_p,
+                               scratch, tables, pool, errors):
+        """decode_entropy's device route. On the decode workers each
+        stream's markers are parsed and its scan destuffed
+        (csrc/host/jpeg_scan.cpp) into the batch's pinned scan buffer,
+        with its Huffman and quantization tables; a stream jpeg_scan.cpp
+        declines, or with other sampling factors than the sample's, is
+        decoded by the host route (_host_lane) into pinned lane arrays.
+        Then one ordinary pinned copy each of the scans, the Huffman
+        tables, the segment table and the quantization tables, the
+        zero-filled destination arrays, the huffman_decode kernels, and
+        the copies of the host-decoded lanes into theirs. The per-image
+        status word goes to _entropy_check, for _fetch to copy back with
+        the step's outputs. The decode span counts device_entropy (lanes
+        the card decodes) and host_entropy (lanes the host route
+        decoded)."""
+        if self.dct_scale != 1:
+            raise ValueError("the device entropy route needs dct_scale 1")
+        geom = self._scan_geom
+        b = len(bufs)
+        gray = self.ncomp == 1
+        qty, qtc = tables if not gray else (tables[0], None)
+        caps = [E.scan_capacity(len(buf), geom.nmcu) for buf in bufs]
+        offsets = np.zeros(b + 1, np.int64)
+        np.cumsum(caps, out=offsets[1:])
+
+        def pinned(dtype):
+            return lambda n: self._alloc((n,), pin=True, dtype=dtype)
+        scan = (self._pooled_grow((b, "scan"), int(offsets[-1]),
+                                  pinned(torch.uint8)) if pool
+                else pinned(torch.uint8)(int(offsets[-1])))
+        hshape = (b, 2 * self.ncomp, E.TABLE_BYTES)
+        huff = (self._pooled((b, "huff"), lambda: self._alloc(
+            hshape, dtype=torch.uint8)) if pool
+            else self._alloc(hshape, dtype=torch.uint8))
+        shapes = self._lane_shapes()
+        samp = np.array(self._samp, np.int32).ravel()
+        streams: List[Optional[tuple]] = [None] * b
+        used = np.zeros(b, np.int64)
+        host_lanes: Dict[int, tuple] = {}
+        tls = threading.local()
+
+        def one(i: int):
+            info = self._validate_header(bufs[i])
+            arr = np.frombuffer(bufs[i], np.uint8)
+            qtables = np.zeros((4, 64), np.uint16)
+            row = None
+            if J.use_fast_huff():
+                segs = getattr(tls, "segs", None)
+                if segs is None:
+                    segs = tls.segs = np.empty((geom.nmcu, 2), np.int32)
+                row = E.prepare_stream(
+                    self._lib, arr, scan[offsets[i]:offsets[i + 1]], segs,
+                    huff[i], qtables, win_p)
+                if row is not None and not np.array_equal(
+                        row[4:4 + samp.size], samp):
+                    row = None
+            if row is not None:
+                streams[i] = (segs[:row[1]].copy(), int(row[2]))
+                used[i] = row[0]
+            else:
+                lane = tuple(torch.zeros(
+                    sh + (64,), dtype=torch.int16,
+                    pin_memory=dev.type == "cuda") for sh in shapes)
+                self._host_lane(arr, info, [t.numpy() for t in lane],
+                                qtables, intra, win_p, scratch)
+                host_lanes[i] = lane
+            qty[i] = qtables[info.comp_quant_tbl[0]]
+            if not gray:
+                qtc[i] = qtables[info.comp_quant_tbl[1]]
+
+        if errors is not None:
+            decode_one = one
+
+            def one(i: int):
+                try:
+                    decode_one(i)
+                except Exception as e:  # noqa: BLE001 — isolate per item
+                    errors[i] = e
+                    streams[i] = None
+                    host_lanes.pop(i, None)
+                    qty[i] = 0
+                    if not gray:
+                        qtc[i] = 0
+
+        _timed_tmap(one, b, n_workers, self._decode_workers(n_workers))
+        table = E.segment_table(geom, offsets[:-1], streams)
+        seg_n = table.seg.size
+        meta_n = seg_n + table.sub_start.size + b
+        meta = (self._pooled_grow((b, "segs"), meta_n, pinned(torch.int32))
+                if pool else pinned(torch.int32)(meta_n))
+        meta[:seg_n] = table.seg.ravel()
+        meta[seg_n:seg_n + table.sub_start.size] = table.sub_start
+        meta[meta_n - b:meta_n] = table.img_ri
+        end = int(max((offsets[i] + used[i] for i in range(b)
+                       if streams[i] is not None), default=0))
+        to = functools.partial(self._to_device, device=dev)
+        scan_d = to(scan[:max(end, 4)])
+        huff_d = to(huff)
+        meta_d = to(meta[:meta_n])
+        qt_d = [to(t) for t in tables]
+        outs = [torch.zeros((b,) + sh + (64,), dtype=torch.int16, device=dev)
+                for sh in shapes]
+        status = torch.zeros(b, dtype=torch.int32, device=dev)
+        E.huffman_decode(scan_d, table, meta_d[:seg_n].view(-1, 8),
+                         meta_d[seg_n:meta_n - b], meta_d[meta_n - b:],
+                         huff_d, geom, outs, status)
+        for i, lane in host_lanes.items():
+            for o, t in zip(outs, lane):
+                o[i].copy_(t, non_blocking=True)
+        n_dev = sum(st is not None for st in streams)
+        metrics.add_counts(device_entropy=n_dev, host_entropy=len(host_lanes))
+        self._check = (status, list(bufs))
+        return (*outs, *qt_d)
+
+    def _entropy_device(self) -> Optional[torch.device]:
+        """The device of the serving fronts' entropy decode: this
+        pipeline's, where it is one CUDA device and dct_scale is 1 (the
+        k*k lanes of 2 and 4 are cut on the host), else None (the host
+        route: the CPU, the mesh fronts)."""
+        if (self._device_entropy and self.device.type == "cuda"
+                and self.dct_scale == 1):
+            return self.device
+        return None
+
+    def _entropy_check(self) -> Optional[tuple]:
+        check, self._check = self._check, None
+        return check
 
     # -- device stage ----------------------------------------------------------
 
@@ -1313,7 +1571,8 @@ class JpegTranscodePipeline(_ServingPipelineBase):
         pixels; for lossy WebP the u8 planes (y, u, v) of them. Takes
         decode_entropy's output: colour pipelines (ys, cbs, crs, qty,
         qtc), grayscale (ys, qty); the tables may be any numeric dtype
-        (fold_qtables converts them on the device).
+        (fold_qtables converts them on the device); arrays already on the
+        device (the device entropy route's) are used as they are.
         plain=True runs the plain PyTorch versions of the decode kernels
         instead of the kernels (the direct mode runs none)."""
         host = (ys, cbs) if self.ncomp == 1 else (ys, cbs, crs, qty, qtc)
@@ -1357,11 +1616,18 @@ class JpegTranscodePipeline(_ServingPipelineBase):
     # -- end to end --------------------------------------------------------------
 
     def _host_decode(self, bufs: Sequence[bytes],
-                     errors: Optional[Dict[int, Exception]] = None):
+                     errors: Optional[Dict[int, Exception]] = None,
+                     host: bool = False):
         """Host stage: entropy decode + ICC collection (a cheap APP2
         header walk per source, so colour profiles survive the
-        transcode)."""
-        coefs = self.decode_entropy(bufs, pool=True, errors=errors)
+        transcode). The decode takes the device route where
+        _entropy_device gives a device, unless host (the redo of a
+        flagged stream: the host route, unpooled)."""
+        if host:
+            coefs = self.decode_entropy(bufs, errors=errors)
+        else:
+            coefs = self.decode_entropy(bufs, pool=True, errors=errors,
+                                        device=self._entropy_device())
         iccs = [b"" if errors is not None and i in errors
                 else J.read_icc(buf) for i, buf in enumerate(bufs)]
         return coefs, iccs
@@ -1679,14 +1945,19 @@ def _tmap(fn, items, n_workers: int) -> list:
     return [fn(x) for x in items]
 
 
-def _timed_tmap(fn, n: int, workers: Optional[int]) -> list:
+def _timed_tmap(fn, n: int, workers: Optional[int],
+                executor=None) -> list:
     """_tmap of fn over range(n) on `workers` threads (8 at most by
     default), the workers' summed wall and CPU time handed to the
     caller's open span (utils.WorkerClock; the threads the map ran on
-    as its workers)."""
+    as its workers). executor: a ThreadPoolExecutor of that many threads
+    to map on, kept by the caller across calls, instead of a new one."""
     n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
     clock = WorkerClock()
-    out = _tmap(clock.timed(fn), range(n), n_workers)
+    if executor is not None and n_workers > 1 and n > 1:
+        out = list(executor.map(clock.timed(fn), range(n)))
+    else:
+        out = _tmap(clock.timed(fn), range(n), n_workers)
     metrics.add_counts(**clock.counts(
         min(n_workers, n) if n_workers > 1 and n > 1 else 1))
     return out

@@ -30,6 +30,7 @@ from lilliput_tpu.ops import pallas_kernels as PK
 from lilliput_tpu_torch import pipeline as TP
 from lilliput_tpu_torch.ops import _build
 from lilliput_tpu_torch.ops import decode_kernels as DK
+from lilliput_tpu_torch.ops import entropy_kernels as E
 from lilliput_tpu_torch.ops import jpeg_kernels as K
 
 from _torch_parity import (CASES, LAYOUTS, bench_bytes, coefs, jax_packed,
@@ -210,10 +211,11 @@ def _entry_points(source):
 def test_every_wrapper_has_a_kernel_source():
     """Every decode wrapper's library, and the split-path IDCT's, is built
     from a CUDA source that _LIBS names, and every CUDA source under csrc/
-    is one of them: a source whose kernel moved is deleted."""
+    is one of them or the entropy kernels' (ops/entropy_kernels.SOURCE): a
+    source whose kernel moved is deleted."""
     libs = [lib for lib, _, _ in DK._KERNELS.values()] + [DK._IDCT_LIB]
     assert set(libs) == set(DK._LIBS)
-    assert _sources() == sorted(DK._LIBS.values())
+    assert _sources() == sorted(list(DK._LIBS.values()) + [E.SOURCE])
 
 
 @pytest.mark.parametrize("lib", sorted(DK._LIBS))

@@ -59,6 +59,13 @@ within the step gate of the CPU's, its alpha equal, and the colour
 conversions (bgr_to_yuv, yuv420_to_bgr, yuv_to_rgb_norm) equal the CPU's
 bit for bit.
 
+The device entropy route (the huffman_decode kernels) equals the host
+decoder bit for bit on the 1080p fixtures and on 16 4032x3024 sources as
+the benchmark's maker makes them; with 32- and 256-bit subsequences every
+stream it does not flag is exact; a damaged scan is flagged exactly where
+jpeg_huff.cpp fails; transcode_pipelined gives the same bytes by both
+routes, one launch sequence a batch on the device route.
+
 Video (no kernel: torch ops): the device half of a frame's decode
 (codecs/video.frame_to_bgra on 4:2:0, 4:2:2 and 4:4:4 planes, limited and
 full range, at and off the display size; bgra_to_display) and the
@@ -1093,3 +1100,134 @@ def test_spritesheet_tiles_on_card_equal_cpu():
         if a != b:
             assert TH.order_dependent(TH.hash_fields(grids, sums, i, 40, 30),
                                       2.4e-5), i
+
+
+#: the 1080p fixtures through the device entropy route
+ENTROPY_FIXTURES = ["420", "o6", "422", "440", "444", "gray", "gray_o6"]
+
+
+def _entropy_both(pipe, bufs):
+    """(host route arrays, device route arrays on the host, status)."""
+    host = pipe.decode_entropy(bufs)
+    dev = [d.cpu() for d in pipe.decode_entropy(bufs, device="cuda")]
+    return host, dev, pipe._entropy_check()[0].cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub", ENTROPY_FIXTURES)
+def test_entropy_kernel_equals_host_decoder(sub):
+    """decode_entropy's device route (the huffman_decode kernels) gives
+    the host route's (jpeg_huff.cpp's) arrays bit for bit on each 1080p
+    fixture x8, no stream flagged, one launch sequence."""
+    _need_card()
+    from lilliput_tpu_torch.ops import entropy_kernels as E
+    with open(_fixture(sub), "rb") as f:
+        buf = f.read()
+    pipe = JpegTranscodePipeline(buf, 256, 256)
+    n0 = E.launches["huffman_decode"]
+    host, dev, status = _entropy_both(pipe, [buf] * 8)
+    assert E.launches["huffman_decode"] == n0 + 1
+    for h, d in zip(host, dev):
+        assert torch.equal(torch.from_numpy(np.asarray(h)), d)
+    assert not status.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("subseq_bits", [32, 256])
+def test_entropy_kernel_short_subsequences_exact(subseq_bits, monkeypatch):
+    """With subsequences of 32 and 256 bits (long sync chains, across
+    CUDA blocks) every stream the kernels do not flag decodes to the host
+    route's arrays; a flagged one is left for the host."""
+    _need_card()
+    from lilliput_tpu_torch.ops import entropy_kernels as E
+    monkeypatch.setattr(E, "SUBSEQ_BITS", subseq_bits)
+    with open(_fixture("o6"), "rb") as f:
+        buf = f.read()
+    pipe = JpegTranscodePipeline(buf, 256, 256)
+    host, dev, status = _entropy_both(pipe, [buf] * 4)
+    for i in np.flatnonzero(status == 0):
+        for h, d in zip(host, dev):
+            assert torch.equal(torch.from_numpy(np.asarray(h[i])), d[i])
+
+
+def _damaged_fixture():
+    """Truncated scans (cut, closed with EOI) and bit-flipped scans of the
+    o6 fixture."""
+    with open(_fixture("o6"), "rb") as f:
+        good = f.read()
+    sos = good.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(good[sos + 2:sos + 4], "big")
+    rng = np.random.default_rng(25)
+    out = [good[:c] + b"\xff\xd9"
+           for c in rng.integers(start + 1, len(good) - 2, 4)]
+    for _ in range(8):
+        b = bytearray(good)
+        for pos in rng.integers(start, len(good) - 2, 3):
+            b[pos] ^= 1 << int(rng.integers(8))
+        out.append(bytes(b))
+    return good, out
+
+
+@pytest.mark.gpu
+def test_entropy_kernel_flags_damaged_scans():
+    """Each damaged stream the route takes is flagged exactly where
+    lp_jpeg_decode_coefs_win fails, and decodes bit for bit where it does
+    not."""
+    _need_card()
+    import ctypes
+    from lilliput_tpu_torch import binding
+    good, bufs = _damaged_fixture()
+    pipe = JpegTranscodePipeline(good, 256, 256)
+    lib = binding.load()
+    dev = pipe.decode_entropy(bufs, device="cuda")
+    status = pipe._entropy_check()[0].cpu().numpy()
+    p16 = ctypes.POINTER(ctypes.c_int16)
+    flagged = 0
+    for i, buf in enumerate(bufs):
+        lane = [np.zeros(sh + (64,), np.int16) for sh in pipe._lane_shapes()]
+        ptrs = (p16 * len(lane))(*[a.ctypes.data_as(p16) for a in lane])
+        arr = np.frombuffer(buf, np.uint8)
+        rc = lib.lp_jpeg_decode_coefs_win(
+            arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), arr.size,
+            ptrs, np.zeros((4, 64), np.uint16).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_uint16)), 1, None)
+        if rc == -10:
+            continue  # declined: the host route
+        assert bool(status[i]) == (rc != 0), (i, rc)
+        flagged += rc != 0
+        if rc == 0:
+            for a, d in zip(lane, dev):
+                assert torch.equal(torch.from_numpy(a), d[i].cpu())
+    assert flagged
+
+
+@pytest.mark.gpu
+def test_entropy_12mp_sources_and_routes():
+    """16 4032x3024 sources as the benchmark's maker makes them, in a
+    batch of 32 (orientation 6, whole frames): the kernels equal the host
+    decoder; transcode_pipelined gives the same bytes by both routes, the
+    device route with one launch sequence a batch and no stream redone."""
+    _need_card()
+    from lilliput_tpu_torch.ops import entropy_kernels as E
+    from lilliput_tpu_torch.utils import metrics
+    from portbench.inputs import jpeg_photos
+    srcs = jpeg_photos.make({
+        "width": 4032, "height": 3024, "sources": 16,
+        "qualities": [80, 85, 90], "orientation": 6, "texture": 1.75,
+        "rects": 6}, 3240001240, "cuda")["bufs"]
+    bufs = [srcs[i % 16] for i in range(32)]
+    pipe = JpegTranscodePipeline(srcs[0], 256, 256)
+    host, dev, status = _entropy_both(pipe, bufs)
+    for h, d in zip(host, dev):
+        assert torch.equal(torch.from_numpy(np.asarray(h)), d)
+    assert not status.any()
+    metrics.reset()
+    n0 = E.launches["huffman_decode"]
+    on = pipe.transcode_pipelined([bufs, bufs], return_exceptions=True)
+    assert E.launches["huffman_decode"] == n0 + 2
+    assert metrics.snapshot()["counters"].get(
+        "serving.device_entropy_redo", 0) == 0
+    pipe._device_entropy = False
+    off = pipe.transcode_pipelined([bufs, bufs], return_exceptions=True)
+    assert E.launches["huffman_decode"] == n0 + 2
+    assert on == off

@@ -5,7 +5,7 @@ the counterpart of tools/asan_smoke.py for lilliput_tpu_torch.
     python tools/torch_asan_smoke.py [--small]
 
 Builds binding.HOST_SOURCES (jpeg_huff.cpp, jpeg_enc.cpp, png_filter.cpp,
-gif_codec.cpp, jp2_t1.cpp, yuv_bgr.cpp) with g++ -fsanitize=address
+gif_codec.cpp, jp2_t1.cpp, yuv_bgr.cpp, jpeg_scan.cpp) with g++ -fsanitize=address
 -fno-omit-frame-pointer into lilliput_tpu_torch/_build/asan/ (git-ignored),
 then runs the round trips below in a child process under LD_PRELOAD of the
 compiler's libasan.so, with the port's binding pointed at that library:
@@ -14,6 +14,8 @@ compiler's libasan.so, with the port's binding pointed at that library:
               --small: of the built streams only), of the streams built
               here, and of truncations and bit flips of them, into arrays
               sized from the port's header parse of the same buffer;
+              jpeg_scan.cpp's preparation of each for the device entropy
+              route, into arrays of exactly its capacity;
   jpeg_enc    lpt_jpeg_encode_coefs of random coefficients at odd
               geometries (4:2:0, 4:2:2, 4:4:4, gray), baseline,
               optimize_coding, progressive and restart markers, 8 threads
@@ -125,7 +127,27 @@ def _decode_huff(lib, buf: bytes):
     rc = lib.lp_jpeg_decode_coefs_fast(
         _p(arr), arr.size, (i16p * nc)(*[_p(c, i16p) for c in comps]),
         _p(q, u16p), 2)
+    _prepare_scan(lib, arr, info)
     return rc, comps
+
+
+def _prepare_scan(lib, arr: np.ndarray, info) -> bool:
+    """lpt_jpeg_scan_prepare (jpeg_scan.cpp) of the same buffer into
+    arrays of exactly the size the device entropy route gives it: whether
+    it took the stream."""
+    from lilliput_tpu_torch.ops import entropy_kernels as E
+    nc = int(info.num_components)
+    samp = [(int(info.comp_h_samp[c]), int(info.comp_v_samp[c]))
+            for c in range(nc)]
+    if min(min(s) for s in samp) < 1:
+        return False
+    geom = E.scan_geometry(int(info.width), int(info.height), samp,
+                           [(0, 0, 1, 1)] * nc)
+    return E.prepare_stream(
+        lib, arr, np.empty(E.scan_capacity(arr.size, geom.nmcu), np.uint8),
+        np.empty((geom.nmcu, 2), np.int32),
+        np.empty((2 * nc, E.TABLE_BYTES), np.uint8),
+        np.empty((4, 64), np.uint16), None) is not None
 
 
 def _mutations(rng, buf: bytes, n: int):
@@ -160,7 +182,7 @@ def jpeg_roundtrips(lib, small: bool) -> str:
             restart_rows=1 if opt == "restart" else 0)
     with ThreadPoolExecutor(8) as ex:
         streams = list(ex.map(encode, jobs))
-    same = 0
+    same = prepared = 0
     for job, buf in zip(jobs, streams):
         assert buf[:2] == b"\xff\xd8" and buf[-2:] == b"\xff\xd9", job[:3]
         got = _decode_huff(lib, buf)
@@ -168,6 +190,8 @@ def jpeg_roundtrips(lib, small: bool) -> str:
         rc, dec = got
         if job[6] in ("baseline", "restart"):
             assert rc == 0, (job[:3], job[6], rc)
+            prepared += _prepare_scan(lib, np.frombuffer(buf, np.uint8),
+                                      J.read_info(buf))
         if rc == 0:
             for c, d in zip(job[5], dec):
                 assert np.array_equal(c, d[:c.shape[0], :c.shape[1]]), \
@@ -190,7 +214,8 @@ def jpeg_roundtrips(lib, small: bool) -> str:
                 _decode_huff(lib, m)
                 hostile += 1
     return (f"{len(streams)} streams encoded on 8 threads, {same} decoded "
-            f"back equal, {fixtures} fixtures, {hostile} hostile decodes")
+            f"back equal, {prepared} baseline scans prepared for the card, "
+            f"{fixtures} fixtures, {hostile} hostile decodes")
 
 
 def png_roundtrips(lib) -> str:
