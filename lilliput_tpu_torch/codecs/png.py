@@ -16,6 +16,19 @@ offsets, delay and dispose/blend, which ``ImageOps`` composites.
 min-SAD like libpng, ``lp_png_filter``) and deflate with the
 PngCompression option (opencv.hpp:34), through libdeflate or Python's
 zlib as above, so the two packages write the same bytes on one machine.
+
+Inside a worker's timed call (``utils.worker_clock``: a serving front's
+per-image decode or encode), each stage counts its thread-CPU time on
+that call's clock, which hands the counts to the batch's span: the
+decode's ``png_inflate_cpu_ns``, ``png_unfilter_cpu_ns`` and
+``png_pixels_cpu_ns`` (everything after the unfilter to the end of the
+call: unpacking, 16 -> 8 bits, the colour conversion and the caller's
+copy into its batch), the encode's ``png_filter_cpu_ns`` (the channel
+order and the row filter) and ``png_deflate_cpu_ns``; the routes as
+images, ``png_inflate_fast``/``png_inflate_zlib`` and
+``png_deflate_fast``/``png_deflate_zlib`` (libdeflate or Python's zlib);
+and ``png_raw_bytes``, the inflated bytes. Outside one, nothing is read
+or recorded.
 """
 
 from __future__ import annotations
@@ -23,8 +36,9 @@ from __future__ import annotations
 import ctypes
 import os
 import struct
+import time
 import zlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -37,8 +51,8 @@ from ..framebuffer import (PNG_BILEVEL, PNG_COMPRESSION, PNG_STRATEGY,
                            BlendMethod, DisposeMethod, Framebuffer,
                            ImageHeader, ImageOrientation)
 from ..interfaces import Decoder, Encoder, check_encode_options
-from ..utils import resolve_device
-from ._raster import bgr_from_rgb, lut_gather, to_device
+from ..utils import resolve_device, worker_clock
+from ._raster import bgr_from_rgb, lut_gather, take_channels, to_device
 
 _PNG_ENCODE_KEYS = frozenset({PNG_COMPRESSION, PNG_STRATEGY, PNG_BILEVEL})
 
@@ -68,10 +82,9 @@ def _fast_zlib(lib) -> bool:
     return _FAST_ZLIB
 
 
-def _deflate(data: bytes, level: int, lib=None) -> bytes:
-    """Compress to a zlib-format stream (libdeflate fast path; zlib keeps
-    level-0 stored streams and the no-libdeflate build alike)."""
-    lib = lib if lib is not None else binding.load()
+def _deflate_fast(data: bytes, level: int, lib) -> Optional[bytes]:
+    """libdeflate's zlib-format stream of data, or None where Python's
+    zlib writes it (no libdeflate, level-0 stored streams, no data)."""
     if _fast_zlib(lib) and len(data) > 0 and level > 0:
         src = np.frombuffer(data, np.uint8)
         cap = int(lib.lp_zlib_compress_bound(src.size))
@@ -81,19 +94,30 @@ def _deflate(data: bytes, level: int, lib=None) -> bytes:
                                          _u8ptr(out), cap, level))
             if n > 0:
                 return out[:n].tobytes()
-    return zlib.compress(data, level)
+    return None
+
+
+def _deflate(data: bytes, level: int, lib=None) -> bytes:
+    """Compress to a zlib-format stream (libdeflate fast path; zlib keeps
+    level-0 stored streams and the no-libdeflate build alike)."""
+    lib = lib if lib is not None else binding.load()
+    out = _deflate_fast(data, level, lib)
+    return zlib.compress(data, level) if out is None else out
 
 
 def _deflate_strategy(data: bytes, level: int, strategy: Optional[int],
-                      lib=None) -> bytes:
-    """_deflate with an optional zlib strategy (IMWRITE_PNG_STRATEGY).
-    libdeflate has no strategy knob, so a non-default strategy routes
-    through Python zlib."""
+                      lib) -> Tuple[bytes, bool]:
+    """_deflate with an optional zlib strategy (IMWRITE_PNG_STRATEGY),
+    and whether libdeflate wrote it. libdeflate has no strategy knob, so
+    a non-default strategy routes through Python zlib."""
     if strategy is None or int(strategy) == zlib.Z_DEFAULT_STRATEGY:
-        return _deflate(data, level, lib)
+        out = _deflate_fast(data, level, lib)
+        if out is not None:
+            return out, True
+        return zlib.compress(data, level), False
     co = zlib.compressobj(min(max(int(level), 0), 9), zlib.DEFLATED, 15, 8,
                           int(strategy))
-    return co.compress(data) + co.flush()
+    return co.compress(data) + co.flush(), False
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +194,24 @@ def _inflate_bounded(raw: bytes, expected: int, what: str) -> np.ndarray:
         return np.frombuffer(out, np.uint8)
     except zlib.error as e:
         raise DecodingFailedError(f"{what}: {e}") from e
+
+
+def _inflate_stream(raw: bytes, expected: int, lib,
+                    what: str) -> np.ndarray:
+    """The filtered stream of an image or APNG frame: _inflate_exact,
+    else _inflate_bounded; counted on the worker's clock (see the module
+    docstring)."""
+    clock = worker_clock()
+    t0 = time.thread_time_ns() if clock is not None else 0
+    data = _inflate_exact(raw, expected, lib)
+    fast = data is not None
+    if not fast:
+        data = _inflate_bounded(raw, expected, what)
+    if clock is not None:
+        clock.add(png_inflate_cpu_ns=time.thread_time_ns() - t0,
+                  png_inflate_fast=int(fast), png_inflate_zlib=int(not fast),
+                  png_raw_bytes=data.size)
+    return data
 
 
 def _expected_raw_size(width: int, height: int, ch: int, bit_depth: int,
@@ -275,12 +317,24 @@ def _parse(buf: bytes) -> _PngInfo:
 
 def _unfilter(lib, raw: np.ndarray, rows: int, stride: int,
               bpp: int) -> np.ndarray:
+    clock = worker_clock()
+    t0 = time.thread_time_ns() if clock is not None else 0
     out = np.empty(rows * stride, np.uint8)
     rc = lib.lp_png_unfilter(_u8ptr(raw), _u8ptr(out), rows, stride,
                              max(bpp, 1))
     if rc != 0:
         raise DecodingFailedError("bad PNG filter type")
+    if clock is not None:
+        clock.add(png_unfilter_cpu_ns=time.thread_time_ns() - t0)
     return out
+
+
+def _pixels_from_here() -> None:
+    """The pixels stage starts: counted on the worker's clock from here
+    to the end of its call (the caller's copy into its batch too)."""
+    clock = worker_clock()
+    if clock is not None:
+        clock.until_return("png_pixels_cpu_ns")
 
 
 def _unpack_bits(row_bytes: np.ndarray, bit_depth: int, width: int,
@@ -370,10 +424,8 @@ class PngDecoder(Decoder):
         expected = _expected_raw_size(i.width, i.height,
                                       _CHANNELS[i.color_type], i.bit_depth,
                                       i.interlace)
-        fast = _inflate_exact(idat, expected, self._lib)
-        if fast is not None:
-            return fast
-        return _inflate_bounded(idat, expected, "PNG inflate failed")
+        return _inflate_stream(idat, expected, self._lib,
+                               "PNG inflate failed")
 
     def _reconstruct_samples(self, keep16: bool = False, data=None,
                              width=None, height=None,
@@ -395,6 +447,7 @@ class PngDecoder(Decoder):
                 raise DecodingFailedError("truncated PNG data")
             rows = _unfilter(self._lib, data[:need], height, stride,
                              bpp_bytes)
+            _pixels_from_here()
             return _unpack_bits(rows.reshape(height, stride), i.bit_depth,
                                 width, ch, keep16)
         out = np.zeros((height, width * ch), dtype)
@@ -415,6 +468,8 @@ class PngDecoder(Decoder):
                                    ch, keep16)
             out.reshape(height, width, ch)[y0::dy, x0::dx, :] = (
                 samples.reshape(ph, pw, ch))
+        # Adam7: the passes' unpacking is not in the pixels stage
+        _pixels_from_here()
         return out
 
     def _to_pixels(self, samples: np.ndarray, width: int,
@@ -461,7 +516,7 @@ class PngDecoder(Decoder):
                 px = torch.cat([px, px, px, alpha], dim=-1)
             return px
         if i.color_type == 4:
-            return px[..., [0, 0, 0, 1]]
+            return take_channels(px, [0, 0, 0, 1])
         px = bgr_from_rgb(px)
         return px if alpha is None else torch.cat([px, alpha], dim=-1)
 
@@ -523,10 +578,8 @@ class PngDecoder(Decoder):
         expected = _expected_raw_size(meta["w"], meta["h"],
                                       _CHANNELS[i.color_type], i.bit_depth,
                                       i.interlace)
-        data = _inflate_exact(raw, expected, self._lib)
-        if data is None:
-            data = _inflate_bounded(raw, expected,
-                                    "APNG frame inflate failed")
+        data = _inflate_stream(raw, expected, self._lib,
+                               "APNG frame inflate failed")
         # frames use the IHDR interlace method, Adam7 over the frame rect
         samples = self._reconstruct_samples(
             keep16=i.trns is not None and i.color_type in (0, 2),
@@ -597,8 +650,24 @@ def encode_png_pixels(arr: np.ndarray, level: int = 6,
     strategy: zlib strategy 0..4 (IMWRITE_PNG_STRATEGY passthrough).
     bilevel: 1-bit grayscale output (IMWRITE_PNG_BILEVEL); colour input is
     converted with the BGR luma weights first, then thresholded nonzero."""
+    clock = worker_clock()
+    t0 = time.thread_time_ns() if clock is not None else 0
     lib = binding.load()
     level = min(max(int(level), 0), 9)
+    h, w, _ = arr.shape
+    filtered, bit_depth, color_type = _filtered_rows(arr, bilevel, lib)
+    t1 = time.thread_time_ns() if clock is not None else 0
+    comp, fast = _deflate_strategy(filtered.tobytes(), level, strategy, lib)
+    if clock is not None:
+        clock.add(png_filter_cpu_ns=t1 - t0,
+                  png_deflate_cpu_ns=time.thread_time_ns() - t1,
+                  png_deflate_fast=int(fast), png_deflate_zlib=int(not fast))
+    return _assemble_png(w, h, bit_depth, color_type, comp, icc, lib)
+
+
+def _filtered_rows(arr: np.ndarray, bilevel: bool, lib):
+    """encode_png_pixels' scanlines, each led by its filter byte, with
+    their bit depth and PNG colour type."""
     h, w, c = arr.shape
     if bilevel:
         if c == 1:
@@ -606,9 +675,7 @@ def encode_png_pixels(arr: np.ndarray, level: int = 6,
         else:  # BT.601 luma of BGR, the cv2 color->gray convention
             gray = (arr[:, :, 0] * 0.114 + arr[:, :, 1] * 0.587
                     + arr[:, :, 2] * 0.299 + 0.5).astype(np.uint8)
-        filtered = _pack_bilevel(gray)
-        comp = _deflate_strategy(filtered.tobytes(), level, strategy, lib)
-        return _assemble_png(w, h, 1, 0, comp, icc, lib)
+        return _pack_bilevel(gray), 1, 0
     if c == 3:
         # contiguous RGB by per-channel assignment (the strided copy of a
         # reversed-channel view is far slower)
@@ -632,8 +699,7 @@ def encode_png_pixels(arr: np.ndarray, level: int = 6,
     stride = w * ch
     filtered = np.empty(h * (stride + 1), np.uint8)
     lib.lp_png_filter(_u8ptr(raw), _u8ptr(filtered), h, stride, ch)
-    comp = _deflate_strategy(filtered.tobytes(), level, strategy, lib)
-    return _assemble_png(w, h, 8, color_type, comp, icc, lib)
+    return filtered, 8, color_type
 
 
 def _png_chunk(ctype: bytes, data: bytes) -> bytes:

@@ -1668,7 +1668,9 @@ class StillTranscodePipeline(_ServingPipelineBase):
     _host_cpu_device), into one pinned (B, H, W, C) u8 array. One device
     step then orients, crops, resizes and encodes the batch
     (_fused_still_fit_impl, torch ops: no kernel), and the host
-    Huffman-codes, PNG-encodes or WebP-encodes each output.
+    Huffman-codes, PNG-encodes or WebP-encodes each output. The PNG
+    codec's stage times and zlib routes land on the batch's decode and
+    encode spans (codecs/png.py).
 
     Gray (1-channel) sources give 1-component JPEGs and gray PNGs (3
     channels in WebP); 4-channel sources keep alpha in .png and .webp
@@ -1948,9 +1950,10 @@ def _tmap(fn, items, n_workers: int) -> list:
 def _timed_tmap(fn, n: int, workers: Optional[int],
                 executor=None) -> list:
     """_tmap of fn over range(n) on `workers` threads (8 at most by
-    default), the workers' summed wall and CPU time handed to the
-    caller's open span (utils.WorkerClock; the threads the map ran on
-    as its workers). executor: a ThreadPoolExecutor of that many threads
+    default), the workers' summed wall and CPU time, and the counts
+    their calls added (the PNG codec's stages), handed to the caller's
+    open span (utils.WorkerClock; the threads the map ran on as its
+    workers). executor: a ThreadPoolExecutor of that many threads
     to map on, kept by the caller across calls, instead of a new one."""
     n_workers = workers if workers is not None else min(8, os.cpu_count() or 1)
     clock = WorkerClock()

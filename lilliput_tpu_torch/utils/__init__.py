@@ -2,7 +2,7 @@ import torch
 
 from .metrics import (Metrics, ProfilerRange, SpanLog,  # noqa: F401
                       SpanRecord, StageClock, StageTimer, WorkerClock,
-                      metrics)
+                      metrics, worker_clock)
 from .logging import get_logger  # noqa: F401
 from .profiling import (RecordsDropped, TraceRecords,  # noqa: F401
                         device_trace, measure_device_stages,

@@ -257,6 +257,9 @@ class StageTimer:
         return False
 
 
+_timed_calls = threading.local()  # .clock, .tail: this thread's timed call
+
+
 class WorkerClock:
     """The summed wall and thread-CPU time of a stage's per-item calls,
     made on any of its worker threads: timed(fn) wraps the call, and
@@ -267,14 +270,24 @@ class WorkerClock:
     waiting for a core, where the kernel sees that wait) is not in it.
     Where the kernel counts CPU time in ticks (10 ms under gVisor), a
     call reads a whole number of ticks and only sums over many calls
-    mean anything."""
+    mean anything.
+
+    Code running inside a timed call counts its own stages on the clock
+    that times it (worker_clock()): add() sums counts, and
+    until_return(name) counts the thread-CPU time from then to the end of
+    the call under `name`. counts() hands them to the caller's span with
+    the worker times."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.wall_ns = self.cpu_ns = 0
+        self.stages: Dict[str, int] = {}
 
     def timed(self, fn):
         def call(*args):
+            outer = (getattr(_timed_calls, "clock", None),
+                     getattr(_timed_calls, "tail", None))
+            _timed_calls.clock, _timed_calls.tail = self, None
             w0 = time.perf_counter_ns()
             c0 = time.thread_time_ns()
             try:
@@ -282,14 +295,40 @@ class WorkerClock:
             finally:
                 c1 = time.thread_time_ns()
                 w1 = time.perf_counter_ns()
+                tail = _timed_calls.tail
+                _timed_calls.clock, _timed_calls.tail = outer
                 with self._lock:
                     self.wall_ns += w1 - w0
                     self.cpu_ns += c1 - c0
+                    if tail is not None:
+                        self._add(tail[0], c1 - tail[1])
         return call
+
+    def _add(self, name: str, value: int) -> None:
+        self.stages[name] = self.stages.get(name, 0) + value
+
+    def add(self, **counts: int) -> None:
+        """Add counts from inside a timed call, on any worker thread."""
+        with self._lock:
+            for k, v in counts.items():
+                self._add(k, v)
+
+    def until_return(self, name: str) -> None:
+        """Count this thread's CPU time from now to the end of its timed
+        call under `name` (the last such stage of a call counts)."""
+        _timed_calls.tail = (name, time.thread_time_ns())
 
     def counts(self, workers: int) -> Dict[str, int]:
         return {"workers": workers, "worker_wall_ns": self.wall_ns,
-                "worker_cpu_ns": self.cpu_ns}
+                "worker_cpu_ns": self.cpu_ns, **self.stages}
+
+
+def worker_clock() -> Optional[WorkerClock]:
+    """The WorkerClock timing this thread's current call, else None: a
+    stage that counts itself asks first, so that outside a timed call
+    (a direct decoder or ImageOps call) it reads no clock and records
+    nothing."""
+    return getattr(_timed_calls, "clock", None)
 
 
 class StageClock:

@@ -1,0 +1,11 @@
+"""png_pixels_cpu_ms_per_image (ms): the PNG decode workers' thread-CPU
+time from the unfilter's end to the image's copy into the pinned batch
+(unpacking, the channel swizzle; count png_pixels_cpu_ns of the
+program's "decode" spans), summed over the window's batches, over the images they
+decoded."""
+
+from portbench.png_counts import cpu_ms_per_image
+
+
+def read(ctx):
+    return cpu_ms_per_image(ctx, "decode", ("png_pixels_cpu_ns",))
